@@ -1,0 +1,934 @@
+"""The whole batched AL-SQP solve in one kernel launch (``mpc_tpu.ops.fused_gn``).
+
+One launch runs, for every lane::
+
+    initial rollout                    (rows cached en route)
+    for al_iters:                      # outer multiplier updates
+        for sqp_iters:                 # Gauss-Newton iterations
+            analytic stage quadratics  (closed-form row gradients)
+            RK4/Euler chain-rule Jacobians
+            Riccati backward sweep     (closed-form 2x2 Quu inverse)
+            alphas == ():  unguarded full step, NaN/inf gains scrubbed
+            else:          merit ladder, best trial chain committed
+        multiplier / penalty update    (rows cached for the diagnostics)
+    diagnostics                        (KKT stationarity via the adjoint
+                                        recursion, scaled violation, cost,
+                                        merit)
+
+Two implementations of the same function:
+
+* the CUDA C++ kernel ``csrc/fused_gn.cu`` (one thread per lane), launched
+  by :func:`launch_kernel` on CUDA tensors;
+* :func:`solve_batch_fused_plain`, the plain PyTorch version: the same
+  analytic rows, quadratics, sweep, step branches, multiplier update and
+  adjoint diagnostics over a leading lane axis, with the stage-independent
+  work evaluated for all stages at once.  The CPU runs it, and the kernel is
+  checked against it on the GPU.
+
+:func:`solve_batch_fused` takes a CPU tensor to the plain version and a CUDA
+tensor to the kernel; nothing falls back from one to the other.
+
+Envelope (:func:`eligible`): KS model, method 'al', forcespro or casadi
+rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1, 3, 2) obstacles, no
+boundary rows, any iteration budget, ``alphas=()`` or a ladder of at most
+``MAX_ALPHAS`` rungs.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mpc_tpu_torch.device import resolve_device
+from mpc_tpu_torch.models import constraints as C
+from mpc_tpu_torch.ops import sqp as S
+
+NX = 5
+NU = 2
+NR = 14            # 1 friction + 9 circles + 4 box rows
+NROWVALS = 44      # cached row values + gradients per stage
+MAX_ALPHAS = 16    # ladder rungs the kernel's argument block holds
+THREADS = 64       # threads per block: one lane per thread
+
+
+def make_consts(cfg: S.SolverConfig) -> dict:
+    """Static per-config scalars of the fused kernels."""
+    _, spacing = C.approx_circle_radius(cfg.ego_length, cfg.ego_width)
+    return {
+        "formulation": cfg.formulation,
+        "inv_l": 1.0 / cfg.wheelbase,
+        "a_max": float(cfg.a_max),
+        "d_ego": spacing / 4.0,
+        "u_lo0": float(cfg.bounds.u_lo[0]), "u_hi0": float(cfg.bounds.u_hi[0]),
+        "u_lo1": float(cfg.bounds.u_lo[1]), "u_hi1": float(cfg.bounds.u_hi[1]),
+        "d_lo": float(cfg.bounds.x_lo[2]), "d_hi": float(cfg.bounds.x_hi[2]),
+        "v_lo": float(cfg.bounds.x_lo[3]), "v_hi": float(cfg.bounds.x_hi[3]),
+    }
+
+
+def ineligible_reason(cfg: S.SolverConfig, params: S.OcpParams):
+    """Why the problem is outside the kernel's envelope, or None."""
+    if cfg.method != "al":
+        return (f"method '{cfg.method}': the IP solve is the next slice "
+                "(ROADMAP queue A, item 'IP slice')")
+    if cfg.model != "ks":
+        return (f"model '{cfg.model}': the ST model in the AL kernel is a "
+                "later item (ROADMAP queue A, 'ST and boundary rows')")
+    if cfg.boundary_rows:
+        return ("boundary_rows: boundary rows in the AL kernel are a later "
+                "item (ROADMAP queue A, 'ST and boundary rows')")
+    if params.obs_centers.dim() not in (3, 4):
+        return (f"obs_centers of shape {tuple(params.obs_centers.shape)}: "
+                "want (B, 3, 2) or (B, H+1, 3, 2)")
+    if params.x_ref.shape[-1] != NX:
+        return f"x_ref has {params.x_ref.shape[-1]} state columns, want {NX}"
+    if len(cfg.alphas) > MAX_ALPHAS:
+        return f"{len(cfg.alphas)} ladder rungs, the kernel takes {MAX_ALPHAS}"
+    return None
+
+
+def eligible(cfg: S.SolverConfig, params: S.OcpParams) -> bool:
+    return ineligible_reason(cfg, params) is None
+
+
+# ---------------------------------------------------------------------------
+# math on per-lane "registers": tensors (B,) or (B, S) over S stages at once
+# ---------------------------------------------------------------------------
+
+
+def _ks_ode(x, u, inv_l):
+    px, py, delta, v, psi = x
+    return [v * torch.cos(psi), v * torch.sin(psi), u[0], u[1],
+            v * torch.tan(delta) * inv_l]
+
+
+def _add(a, s, k):
+    return [a[i] + s * k[i] for i in range(NX)]
+
+
+def _step_rows(x, u, dt, inv_l, integrator):
+    """Discrete KS step on row-lists (RK4 / Euler)."""
+    if integrator == "euler":
+        return _add(x, dt, _ks_ode(x, u, inv_l))
+    k1 = _ks_ode(x, u, inv_l)
+    k2 = _ks_ode(_add(x, 0.5 * dt, k1), u, inv_l)
+    k3 = _ks_ode(_add(x, 0.5 * dt, k2), u, inv_l)
+    k4 = _ks_ode(_add(x, dt, k3), u, inv_l)
+    return [x[i] + (dt / 6.0) * (k1[i] + 2.0 * k2[i] + 2.0 * k3[i] + k4[i])
+            for i in range(NX)]
+
+
+def _jmul(x, M, inv_l, ncol):
+    """J(x) @ M with the KS Jacobian's 6-nonzero sparsity.
+
+    f0 <- (cos psi) d v - (v sin psi) d psi
+    f1 <- (sin psi) d v + (v cos psi) d psi
+    f4 <- (v (1 + tan^2 delta) / l) d delta + (tan delta / l) d v
+    """
+    delta, v, psi = x[2], x[3], x[4]
+    t = torch.tan(delta)
+    cp, sp = torch.cos(psi), torch.sin(psi)
+    dvd = v * (1.0 + t * t) * inv_l
+    tl = t * inv_l
+    row0 = [cp * M[3][j] - (v * sp) * M[4][j] for j in range(ncol)]
+    row1 = [sp * M[3][j] + (v * cp) * M[4][j] for j in range(ncol)]
+    zrow = [0.0 for _ in range(ncol)]
+    row4 = [dvd * M[2][j] + tl * M[3][j] for j in range(ncol)]
+    return [row0, row1, zrow, zrow, row4]
+
+
+def _macc(base, s, k, n, m):
+    return [[base[i][j] + s * k[i][j] for j in range(m)] for i in range(n)]
+
+
+def _lin_step(x, u, dt, inv_l, integrator):
+    """Analytic (A, B) of the discrete step (chain rule through RK4/Euler).
+    Row-lists A (5x5), Bm (5x2); structural entries are Python floats."""
+    eye = [[1.0 if i == j else 0.0 for j in range(NX)] for i in range(NX)]
+    fu = [[0.0] * NU for _ in range(NX)]
+    fu[2][0] = 1.0
+    fu[3][1] = 1.0
+    if integrator == "euler":
+        A = _macc(eye, dt, _jmul(x, eye, inv_l, NX), NX, NX)
+        Bm = [[dt * fu[i][j] for j in range(NU)] for i in range(NX)]
+        return A, Bm
+    k1 = _ks_ode(x, u, inv_l)
+    x2 = _add(x, 0.5 * dt, k1)
+    k2 = _ks_ode(x2, u, inv_l)
+    x3 = _add(x, 0.5 * dt, k2)
+    k3 = _ks_ode(x3, u, inv_l)
+    x4 = _add(x, dt, k3)
+
+    dk1x = _jmul(x, eye, inv_l, NX)
+    dk2x = _jmul(x2, _macc(eye, 0.5 * dt, dk1x, NX, NX), inv_l, NX)
+    dk3x = _jmul(x3, _macc(eye, 0.5 * dt, dk2x, NX, NX), inv_l, NX)
+    dk4x = _jmul(x4, _macc(eye, dt, dk3x, NX, NX), inv_l, NX)
+    A = [[eye[i][j] + (dt / 6.0) * (dk1x[i][j] + 2.0 * dk2x[i][j]
+                                    + 2.0 * dk3x[i][j] + dk4x[i][j])
+          for j in range(NX)] for i in range(NX)]
+
+    zero_u = [[0.0] * NU for _ in range(NX)]
+    dk1u = fu
+    dk2u = _macc(_jmul(x2, _macc(zero_u, 0.5 * dt, dk1u, NX, NU), inv_l, NU),
+                 1.0, fu, NX, NU)
+    dk3u = _macc(_jmul(x3, _macc(zero_u, 0.5 * dt, dk2u, NX, NU), inv_l, NU),
+                 1.0, fu, NX, NU)
+    dk4u = _macc(_jmul(x4, _macc(zero_u, dt, dk3u, NX, NU), inv_l, NU),
+                 1.0, fu, NX, NU)
+    Bm = [[(dt / 6.0) * (dk1u[i][j] + 2.0 * dk2u[i][j] + 2.0 * dk3u[i][j]
+                         + dk4u[i][j]) for j in range(NU)]
+          for i in range(NX)]
+    return A, Bm
+
+
+class _Rows:
+    """Per-stage rows with their sparse gradients.
+
+    friction: h_f, gf = (g_delta, g_v, g_a)
+    circles:  9 x (d, ux, uy, g_psi)   [grad wrt px, py, psi]
+    boxes:    [u0, u1, delta, v] identity rows
+    """
+
+    __slots__ = ("h_f", "gf", "circ", "box")
+
+
+def _compute_rows(x, u_eff, obs, consts, is_term, k_is0):
+    """Rows at (x, u_eff); obs is 6 registers [o_xy x 3]; k_is0 is a bool
+    tensor (the casadi friction row binds stage 0 only)."""
+    px, py, delta, v, psi = x
+    a = u_eff[1]
+    inv_l = consts["inv_l"]
+    r = _Rows()
+    t = torch.tan(delta)
+    if consts["formulation"] == "forcespro":
+        w = v * v * t * inv_l            # v * psidot
+        r.h_f = a * a + w * w
+        g_delta = 2.0 * w * v * v * (1.0 + t * t) * inv_l
+        g_v = 4.0 * w * v * t * inv_l
+        g_a = 2.0 * a
+    else:  # casadi: |a^2 + v^2 tan(delta)/l|, stage 0 only
+        s_val = a * a + v * v * t * inv_l
+        sgn = torch.sign(s_val)
+        zero = torch.zeros((), dtype=s_val.dtype, device=s_val.device)
+        r.h_f = torch.where(k_is0, torch.abs(s_val), zero)
+        g_delta = torch.where(k_is0, sgn * v * v * (1.0 + t * t) * inv_l, zero)
+        g_v = torch.where(k_is0, sgn * 2.0 * v * t * inv_l, zero)
+        g_a = torch.where(k_is0, sgn * 2.0 * a, zero)
+    if is_term:
+        g_a = torch.zeros_like(g_a)  # terminal u columns are dropped
+    r.gf = (g_delta, g_v, g_a)
+
+    cp, sp = torch.cos(psi), torch.sin(psi)
+    d_ego = consts["d_ego"]
+    ks = (0.0, d_ego, -d_ego)
+    if consts["formulation"] == "forcespro":
+        pairs = [(i, j) for i in range(3) for j in range(3)]  # all 9
+    else:
+        pairs = [(i, i) for i in range(3) for _ in range(3)]  # matched x3
+    circ = []
+    for (i, j) in pairs:
+        dx = px + ks[i] * cp - obs[2 * j]
+        dy = py + ks[i] * sp - obs[2 * j + 1]
+        dist = torch.sqrt(dx * dx + dy * dy + 1e-9)
+        inv_d = 1.0 / dist
+        ux = dx * inv_d
+        uy = dy * inv_d
+        g_psi = (ks[i] * (-ux * sp + uy * cp) if ks[i] != 0.0
+                 else torch.zeros_like(ux))
+        circ.append((dist, ux, uy, g_psi))
+    r.circ = circ
+    r.box = (u_eff[0], u_eff[1], delta, v)
+    return r
+
+
+def _row_values(r):
+    return [r.h_f] + [c[0] for c in r.circ] + list(r.box)
+
+
+def _row_bounds(consts, mind, is_term):
+    """(lo, hi) per row; None = unbounded.  mind is per lane."""
+    a_cap = (consts["a_max"] ** 2 if consts["formulation"] == "forcespro"
+             else consts["a_max"])
+    bounds = [(0.0, a_cap)] + [(mind, None)] * 9
+    if is_term:
+        bounds += [(None, None), (None, None)]
+    else:
+        bounds += [(consts["u_lo0"], consts["u_hi0"]),
+                   (consts["u_lo1"], consts["u_hi1"])]
+    bounds += [(consts["d_lo"], consts["d_hi"]),
+               (consts["v_lo"], consts["v_hi"])]
+    return bounds
+
+
+def _al_one_sided(h, bound, lam, mu, is_hi):
+    """AL terms of one side: (psi, d psi / d h, GN diagonal)."""
+    c = (h - bound) if is_hi else (bound - h)
+    t = lam + mu * c
+    act = t > 0
+    m = torch.where(act, t, 0.0)
+    psi = (m * m - lam * lam) / (2.0 * mu)
+    return psi, (m if is_hi else -m), torch.where(act, mu, 0.0)
+
+
+def _row_terms(r, bounds, lam_lo, lam_hi, mu):
+    """Per row: (psi, gh, gn) summed over the row's bounded sides."""
+    out = []
+    for i, (h, (lo, hi)) in enumerate(zip(_row_values(r), bounds)):
+        psi, gh, gn = 0.0, 0.0, 0.0
+        for bound, is_hi, lam in ((hi, True, lam_hi), (lo, False, lam_lo)):
+            if bound is not None:
+                p, g, n = _al_one_sided(h, bound, lam[i], mu[i], is_hi)
+                psi, gh, gn = psi + p, gh + g, gn + n
+        out.append((psi, gh, gn))
+    return out
+
+
+def _stage_psi(terms):
+    psi = terms[0][0]
+    for t in terms[1:]:
+        psi = psi + t[0]
+    return psi
+
+
+def _stage_cost(x, u, xref, wq, wr):
+    c = wq[0] * (x[0] - xref[0]) * (x[0] - xref[0])
+    for i in range(1, NX):
+        c = c + wq[i] * (x[i] - xref[i]) * (x[i] - xref[i])
+    for i in range(NU):
+        c = c + wr[i] * u[i] * u[i]
+    return c
+
+
+def _term_cost(x, xref, wqN):
+    c = wqN[0] * (x[0] - xref[0]) * (x[0] - xref[0])
+    for i in range(1, NX):
+        c = c + wqN[i] * (x[i] - xref[i]) * (x[i] - xref[i])
+    return c
+
+
+def _assemble_quad(r, terms, x, u_eff, xref, wq, wr, is_term, wqN=None,
+                   use_terminal=True):
+    """GN quadratic of cost + AL rows at one stage (sparse analytic form).
+
+    Returns row-lists (Q 5x5, R 2x2, M 5x2, qx 5, qu 2), or (QH, qH) when
+    is_term.
+    """
+    z = torch.zeros_like(x[0])
+    Q = [[z for _ in range(NX)] for _ in range(NX)]
+    qx = [z for _ in range(NX)]
+    R = [[z for _ in range(NU)] for _ in range(NU)]
+    M = [[z for _ in range(NU)] for _ in range(NX)]
+    qu = [z for _ in range(NU)]
+
+    _, gh, gn = terms[0]                       # friction -> (delta, v, a)
+    gd, gv, ga = r.gf
+    Q[2][2] = Q[2][2] + gn * gd * gd
+    Q[2][3] = Q[2][3] + gn * gd * gv
+    Q[3][3] = Q[3][3] + gn * gv * gv
+    qx[2] = qx[2] + gh * gd
+    qx[3] = qx[3] + gh * gv
+    if not is_term:
+        R[1][1] = R[1][1] + gn * ga * ga
+        M[2][1] = M[2][1] + gn * gd * ga
+        M[3][1] = M[3][1] + gn * gv * ga
+        qu[1] = qu[1] + gh * ga
+
+    for idx, (_, ux, uy, gp) in enumerate(r.circ):  # -> (px, py, psi)
+        _, gh, gn = terms[1 + idx]
+        Q[0][0] = Q[0][0] + gn * ux * ux
+        Q[0][1] = Q[0][1] + gn * ux * uy
+        Q[1][1] = Q[1][1] + gn * uy * uy
+        Q[0][4] = Q[0][4] + gn * ux * gp
+        Q[1][4] = Q[1][4] + gn * uy * gp
+        Q[4][4] = Q[4][4] + gn * gp * gp
+        qx[0] = qx[0] + gh * ux
+        qx[1] = qx[1] + gh * uy
+        qx[4] = qx[4] + gh * gp
+
+    if not is_term:                            # box rows u0, u1
+        R[0][0] = R[0][0] + terms[10][2]
+        qu[0] = qu[0] + terms[10][1]
+        R[1][1] = R[1][1] + terms[11][2]
+        qu[1] = qu[1] + terms[11][1]
+    Q[2][2] = Q[2][2] + terms[12][2]           # box rows delta, v
+    qx[2] = qx[2] + terms[12][1]
+    Q[3][3] = Q[3][3] + terms[13][2]
+    qx[3] = qx[3] + terms[13][1]
+
+    if is_term:
+        if use_terminal:
+            for i in range(NX):
+                Q[i][i] = Q[i][i] + 2.0 * wqN[i]
+                qx[i] = qx[i] + 2.0 * wqN[i] * (x[i] - xref[i])
+    else:
+        for i in range(NX):
+            Q[i][i] = Q[i][i] + 2.0 * wq[i]
+            qx[i] = qx[i] + 2.0 * wq[i] * (x[i] - xref[i])
+        for i in range(NU):
+            R[i][i] = R[i][i] + 2.0 * wr[i]
+            qu[i] = qu[i] + 2.0 * wr[i] * u_eff[i]
+
+    Q[1][0] = Q[0][1]
+    Q[3][2] = Q[2][3]
+    Q[4][0] = Q[0][4]
+    Q[4][1] = Q[1][4]
+    if is_term:
+        return Q, qx
+    return Q, R, M, qx, qu
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+
+def _cols(t, n):
+    """Last axis of ``t`` as a row-list of n registers."""
+    return [t[..., i] for i in range(n)]
+
+
+def _mat(rows, like):
+    """Row-list matrix (registers or Python floats) -> tensor (..., n, m)."""
+    return torch.stack([torch.stack([e if torch.is_tensor(e)
+                                     else torch.full_like(like, e)
+                                     for e in row], -1) for row in rows], -2)
+
+
+def _vec(entries, like):
+    return torch.stack([e if torch.is_tensor(e) else torch.full_like(like, e)
+                        for e in entries], -1)
+
+
+def _mm(a, b):
+    """Batched small matrix product as multiply + sum (full fp32)."""
+    return (a.unsqueeze(-1) * b.unsqueeze(-3)).sum(-2)
+
+
+def _mv(a, v):
+    return (a * v.unsqueeze(-2)).sum(-1)
+
+
+def _clip(x, lo, hi):
+    return torch.clamp(x, lo, hi)  # propagates NaN like jnp.clip
+
+
+class _Problem:
+    """Per-lane data of one solve as registers (lanes leading)."""
+
+    def __init__(self, cfg, params):
+        self.H = cfg.horizon
+        self.consts = make_consts(cfg)
+        B = params.x0.shape[0]
+        w = params.weights
+        self.wq = _cols(w.q.reshape(B, 1, NX), NX)       # (B, 1) registers
+        self.wr = _cols(w.r.reshape(B, 1, NU), NU)
+        self.wqN = _cols(w.qN.reshape(B, NX), NX)         # (B,) registers
+        self.x0 = params.x0
+        self.xref = params.x_ref                          # (B, H+1, NX)
+        obs = params.obs_centers
+        self.moving = obs.dim() == 4
+        self.obs = (obs.reshape(B, self.H + 1, 6) if self.moving
+                    else obs.reshape(B, 1, 6))
+        self.mind = params.min_dist.reshape(B, 1)
+        stage = torch.arange(self.H, device=params.x0.device)
+        self.k_is0 = (stage == 0).unsqueeze(0)            # (1, H)
+
+    def obs_stages(self):
+        return _cols(self.obs[:, :self.H] if self.moving else self.obs, 6)
+
+    def obs_term(self):
+        return _cols(self.obs[:, self.H] if self.moving else self.obs[:, 0],
+                     6)
+
+
+def _stage_rows(pb, X, U):
+    """Rows of stages 0..H-1, registers (B, H)."""
+    return _compute_rows(_cols(X[:, :-1], NX), _cols(U, NU), pb.obs_stages(),
+                         pb.consts, False, pb.k_is0)
+
+
+def _term_rows(pb, X):
+    xT = _cols(X[:, -1], NX)
+    zero = torch.zeros_like(xT[0])
+    return _compute_rows(xT, [zero, zero], pb.obs_term(), pb.consts, True,
+                         torch.zeros_like(xT[0], dtype=torch.bool))
+
+
+def _stage_merits(cfg, pb, X, U, lam_lo, lam_hi, mu):
+    """Per-stage cost + AL psi, (B, H), and the terminal term, (B,)."""
+    H = pb.H
+    rs = _stage_rows(pb, X, U)
+    terms = _row_terms(rs, _row_bounds(pb.consts, pb.mind, False),
+                       _cols(lam_lo[:, :H], NR), _cols(lam_hi[:, :H], NR),
+                       _cols(mu[:, :H], NR))
+    m_k = (_stage_cost(_cols(X[:, :H], NX), _cols(U, NU),
+                       _cols(pb.xref[:, :H], NX), pb.wq, pb.wr)
+           + _stage_psi(terms))
+    rT = _term_rows(pb, X)
+    termsT = _row_terms(rT, _row_bounds(pb.consts, pb.mind[:, 0], True),
+                        _cols(lam_lo[:, H], NR), _cols(lam_hi[:, H], NR),
+                        _cols(mu[:, H], NR))
+    psiT = _stage_psi(termsT)
+    cT = (_term_cost(_cols(X[:, H], NX), _cols(pb.xref[:, H], NX), pb.wqN)
+          if cfg.use_terminal_cost else torch.zeros_like(psiT))
+    return m_k, cT + psiT
+
+
+def _rollout(cfg, pb, U):
+    x = _cols(pb.x0, NX)
+    xs = [torch.stack(x, -1)]
+    for k in range(pb.H):
+        x = _step_rows(x, _cols(U[:, k], NU), float(cfg.dt),
+                       pb.consts["inv_l"], cfg.integrator)
+        xs.append(torch.stack(x, -1))
+    return torch.stack(xs, 1)
+
+
+def _feedback_rollout(cfg, pb, X, U, K, d, alpha):
+    """u = clip(ub + alpha d + K (x - xb)) along the nonlinear dynamics;
+    alpha None is the unguarded step (ub + d + K dx)."""
+    c = pb.consts
+    x = pb.x0
+    xs, us = [x], []
+    for k in range(pb.H):
+        fb = _mv(K[:, k], x - X[:, k])
+        step = d[:, k] if alpha is None else alpha * d[:, k]
+        u = U[:, k] + step + fb
+        u = torch.stack([_clip(u[:, 0], c["u_lo0"], c["u_hi0"]),
+                         _clip(u[:, 1], c["u_lo1"], c["u_hi1"])], -1)
+        us.append(u)
+        x = torch.stack(_step_rows(_cols(x, NX), _cols(u, NU), float(cfg.dt),
+                                   c["inv_l"], cfg.integrator), -1)
+        xs.append(x)
+    return torch.stack(xs, 1), torch.stack(us, 1)
+
+
+def _quadratics(cfg, pb, X, U, lam_lo, lam_hi, mu):
+    """Stage quadratics (B, H, ...), terminal (QH, qH) and the Jacobians."""
+    H = pb.H
+    xk, uk = _cols(X[:, :H], NX), _cols(U, NU)
+    rs = _stage_rows(pb, X, U)
+    terms = _row_terms(rs, _row_bounds(pb.consts, pb.mind, False),
+                       _cols(lam_lo[:, :H], NR), _cols(lam_hi[:, :H], NR),
+                       _cols(mu[:, :H], NR))
+    Q, R, M, qx, qu = _assemble_quad(rs, terms, xk, uk,
+                                     _cols(pb.xref[:, :H], NX), pb.wq, pb.wr,
+                                     False)
+    like = xk[0]
+    A, Bm = _lin_step(xk, uk, float(cfg.dt), pb.consts["inv_l"],
+                      cfg.integrator)
+    xT = _cols(X[:, H], NX)
+    zero = torch.zeros_like(xT[0])
+    rT = _term_rows(pb, X)
+    termsT = _row_terms(rT, _row_bounds(pb.consts, pb.mind[:, 0], True),
+                        _cols(lam_lo[:, H], NR), _cols(lam_hi[:, H], NR),
+                        _cols(mu[:, H], NR))
+    QH, qH = _assemble_quad(rT, termsT, xT, [zero, zero],
+                            _cols(pb.xref[:, H], NX), pb.wq, pb.wr, True,
+                            pb.wqN, cfg.use_terminal_cost)
+    return dict(Q=_mat(Q, like), R=_mat(R, like), M=_mat(M, like),
+                qx=_vec(qx, like), qu=_vec(qu, like),
+                A=_mat(A, like), Bm=_mat(Bm, like),
+                QH=_mat(QH, zero), qH=_vec(qH, zero),
+                rows=rs, terms=terms, rowsT=rT, termsT=termsT)
+
+
+def _backward_sweep(cfg, pb, qd):
+    """Riccati sweep with the closed-form 2x2 Quu inverse -> K, d."""
+    reg = float(cfg.reg)
+    P, p = qd["QH"], qd["qH"]
+    Ks, ds = [None] * pb.H, [None] * pb.H
+    for k in range(pb.H - 1, -1, -1):
+        A, Bm = qd["A"][:, k], qd["Bm"][:, k]
+        At, Bt = A.transpose(-1, -2), Bm.transpose(-1, -2)
+        PA, PB = _mm(P, A), _mm(P, Bm)
+        Qxx = qd["Q"][:, k] + _mm(At, PA)
+        Quu = qd["R"][:, k] + _mm(Bt, PB)
+        Qux = qd["M"][:, k].transpose(-1, -2) + _mm(Bt, PA)
+        gx = qd["qx"][:, k] + _mv(At, p)
+        gu = qd["qu"][:, k] + _mv(Bt, p)
+        a = Quu[:, 0, 0] + reg
+        b = Quu[:, 0, 1]
+        c = Quu[:, 1, 0]
+        dd2 = Quu[:, 1, 1] + reg
+        inv_det = 1.0 / (a * dd2 - b * c)
+        Qi = torch.stack([torch.stack([dd2 * inv_det, -b * inv_det], -1),
+                          torch.stack([-c * inv_det, a * inv_det], -1)], -2)
+        K = -_mm(Qi, Qux)
+        d = -_mv(Qi, gu)
+        QuxT = Qux.transpose(-1, -2)
+        P_new = Qxx + _mm(QuxT, K)
+        P = 0.5 * (P_new + P_new.transpose(-1, -2))
+        p = gx + _mv(QuxT, d)
+        Ks[k], ds[k] = K, d
+    return torch.stack(Ks, 1), torch.stack(ds, 1)
+
+
+def _finite(t):
+    return torch.where(torch.isfinite(t), t, torch.zeros_like(t))
+
+
+def _multiplier_update(cfg, pb, X, U, lam_lo, lam_hi, mu, prev_viol):
+    """First-order multiplier update + per-row penalty growth at all H+1
+    stages (stage H: inputs masked to 0, u-box rows left unchanged)."""
+    H = pb.H
+    U_eff = torch.cat([U, torch.zeros_like(U[:, :1])], 1)     # (B, H+1, 2)
+    obs = _cols(pb.obs, 6)
+    k_is0 = (torch.arange(H + 1, device=X.device) == 0).unsqueeze(0)
+    r = _compute_rows(_cols(X, NX), _cols(U_eff, NU), obs, pb.consts, False,
+                      k_is0)
+    hs = _row_values(r)
+    is_last = (torch.arange(H + 1, device=X.device) == H).unsqueeze(0)
+    zero = torch.zeros((), dtype=X.dtype, device=X.device)
+    new = []
+    for i, (lo, hi) in enumerate(_row_bounds(pb.consts, pb.mind, False)):
+        ll, lh, m, pv = (lam_lo[..., i], lam_hi[..., i], mu[..., i],
+                         prev_viol[..., i])
+        if hi is not None:
+            t_hi = lh + m * (hs[i] - hi)
+            lh_n = _clip(torch.where(t_hi > 0, t_hi, zero), 0.0, cfg.lam_max)
+            v_hi = torch.maximum(hs[i] - hi, zero)
+        else:
+            lh_n, v_hi = lh, zero
+        if lo is not None:
+            t_lo = ll + m * (lo - hs[i])
+            ll_n = _clip(torch.where(t_lo > 0, t_lo, zero), 0.0, cfg.lam_max)
+            v_lo = torch.maximum(lo - hs[i], zero)
+        else:
+            ll_n, v_lo = ll, zero
+        viol = torch.maximum(v_hi, v_lo)
+        if i in (10, 11):
+            lh_n = torch.where(is_last, lh, lh_n)
+            ll_n = torch.where(is_last, ll, ll_n)
+            viol = torch.where(is_last, zero, viol)
+        stalled = viol > cfg.viol_improve * pv
+        active = viol > cfg.tol_feas
+        m_new = _clip(torch.where(stalled & active, m * cfg.mu_factor, m),
+                      cfg.mu0, cfg.mu_max)
+        new.append((ll_n, lh_n, m_new, viol))
+    return tuple(torch.stack([n[j] for n in new], -1) for j in range(4))
+
+
+def _scaled_viol(hs, bounds, inv_scale, init):
+    v = init
+    for i, (lo, hi) in enumerate(bounds):
+        if hi is not None:
+            v = torch.maximum(v, (hs[i] - hi) * inv_scale[i])
+        if lo is not None:
+            v = torch.maximum(v, (lo - hs[i]) * inv_scale[i])
+    return v
+
+
+def _diagnostics(cfg, pb, X, U, lam_lo, lam_hi, mu):
+    """(stat, viol, cost, merit) per lane: KKT stationarity by the adjoint
+    recursion lam_H = qH, g_u[k] = qu + B' lam_{k+1}, lam_k = qx + A' lam_{k+1}."""
+    H = pb.H
+    c = pb.consts
+    fr_scale = c["a_max"] ** 2 if c["formulation"] == "forcespro" \
+        else c["a_max"]
+    inv_scale = [1.0 / fr_scale] + [1.0] * (NR - 1)
+    qd = _quadratics(cfg, pb, X, U, lam_lo, lam_hi, mu)
+    psiT = _stage_psi(qd["termsT"])
+    costT = (_term_cost(_cols(X[:, H], NX), _cols(pb.xref[:, H], NX), pb.wqN)
+             if cfg.use_terminal_cost else torch.zeros_like(psiT))
+    zero = torch.zeros_like(psiT)
+    violT = _scaled_viol(_row_values(qd["rowsT"]),
+                         _row_bounds(c, pb.mind[:, 0], True), inv_scale, zero)
+    viol_k = _scaled_viol(_row_values(qd["rows"]),
+                          _row_bounds(c, pb.mind, False), inv_scale,
+                          torch.zeros_like(X[:, :H, 0]))
+    cost_k = _stage_cost(_cols(X[:, :H], NX), _cols(U, NU),
+                         _cols(pb.xref[:, :H], NX), pb.wq, pb.wr)
+    psi_k = _stage_psi(qd["terms"])
+
+    lam = qd["qH"]
+    stat = zero
+    viol = torch.maximum(violT, zero)
+    cost = costT
+    merit = costT + psiT
+    for k in range(H - 1, -1, -1):
+        g_u = qd["qu"][:, k] + _mv(qd["Bm"][:, k].transpose(-1, -2), lam)
+        lam = qd["qx"][:, k] + _mv(qd["A"][:, k].transpose(-1, -2), lam)
+        stat = torch.maximum(stat, torch.maximum(g_u[:, 0].abs(),
+                                                 g_u[:, 1].abs()))
+        viol = torch.maximum(viol, viol_k[:, k])
+        cost = cost + cost_k[:, k]
+        merit = merit + cost_k[:, k] + psi_k[:, k]
+    return stat, viol, cost, merit
+
+
+def solve_batch_fused_plain(cfg: S.SolverConfig, params: S.OcpParams,
+                            state: S.SqpState, rungs: list | None = None,
+                            follow: torch.Tensor | None = None):
+    """The kernel's function in plain PyTorch; returns (X, U, lam_lo,
+    lam_hi, mu, prev_viol, diag (B, 4)) like the kernel's outputs.
+
+    With the ladder on, a list ``rungs`` receives for each GN iteration
+    (rung (B,), merits (R, B)): the rung it committed (0 for alpha = 0,
+    r + 1 for ``alphas[r]``, as in the kernel's rung buffer) and the merit
+    of every rung.  ``follow`` (al_iters * sqp_iters, B) makes iteration i
+    commit the rungs ``follow[i]`` instead of the best ones, which replays
+    the kernel's choices.
+    """
+    pb = _Problem(cfg, params)
+    U = state.U
+    lam_lo, lam_hi, prev_viol = state.lam_lo, state.lam_hi, state.prev_viol
+    mu = _prepared_mu(cfg, state.mu)
+    X = _rollout(cfg, pb, U)
+    for ai in range(cfg.al_iters):
+        for si in range(cfg.sqp_iters):
+            qd = _quadratics(cfg, pb, X, U, lam_lo, lam_hi, mu)
+            K, d = _backward_sweep(cfg, pb, qd)
+            if len(cfg.alphas) == 0:
+                # unguarded full RTI step: scrub NaN/inf gains, commit the
+                # alpha=1 chain (non-finite rollouts included)
+                X, U = _feedback_rollout(cfg, pb, X, U, _finite(K),
+                                         _finite(d), None)
+                continue
+            # ladder: alpha=0 reproduces the iterate; strictly better
+            # trials win in rung order
+            best_X, best_U, best_m, merits = None, None, None, []
+            best_r = torch.zeros_like(pb.x0[:, 0], dtype=torch.int32)
+            for r, a_val in enumerate((0.0,) + tuple(cfg.alphas)):
+                alpha = torch.full_like(pb.x0[:, :1], a_val)
+                Xa, Ua = _feedback_rollout(cfg, pb, X, U, K, d, alpha)
+                m_k, m_T = _stage_merits(cfg, pb, Xa, Ua, lam_lo, lam_hi, mu)
+                m = torch.zeros_like(m_T)
+                for k in range(pb.H):
+                    m = m + m_k[:, k]
+                m = m + m_T
+                merits.append(m)
+                if best_m is None:
+                    best_X, best_U, best_m = Xa, Ua, m
+                    continue
+                take = (m < best_m if follow is None
+                        else follow[ai * cfg.sqp_iters + si] == r)
+                best_r = torch.where(take, r, best_r)
+                best_m = torch.where(take, m, best_m)
+                best_X = torch.where(take[:, None, None], Xa, best_X)
+                best_U = torch.where(take[:, None, None], Ua, best_U)
+            X, U = best_X, best_U
+            if rungs is not None:
+                rungs.append((best_r, torch.stack(merits)))
+        lam_lo, lam_hi, mu, prev_viol = _multiplier_update(
+            cfg, pb, X, U, lam_lo, lam_hi, mu, prev_viol)
+    diag = torch.stack(_diagnostics(cfg, pb, X, U, lam_lo, lam_hi, mu), -1)
+    return X, U, lam_lo, lam_hi, mu, prev_viol, diag
+
+
+def _prepared_mu(cfg, mu):
+    """Penalties the solve starts from: at least mu0, and mu0 where <= 0."""
+    mu = torch.maximum(mu, torch.full_like(mu, cfg.mu0))
+    return torch.where(mu <= 0.0, torch.full_like(mu, cfg.mu0), mu)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+class FgnArgs(ctypes.Structure):
+    """Mirror of ``struct FgnArgs`` in csrc/fused_gn.cu (all 4-byte)."""
+
+    _fields_ = [(n, ctypes.c_int32) for n in (
+        "B", "H", "al_iters", "sqp_iters", "n_alphas", "forcespro", "rk4",
+        "moving", "use_term", "threads")] + [(n, ctypes.c_float) for n in (
+            "dt", "half_dt", "dt6", "inv_l", "reg", "d_ego", "a_cap",
+            "inv_fr_scale", "u_lo0", "u_hi0", "u_lo1", "u_hi1", "d_lo",
+            "d_hi", "v_lo", "v_hi", "mu0", "mu_factor", "mu_max",
+            "viol_improve", "lam_max", "tol_feas")] + [
+        ("alphas", ctypes.c_float * MAX_ALPHAS)]
+
+
+def kernel_args(cfg: S.SolverConfig, B: int, moving: bool,
+                threads: int = THREADS) -> FgnArgs:
+    c = make_consts(cfg)
+    dt = float(cfg.dt)
+    fr = c["a_max"] ** 2 if c["formulation"] == "forcespro" else c["a_max"]
+    a = FgnArgs(
+        B=B, H=cfg.horizon, al_iters=cfg.al_iters, sqp_iters=cfg.sqp_iters,
+        n_alphas=len(cfg.alphas), forcespro=int(cfg.formulation ==
+                                                "forcespro"),
+        rk4=int(cfg.integrator == "rk4"), moving=int(moving),
+        use_term=int(cfg.use_terminal_cost), threads=threads,
+        dt=dt, half_dt=0.5 * dt, dt6=dt / 6.0, inv_l=c["inv_l"],
+        reg=float(cfg.reg), d_ego=c["d_ego"], a_cap=fr, inv_fr_scale=1.0 / fr,
+        u_lo0=c["u_lo0"], u_hi0=c["u_hi0"], u_lo1=c["u_lo1"],
+        u_hi1=c["u_hi1"], d_lo=c["d_lo"], d_hi=c["d_hi"], v_lo=c["v_lo"],
+        v_hi=c["v_hi"], mu0=cfg.mu0, mu_factor=cfg.mu_factor,
+        mu_max=cfg.mu_max, viol_improve=cfg.viol_improve,
+        lam_max=cfg.lam_max, tol_feas=cfg.tol_feas)
+    for i, v in enumerate(cfg.alphas):
+        a.alphas[i] = v
+    return a
+
+
+def _soa(t):
+    """(B, *mid) -> (*mid, B), always a new contiguous tensor: lanes
+    fastest, so a warp's 32 threads read neighbouring addresses.  A state
+    unpacked from an earlier solve is already lanes-fastest underneath, and
+    ``.contiguous()`` would hand back that very buffer for the kernel to
+    overwrite."""
+    return t.permute(*range(1, t.dim()), 0).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _aos(t):
+    """(*mid, B) -> (B, *mid) view (the package's public layout)."""
+    return t.permute(t.dim() - 1, *range(t.dim() - 1))
+
+
+# the kernel's buffers in the order of fused_gn_solve's pointer arguments
+KERNEL_INPUTS = ("x0", "xref", "obs", "mind", "w")
+KERNEL_STATE = ("U", "lam_lo", "lam_hi", "mu", "pviol")   # updated in place
+KERNEL_OUTPUTS = ("X", "diag")
+KERNEL_SCRATCH = ("K", "d", "rows", "Xc", "Uc")
+KERNEL_TRACE = ("rung",)     # optional: the rung each ladder step committed
+_OUT_ORDER = ("X", "U", "lam_lo", "lam_hi", "mu", "pviol", "diag")
+
+
+def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
+         trace_rungs: bool = False) -> dict:
+    """The kernel's buffers, lanes fastest: every input copied into that
+    layout (so the caller's tensors are never written), every output and
+    scratch buffer allocated.  The line-search trial chains are allocated
+    only when the ladder is on, and the rung trace (al_iters * sqp_iters,
+    B) only when it is on and ``trace_rungs`` asks for it."""
+    x0 = params.x0
+    reason = ineligible_reason(cfg, params)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    B, H = x0.shape[0], cfg.horizon
+    dev, f32 = x0.device, torch.float32
+    moving = params.obs_centers.dim() == 4
+
+    def inp(t, shape):
+        if t.dtype != f32:
+            raise TypeError(f"fused_gn kernel takes float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"shape {tuple(t.shape)}, want {shape}")
+        return _soa(t)
+
+    w = params.weights
+    bufs = dict(
+        x0=inp(x0, (B, NX)),
+        xref=inp(params.x_ref, (B, H + 1, NX)),
+        obs=inp(params.obs_centers.reshape(B, -1, 6) if moving
+                else params.obs_centers.reshape(B, 6),
+                (B, H + 1, 6) if moving else (B, 6)),
+        mind=inp(params.min_dist.reshape(B), (B,)),
+        w=inp(torch.cat([w.q, w.r, w.qN], -1), (B, 2 * NX + NU)),
+        U=inp(state.U, (B, H, NU)),
+        lam_lo=inp(state.lam_lo, (B, H + 1, NR)),
+        lam_hi=inp(state.lam_hi, (B, H + 1, NR)),
+        mu=inp(_prepared_mu(cfg, state.mu), (B, H + 1, NR)),
+        pviol=inp(state.prev_viol, (B, H + 1, NR)),
+        X=torch.empty((H + 1, NX, B), dtype=f32, device=dev),
+        diag=torch.empty((4, B), dtype=f32, device=dev),
+        K=torch.empty((H, NU * NX, B), dtype=f32, device=dev),
+        d=torch.empty((H, NU, B), dtype=f32, device=dev),
+        rows=torch.empty((H + 1, NROWVALS, B), dtype=f32, device=dev))
+    if cfg.alphas:
+        bufs["Xc"] = torch.empty((2, H + 1, NX, B), dtype=f32, device=dev)
+        bufs["Uc"] = torch.empty((2, H, NU, B), dtype=f32, device=dev)
+        if trace_rungs:
+            bufs["rung"] = torch.empty((cfg.al_iters * cfg.sqp_iters, B),
+                                       dtype=torch.int32, device=dev)
+    return bufs
+
+
+def launch(cfg: S.SolverConfig, bufs: dict, threads: int = THREADS):
+    """Launch the kernel once on the current stream over packed ``bufs``.
+
+    The kernel updates the warm-start buffers (U, lam_lo, lam_hi, mu,
+    pviol) in place, where the TPU kernel aliased inputs to outputs, and
+    writes X and diag.  ``launch.launches`` counts the launches.
+    """
+    from mpc_tpu_torch.ops import _build
+
+    dev = bufs["x0"].device
+    if dev.type != "cuda":
+        raise ValueError(f"the fused_gn kernel needs CUDA tensors, got {dev}")
+    B = bufs["x0"].shape[-1]
+    order = (KERNEL_INPUTS + KERNEL_STATE + KERNEL_OUTPUTS + KERNEL_SCRATCH
+             + KERNEL_TRACE)
+    ptrs = [ctypes.c_void_p(bufs[n].data_ptr() if n in bufs else 0)
+            for n in order]
+    args = kernel_args(cfg, B, bufs["obs"].dim() == 3, threads)
+    lib = _build.load("fused_gn")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.fused_gn_solve(ctypes.byref(args), *ptrs, stream)
+        launch.launches += 1
+    if err != 0:
+        raise RuntimeError(f"fused_gn kernel launch failed: CUDA error {err}")
+
+
+launch.launches = 0
+
+
+def unpack(bufs: dict):
+    """(X, U, lam_lo, lam_hi, mu, prev_viol, diag) in the package's public
+    lanes-leading layout (views of the kernel's buffers)."""
+    return tuple(_aos(bufs[n]) for n in _OUT_ORDER)
+
+
+def launch_kernel(cfg: S.SolverConfig, params: S.OcpParams,
+                  state: S.SqpState, threads: int = THREADS):
+    """Run the CUDA kernel; same outputs as :func:`solve_batch_fused_plain`."""
+    bufs = pack(cfg, params, state)
+    launch(cfg, bufs, threads)
+    return unpack(bufs)
+
+
+def _to(tree, dev):
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return tree.to(dev)
+    if hasattr(tree, "map"):
+        return tree.map(lambda t: t.to(dev))
+    return type(tree)(*(_to(t, dev) for t in tree))
+
+
+def solve_batch_fused(cfg: S.SolverConfig, params: S.OcpParams,
+                      state: S.SqpState, device=None) -> S.Solution:
+    """Fused batched solve; the contract of ``mpc_tpu``'s
+    ``fused_gn.solve_batch_fused``.
+
+    Runs on ``device`` (default: the GPU, see ``resolve_device``): CUDA
+    tensors go to the kernel, CPU tensors to the plain version.  Problems
+    outside the kernel's envelope raise ``NotImplementedError``; there is
+    no fallback engine yet.
+    """
+    dev = resolve_device(device)
+    reason = ineligible_reason(cfg, params)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    params = _to(S.normalize_params(cfg, params), dev)
+    state = _to(state, dev)
+    if dev.type == "cuda":
+        out = launch_kernel(cfg, params, state)
+    elif dev.type == "cpu":
+        out = solve_batch_fused_plain(cfg, params, state)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    return to_solution(cfg, out)
+
+
+def to_solution(cfg: S.SolverConfig, out) -> S.Solution:
+    """The kernel's (or the plain version's) outputs as a Solution, with
+    the status mapping of the JAX package: 1 converged, 0 feasible, -7
+    infeasible."""
+    X, U, lam_lo, lam_hi, mu, prev_viol, diag = out
+    stat, viol, cost, merit = diag.unbind(-1)
+    viol = torch.clamp(viol, min=0.0)
+    converged = (stat < cfg.tol_stat) & (viol < cfg.tol_feas)
+    feasible = viol < cfg.tol_infeas
+    one = torch.ones_like(stat, dtype=torch.int32)
+    status = torch.where(converged, one,
+                         torch.where(feasible, 0 * one, -7 * one))
+    new_state = S.SqpState(U=U, lam_lo=lam_lo, lam_hi=lam_hi, mu=mu,
+                           prev_viol=prev_viol)
+    return S.Solution(X=X, U=U, state=new_state, status=status,
+                      kkt_stat=stat, viol=viol, cost=cost, merit=merit)

@@ -1,0 +1,257 @@
+"""Batched receding-horizon closed loop (``mpc_tpu.planner.closed_loop``).
+
+The batched part of the JAX module: every lane runs T steps of
+
+    reference window -> warm-started fused solve -> plant step -> shift
+
+after the configured cold-start solves.  The JAX package traces the steps
+into one ``lax.scan``; here they are a Python loop over eager PyTorch ops
+and one kernel launch per solve, and nothing leaves the device inside it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from mpc_tpu_torch.device import resolve_device
+from mpc_tpu_torch.models import costs as cost_mod
+from mpc_tpu_torch.models import dynamics as dyn_mod
+from mpc_tpu_torch.ops import fused_gn
+from mpc_tpu_torch.ops import sqp
+from mpc_tpu_torch.planner import reference as ref_mod
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopConfig:
+    """Static closed-loop configuration (fields of ``mpc_tpu``'s)."""
+
+    solver: sqp.SolverConfig
+    mode: str                 # 'forcespro' | 'casadi'
+    n_steps: int              # iter_length T
+    noise_std: float = 0.0    # actuation noise; 0 => deterministic
+    plant_integrator: str = "rk4"
+    cold_start_solves: int = 0   # warm-up solves of the step-0 problem
+    warmup_obstacle_free: bool = True  # first warm-up ignores the obstacle
+    progress_window: bool = False  # window base = closest path index
+    warmup_full_strength: bool = True  # warm-ups run at least al 3x4
+    rti_margin: float = 0.0      # RTI clearance backoff (not ported yet)
+    rti_amax_scale: float = 1.0  # RTI friction backoff (not ported yet)
+    gate_stages: Optional[int] = None  # applied-prefix status gate (not
+                                       # ported yet)
+
+
+class LoopParams(NamedTuple):
+    """Per-lane runtime data of a closed-loop run, lanes leading.
+
+    noise_key (B, K) integers seed the actuation noise (used when
+    ``noise_std > 0``; the last word of lane 0 seeds a ``torch.Generator``,
+    so the draws differ from ``jax.random``'s).
+    """
+
+    x_init: torch.Tensor             # (B, 5)
+    track: ref_mod.ReferenceTrack    # lanes-leading fields
+    obs_centers: torch.Tensor        # (B, 3, 2)
+    min_dist: torch.Tensor           # (B,)
+    weights: cost_mod.Weights        # (B, .) fields
+    noise_key: torch.Tensor          # (B, K) integers
+    boundaries: Optional[torch.Tensor] = None
+    boundary_signs: Optional[torch.Tensor] = None
+    obs_track: Optional[torch.Tensor] = None  # (B, T+H+1, 3, 2)
+
+    def map(self, fn) -> "LoopParams":
+        def m(v):
+            if v is None:
+                return None
+            return v.map(fn) if hasattr(v, "map") else fn(v)
+        return LoopParams(*(m(v) for v in self))
+
+
+class LoopResult(NamedTuple):
+    X: torch.Tensor        # (B, T, 5) closed-loop states x_0 .. x_{T-1}
+    U: torch.Tensor        # (B, T, 2) applied inputs
+    status: torch.Tensor   # (B, T) per-step solver status
+    viol: torch.Tensor     # (B, T) per-step max scaled violation
+    cost: torch.Tensor     # (B, T) per-step objective values
+    stat: torch.Tensor     # (B, T) per-step KKT stationarity residual
+
+
+def _warmup_cfg(lcfg: LoopConfig) -> sqp.SolverConfig:
+    """Solver config of the cold-start solves: RTI budgets are warm-start
+    budgets, so the warm-ups run at least the full-strength AL budget (the
+    only method the port runs yet)."""
+    scfg = lcfg.solver
+    if not lcfg.warmup_full_strength or (scfg.al_iters >= 3
+                                         and scfg.sqp_iters >= 4):
+        return scfg
+    return dataclasses.replace(scfg, al_iters=max(scfg.al_iters, 3),
+                               sqp_iters=max(scfg.sqp_iters, 4))
+
+
+def _plant_step(lcfg: LoopConfig, x, u):
+    step = dyn_mod.make_step_fn(lcfg.plant_integrator, lcfg.solver.dt,
+                                lcfg.solver.wheelbase, lcfg.solver.model,
+                                lcfg.solver.vehicle)
+    return step(x, u)
+
+
+def _shift(a):
+    return torch.cat([a[:, 1:], a[:, -1:]], dim=1)
+
+
+def _shift_state(st: sqp.SqpState) -> sqp.SqpState:
+    """Shift-and-hold warm start along the stage axis of every field."""
+    return st.map(_shift)
+
+
+def select_engine(scfg: sqp.SolverConfig):
+    """The batched solve for ``scfg``: the fused kernel engine.
+
+    The JAX package falls back to its lanes-trailing XLA engine or to the
+    vmapped per-lane path outside the kernel's envelope; the port has
+    neither yet, so those cases raise ``NotImplementedError`` naming the
+    ROADMAP item that brings them.
+    """
+    if scfg.engine == "xla":
+        raise NotImplementedError(
+            "engine='xla': the sqp_vec/riccati_vec engine is ROADMAP queue "
+            "A, item 'sqp_vec/riccati_vec engine'")
+    if scfg.method == "ip":
+        raise NotImplementedError(
+            "method='ip': the IP solve and its fused kernel are ROADMAP "
+            "queue A, item 'IP slice'")
+    if scfg.model != "ks":
+        raise NotImplementedError(
+            f"model='{scfg.model}': ST in the AL kernel is ROADMAP queue A, "
+            "item 'ST and boundary rows'")
+    if scfg.boundary_rows:
+        raise NotImplementedError(
+            "boundary_rows: boundary rows in the AL kernel are ROADMAP "
+            "queue A, item 'ST and boundary rows'")
+    return fused_gn.solve_batch_fused
+
+
+def _check_loop_envelope(lcfg: LoopConfig):
+    if (lcfg.gate_stages is not None or lcfg.rti_margin != 0.0
+            or lcfg.rti_amax_scale != 1.0):
+        raise NotImplementedError(
+            "gate_stages / rti_margin / rti_amax_scale: the status gate and "
+            "the backoff knobs are ROADMAP queue A, item 'gate_stages and "
+            "the backoff knobs'")
+
+
+def _batch_helpers(lcfg: LoopConfig, params: LoopParams):
+    """Window, obstacle and OCP builders over the batched ``params``."""
+    scfg = lcfg.solver
+    ahead = max(scfg.horizon + 2, 16)
+
+    def batched_window(step_idx: int, x, prev_bases):
+        step = torch.full_like(prev_bases, step_idx)
+        if lcfg.progress_window:
+            base = ref_mod.progress_index_local(params.track, x, prev_bases,
+                                                ahead)
+        else:
+            base = step
+        ref = ref_mod.window(
+            params.track, base, scfg.horizon, lcfg.mode,
+            x0=None if lcfg.progress_window else x[..., :dyn_mod.NX])
+        return ref, base
+
+    def step_obs(step_idx: int):
+        """Per-stage obstacle window (moving-obstacle tracks) or static."""
+        if params.obs_track is None:
+            return params.obs_centers
+        n = params.obs_track.shape[0]
+        start = torch.full((n,), step_idx, dtype=torch.int64,
+                           device=params.obs_track.device)
+        return ref_mod._gather_rows(params.obs_track, start,
+                                    scfg.horizon + 1)
+
+    def make_ocp(x, x_ref, obs_centers=None):
+        return sqp.OcpParams(x0=x, x_ref=x_ref,
+                             obs_centers=(params.obs_centers
+                                          if obs_centers is None
+                                          else obs_centers),
+                             min_dist=params.min_dist,
+                             weights=params.weights,
+                             boundaries=params.boundaries,
+                             boundary_signs=params.boundary_signs)
+
+    return batched_window, step_obs, make_ocp
+
+
+def _batch_cold_start(lcfg: LoopConfig, params: LoopParams, batched_solve):
+    """Warm-start state of a batched loop: cold init + warm-up solves (the
+    first one obstacle-free, centres at -1e4, when configured)."""
+    scfg = lcfg.solver
+    n = params.x_init.shape[0]
+    dev, dtype = params.x_init.device, params.x_init.dtype
+    batched_window, step_obs, make_ocp = _batch_helpers(lcfg, params)
+    state = sqp.init_state(scfg, dtype=dtype, device=dev, batch=n)
+    wcfg = _warmup_cfg(lcfg)
+    zero_bases = torch.zeros((n,), dtype=torch.int64, device=dev)
+    for i in range(lcfg.cold_start_solves):
+        x_ref0, _ = batched_window(0, params.x_init, zero_bases)
+        obs0 = step_obs(0)
+        if i == 0 and lcfg.warmup_obstacle_free:
+            obs0 = torch.full_like(obs0, -1e4)  # rows trivially satisfied
+        state = batched_solve(wcfg, make_ocp(params.x_init, x_ref0, obs0),
+                              state).state
+    return state
+
+
+def _batched_step(lcfg: LoopConfig, params: LoopParams, batched_solve,
+                  carry, gen):
+    """One closed-loop step over all lanes.
+
+    carry = (step_idx, x (B, NX), SqpState batch, bases (B,)); ``gen`` is
+    the noise generator (None when noise_std == 0).  Returns (new_carry,
+    (x, u_applied, status, viol, cost, stat)).
+    """
+    batched_window, step_obs, make_ocp = _batch_helpers(lcfg, params)
+    step_idx, x, sqp_state, prev_bases = carry
+    x_ref, bases = batched_window(step_idx, x, prev_bases)
+    sol = batched_solve(lcfg.solver, make_ocp(x, x_ref, step_obs(step_idx)),
+                        sqp_state)
+    u_apply = sol.U[:, 0]
+    if gen is not None:
+        u_apply = u_apply + lcfg.noise_std * torch.randn(
+            u_apply.shape, generator=gen, dtype=u_apply.dtype,
+            device=u_apply.device)
+    x_next = _plant_step(lcfg, x, u_apply)
+    warm = _shift_state(sol.state)
+    out = (x, u_apply, sol.status, sol.viol, sol.cost, sol.kkt_stat)
+    return (step_idx + 1, x_next, warm, bases), out
+
+
+def closed_loop_batch_vec(lcfg: LoopConfig, params: LoopParams,
+                          device=None) -> LoopResult:
+    """Batched closed loop on the throughput hot path.
+
+    Runs on ``device`` (default: the GPU; ``device="cpu"`` runs the plain
+    solve).  ``params`` are moved there.  Same contract as ``mpc_tpu``'s
+    ``closed_loop_batch_vec``; results are (B, T, ...).
+    """
+    dev = resolve_device(device)
+    _check_loop_envelope(lcfg)
+    engine = select_engine(lcfg.solver)
+    batched_solve = functools.partial(engine, device=dev)
+    params = params.map(lambda t: t.to(dev))
+    n = params.x_init.shape[0]
+    state = _batch_cold_start(lcfg, params, batched_solve)
+    gen = None
+    if lcfg.noise_std > 0.0:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(params.noise_key.reshape(n, -1)[0, -1]))
+    carry = (0, params.x_init, state,
+             torch.zeros((n,), dtype=torch.int64, device=dev))
+    outs = []
+    for _ in range(lcfg.n_steps):
+        carry, out = _batched_step(lcfg, params, batched_solve, carry, gen)
+        outs.append(out)
+    X, U, status, viol, cost, stat = (torch.stack(f, dim=1)
+                                      for f in zip(*outs))
+    return LoopResult(X=X, U=U, status=status, viol=viol, cost=cost,
+                      stat=stat)

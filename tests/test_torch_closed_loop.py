@@ -1,0 +1,155 @@
+"""The port's batched closed loop (CPU) against the JAX package's, plus the
+reference windows, the benchmark workload and the envelope guards."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpc_tpu.planner import closed_loop as jcl
+from mpc_tpu.planner import reference as jref
+from mpc_tpu.utils import synthetic as jsyn
+from mpc_tpu_torch import convert
+from mpc_tpu_torch.ops import sqp as TS
+from mpc_tpu_torch.planner import closed_loop as tcl
+from mpc_tpu_torch.planner import reference as tref
+from mpc_tpu_torch.utils import synthetic as tsyn
+
+
+def test_closed_loop_matches_jax_on_the_bench_workload():
+    """Non-chaotic overtake workload at the bench budget (al 1x1, the
+    unguarded step), params carried over from JAX's make_bench_loop."""
+    H, B, T = 10, 4, 20
+    lcfg, lp = jsyn.make_bench_loop(n_steps=T, horizon=H, n_lanes=B,
+                                    method="al", al_iters=1, sqp_iters=1,
+                                    alphas=())
+    ref = jcl.closed_loop_batch_vec(lcfg, lp)
+    got = tcl.closed_loop_batch_vec(convert.loop_config(lcfg),
+                                    convert.loop_params(lp), device="cpu")
+    err_x = np.abs(np.asarray(ref.X) - got.X.numpy()).max()
+    err_u = np.abs(np.asarray(ref.U) - got.U.numpy()).max()
+    print(f"closed loop max abs err: X {err_x:.3g}  U {err_u:.3g}")
+    assert got.X.shape == (B, T, 5) and got.status.shape == (B, T)
+    assert err_x < 5e-2 and err_u < 5e-3
+    np.testing.assert_array_equal(got.status.numpy() >= 0,
+                                  np.asarray(ref.status) >= 0)
+
+
+@pytest.mark.parametrize("mode", ["forcespro", "casadi"])
+def test_build_track_and_window_match_jax(mode):
+    H, T = 6, 12
+    path, psi, _ = tsyn.overtake_track(T)
+    jt = jref.build_track(path, psi, 15.0, H, mode)
+    tt = tref.build_track(path, psi, 15.0, H, mode)
+    for f in ("path", "psi", "vdes", "T"):
+        np.testing.assert_array_equal(getattr(tt, f).numpy(),
+                                      np.asarray(getattr(jt, f)))
+    B = 3
+    lanes = tt.map(lambda t: t.expand((B,) + t.shape))
+    rng = np.random.default_rng(4)
+    x0 = rng.normal(size=(B, 5)).astype(np.float32)
+    # steps inside, at the end of and past the track (clamped windows)
+    for step in (0, 3, T - H, T, T + H + 5):
+        steps = torch.full((B,), step)
+        got = tref.window(lanes, steps, H, mode, x0=torch.from_numpy(x0))
+        for b in range(B):
+            ref = jref.window(jt, jnp.asarray(step), H, mode,
+                              x0=jnp.asarray(x0[b]))
+            np.testing.assert_array_equal(got[b].numpy(), np.asarray(ref))
+
+
+def test_progress_index_local_matches_jax():
+    H, T = 6, 30
+    path, psi, _ = tsyn.overtake_track(T)
+    jt = jref.build_track(path, psi, 15.0, H, "forcespro")
+    tt = tref.build_track(path, psi, 15.0, H, "forcespro")
+    rng = np.random.default_rng(5)
+    B = 6
+    x = np.concatenate([path[rng.integers(0, T, B)]
+                        + rng.normal(size=(B, 2)), np.zeros((B, 3))], 1)
+    x = x.astype(np.float32)
+    prev = rng.integers(0, T, B)
+    got = tref.progress_index_local(
+        tt.map(lambda t: t.expand((B,) + t.shape)), torch.from_numpy(x),
+        torch.from_numpy(prev), 16)
+    ref = [int(jref.progress_index_local(jt, jnp.asarray(x[b]),
+                                         jnp.asarray(prev[b]), 16))
+           for b in range(B)]
+    assert got.tolist() == ref
+
+
+def test_make_bench_loop_matches_jax_workload():
+    """Same track, obstacle, weights and config as the JAX workload; lane
+    jitter comes from a seeded numpy generator instead of jax.random."""
+    H, B, T = 8, 5, 10
+    jl, jp = jsyn.make_bench_loop(T, H, B, al_iters=1, sqp_iters=1,
+                                  alphas=())
+    tl, tp = tsyn.make_bench_loop(T, H, B, device="cpu", al_iters=1,
+                                  sqp_iters=1, alphas=())
+    assert tl == convert.loop_config(jl)
+    for f in ("path", "psi", "vdes", "T"):
+        np.testing.assert_array_equal(getattr(tp.track, f).numpy(),
+                                      np.asarray(getattr(jp.track, f)))
+    np.testing.assert_allclose(tp.obs_centers.numpy(),
+                               np.asarray(jp.obs_centers), atol=1e-6)
+    np.testing.assert_array_equal(tp.min_dist.numpy(),
+                                  np.asarray(jp.min_dist))
+    np.testing.assert_array_equal(tp.weights.q.numpy(),
+                                  np.asarray(jp.weights.q))
+    # jittered starts: deterministic per seed, spread like the JAX lanes
+    _, tp2 = tsyn.make_bench_loop(T, H, B, device="cpu")
+    assert torch.equal(tp.x_init, tp2.x_init)
+    spread = (tp.x_init - tp.x_init.mean(0)).abs().max(0).values
+    assert spread[2] == 0 and 0 < spread[0] < 2.5
+
+
+def test_shift_state_holds_the_last_stage():
+    cfg = TS.SolverConfig(horizon=3)
+    st = TS.init_state(cfg, batch=2)
+    st = st._replace(U=torch.arange(12.0).reshape(2, 3, 2))
+    sh = tcl._shift_state(st)
+    assert sh.U[0].tolist() == [[2.0, 3.0], [4.0, 5.0], [4.0, 5.0]]
+    assert sh.mu.shape == st.mu.shape
+
+
+def test_warmup_budget_is_full_strength():
+    lcfg, _ = tsyn.make_bench_loop(3, 4, 1, device="cpu", al_iters=1,
+                                   sqp_iters=1, alphas=())
+    w = tcl._warmup_cfg(lcfg)
+    assert (w.al_iters, w.sqp_iters, w.alphas) == (3, 4, ())
+    lcfg2 = dataclasses.replace(lcfg, warmup_full_strength=False)
+    assert tcl._warmup_cfg(lcfg2).al_iters == 1
+
+
+@pytest.mark.parametrize("solver_kw,loop_kw", [
+    (dict(method="ip"), {}),
+    (dict(engine="xla"), {}),
+    (dict(model="st"), {}),
+    (dict(boundary_rows=True), {}),
+    ({}, dict(gate_stages=1)),
+    ({}, dict(rti_margin=0.1)),
+    ({}, dict(rti_amax_scale=0.9)),
+], ids=["ip", "xla", "st", "boundary_rows", "gate_stages", "rti_margin",
+        "rti_amax_scale"])
+def test_out_of_envelope_raises(solver_kw, loop_kw):
+    from mpc_tpu_torch.models.vehicle import VEHICLE_2
+    lcfg, p = tsyn.make_bench_loop(3, 4, 2, device="cpu")
+    if solver_kw.get("model") == "st":
+        solver_kw = dict(solver_kw, vehicle=VEHICLE_2)
+    lcfg = dataclasses.replace(
+        lcfg, solver=dataclasses.replace(lcfg.solver, **solver_kw),
+        **loop_kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcl.closed_loop_batch_vec(lcfg, p, device="cpu")
+
+
+def test_entry_points_need_a_gpu_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CPU-only contract does not apply")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsyn.make_bench_loop(3, 4, 2)
+    lcfg, p = tsyn.make_bench_loop(3, 4, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcl.closed_loop_batch_vec(lcfg, p)
