@@ -1,6 +1,6 @@
-"""Run the PyTorch/CUDA port on one NVIDIA GPU: build its kernel, hold the
-kernel against its plain PyTorch version, and drive the closed loop at the
-bench point.
+"""Run the PyTorch/CUDA port on one NVIDIA GPU: build its kernels, hold
+each kernel against its plain PyTorch version, and drive both closed loops
+at the bench point.
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
 
@@ -8,36 +8,47 @@ Phases, each printing one JSON line (``"phase": ...``):
 
 1. device   the card's name and power limit (``nvidia-smi``);
 2. build    ``nvcc`` builds every kernel from ``mpc_tpu_torch/ops/csrc``
-            into the git-ignored ``build/kernels``; registers and spills
-            from ``-Xptxas -v``;
-3. check    the fused AL-SQP kernel against ``solve_batch_fused_plain`` on
-            the card at the bench shape (KS, RK4, forcespro, H=30,
-            B=2048 lanes of ``make_bench_loop``): the cold-start budget
-            (3x4, unguarded), the warm bench point (1x1, unguarded, from the
-            cold-start state) and the default ladder (3x4); then one small
-            case each for casadi/Euler and for moving obstacles, at a
-            ragged batch (B=250, not a multiple of the block).  The bands
-            of tests/test_fused_gn.py hold on every lane, the warm state
-            and the status agree on >= 99.9% of lanes.  With the ladder on,
-            the kernel records the rung each iteration committed and the
-            plain version replays those choices: every choice must be the
-            best rung, up to a relative merit regret of TIE_RTOL, under the
-            plain version's merits (near-tied rungs go either way by
-            rounding);
-4. loop_vs_plain  a short closed loop on the card against the same loop
-            on the CPU (plain version), the tests' closed-loop bands;
-5. timing   the kernel per launch at the main path's shape (B=16384,
-            H=30; warm 1x1 and cold 3x4; 32/64/128 threads a block), the
-            plain version's time, and the bound: the larger of the bytes
-            the solve must move over 3.35 TB/s and its fp32 operations
-            (counted on the plain version) over 67 TFLOP/s; the timed
-            launches' outputs are held against the plain version's, as in
-            ``check``;
-6. loop     ``closed_loop_batch_vec`` at B=16384, H=30, T=100, al 1x1,
-            ``alphas=()``, 4 cold-start solves: launches counted in that
-            run, then solves/s with CUDA events, best of 3 after it;
-7. profile  one more such loop under ``torch.profiler``: device time of
-            the kernel and of the eager glue around it, by kernel name;
+            (one process per source, all at once) into the git-ignored
+            ``build/kernels``; registers and spills from ``-Xptxas -v``;
+3. check    each kernel against its plain version on the card at the bench
+            shape (KS, RK4, forcespro, H=30, B=2048 lanes of
+            ``make_bench_loop``), then one small case each for
+            casadi/Euler and for moving obstacles at a ragged batch (B=250,
+            not a multiple of the block).
+            - fused_gn (AL): the cold-start budget (3x4, unguarded), the
+              warm bench point (1x1, unguarded, from the cold-start state)
+              and the default ladder (3x4); the bands of
+              tests/test_fused_gn.py on every lane, the warm state and the
+              status on >= 99.9% of lanes.
+            - fused_ip (IP): the cold-start budget (5x10, unguarded), the
+              warm bench point (1x4, warm duals, unguarded, from the
+              cold-start state) and the default ladder (2x6, warm duals);
+              the bands of tests/test_fused_ip.py on every lane, the status
+              on >= 99.9% of lanes.
+            With the ladder on, the kernel records the rung each iteration
+            committed and the plain version replays those choices: every
+            choice must be the best rung, up to a relative merit regret of
+            TIE_RTOL, under the plain version's merits (near-tied rungs go
+            either way by rounding);
+4. loop_vs_plain  the first steps of each closed loop (soft and hard) on
+            the card against the same loop on the CPU (plain version), the
+            tests' closed-loop bands;
+5. timing   each kernel per launch at the main path's shape (B=16384,
+            H=30; AL warm 1x1 and cold 3x4, IP warm 1x4 and cold 5x10;
+            32/64/128 threads a block), the plain version's time, and the
+            bound: the larger of the bytes the solve must move over
+            3.35 TB/s and its fp32 operations (counted on the plain
+            version) over 67 TFLOP/s; the timed launches' outputs are held
+            against the plain version's, as in ``check``;
+6. loop     ``closed_loop_batch_vec`` at B=16384, H=30, T=100 with 4
+            cold-start solves, for the soft row (al 1x1, ``alphas=()``) and
+            the hard row (ip 1x4, warm duals, ``ip_alphas=()``): launches
+            counted in that run, then solves/s with CUDA events, best of 3
+            after it;
+7. profile  one more loop of each row under ``torch.profiler``: device time
+            of the kernel and of the eager glue around it, by kernel name;
+8. bound    the bound of the one TPU kernel not ported yet (a Riccati sweep
+            alone), reckoned from its shapes at the bench point;
 
 then the card's name and power limit, the kernels line, and as the last
 line ``{"ok": true, "device": {...}}``.  A phase that fails raises: the
@@ -51,7 +62,9 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -65,6 +78,9 @@ B_BENCH = 16384           # lanes of the bench point
 T_BENCH = 100
 COLD = dict(al_iters=3, sqp_iters=4, alphas=())
 WARM = dict(al_iters=1, sqp_iters=1, alphas=())
+IP_COLD = dict(method="ip", ip_sqp_iters=5, ip_iters=10, ip_alphas=())
+IP_WARM = dict(method="ip", ip_sqp_iters=1, ip_iters=4, ip_warm_duals=True,
+               ip_alphas=())
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12                       # H100 SXM, fp32 non-tensor
 # (rtol, atol) of tests/test_fused_gn.py:42-55
@@ -73,6 +89,24 @@ BANDS = {"U": (2e-3, 2e-3), "X": (2e-3, 2e-2), "viol": (0.0, 1e-3),
 STATE_BANDS = {"mu": (1e-3, 1e-3), "lam_lo": (2e-2, 2e-2),
                "lam_hi": (2e-2, 2e-2)}
 MIN_LANE_AGREEMENT = 0.999
+# A lane outside a band is excused when the plain version's own float32 and
+# float64 solves (committing the same rungs) part by more than that band on
+# it: an ill-conditioned QP (duals ~1e3, stationarity ~1e4) where float32
+# rounding alone decides the digits the band reads.  Such lanes are found
+# from the plain version alone, and at most this share of a case's lanes
+# may be excused (tests/test_torch_chip_smoke.py names two of 2048).
+MAX_ROUNDING_SHARE = 0.01
+# (rtol, atol) of tests/test_fused_ip.py:41-57, held on every lane; the
+# carried duals z_hi there too, z_lo (not among those bands) on 99.9%.  The
+# stationarity takes KKT_ATOL in place of those tests' 5e-3: at a converged
+# iterate it is the float32 rounding of qu + B' lam, and the plain version
+# alone parts from its float64 self by more than 5e-3 on some lanes
+# (tests/test_torch_chip_smoke.py); KKT_ATOL is 1/20 of tol_stat_ip, the
+# threshold the status reads it against.
+KKT_ATOL = 5e-2
+IP_BANDS = {"U": (2e-3, 2e-3), "X": (2e-3, 2e-2), "viol": (0.0, 1e-3),
+            "cost": (1e-3, 1e-2), "kkt_stat": (5e-2, KKT_ATOL)}
+IP_STATE_BANDS = {"lam_hi": (5e-2, 5e-2), "lam_lo": (5e-2, 5e-2)}
 # A ladder choice may lose to the best rung by rounding: at most this much
 # of max(|best merit|, 1) under the plain version's merits.  The plain
 # version's own float32 choices stay well inside it under its float64
@@ -176,6 +210,47 @@ def rung_regret(chosen, merits):
                        torch.zeros_like(reg), reg)
 
 
+class Engine(NamedTuple):
+    """One fused kernel as ``chip_smoke`` drives it."""
+
+    name: str
+    replaces: str              # file:line of the TPU kernel
+    pack: Callable             # (cfg, ocp, state, trace_rungs) -> bufs
+    launch: Callable           # (cfg, bufs, threads); counts its launches
+    unpack: Callable           # bufs -> the plain version's output tuple
+    plain: Callable            # (cfg, ocp, state, rungs, follow) -> outputs
+    solution: Callable         # (cfg, outputs, state) -> Solution
+    ladder: Callable           # cfg -> whether the ladder is on
+    budget: Callable           # cfg -> "3x4"
+    bands: dict                # Solution fields: (rtol, atol), every lane
+    state_bands: dict          # state fields: (rtol, atol, lanes needed)
+    kernel_io: tuple           # (inputs, in-place state, outputs) names
+
+
+def engine(cfg) -> Engine:
+    """The kernel that solves ``cfg``'s method."""
+    from mpc_tpu_torch.ops import fused_gn as F
+    from mpc_tpu_torch.ops import fused_ip as FI
+    if cfg.method == "ip":
+        return Engine(
+            "fused_ip", "mpc_tpu/ops/fused_ip.py:93 (_make_ip_kernel)",
+            FI.pack_ip, FI.launch_ip, FI.unpack_ip,
+            FI.solve_batch_fused_ip_plain,
+            lambda c, out, st: FI.to_solution_ip(c, out, st.mu),
+            lambda c: bool(c.ip_alphas),
+            lambda c: f"{c.ip_sqp_iters}x{c.ip_iters}", IP_BANDS,
+            {"lam_hi": (*IP_STATE_BANDS["lam_hi"], 1.0),
+             "lam_lo": (*IP_STATE_BANDS["lam_lo"], MIN_LANE_AGREEMENT)},
+            (FI.KERNEL_INPUTS, FI.KERNEL_STATE, FI.KERNEL_OUTPUTS))
+    return Engine(
+        "fused_gn", "mpc_tpu/ops/fused_gn.py:808 (_make_kernel)",
+        F.pack, F.launch, F.unpack, F.solve_batch_fused_plain,
+        lambda c, out, st: F.to_solution(c, out), lambda c: bool(c.alphas),
+        lambda c: f"{c.al_iters}x{c.sqp_iters}", BANDS,
+        {f: (*b, MIN_LANE_AGREEMENT) for f, b in STATE_BANDS.items()},
+        (F.KERNEL_INPUTS, F.KERNEL_STATE, F.KERNEL_OUTPUTS))
+
+
 def compare(name, cfg, ocp, state, bufs=None, plain=None):
     """Kernel vs plain version on the card, on every lane.
 
@@ -184,19 +259,17 @@ def compare(name, cfg, ocp, state, bufs=None, plain=None):
     inputs, or None to compute them (with the ladder on, the plain version
     always runs here, replaying the kernel's rungs).  Returns (kernel
     Solution, max abs errors)."""
-    from mpc_tpu_torch.ops import fused_gn as F
-    ladder = bool(cfg.alphas)
+    eng = engine(cfg)
+    ladder = eng.ladder(cfg)
     if bufs is None:
-        bufs = F.pack(cfg, ocp, state, trace_rungs=ladder)
-        F.launch(cfg, bufs)
-    ker = F.to_solution(cfg, F.unpack(bufs))
+        bufs = eng.pack(cfg, ocp, state, trace_rungs=ladder)
+        eng.launch(cfg, bufs)
+    ker = eng.solution(cfg, eng.unpack(bufs), state)
     extra = {}
     if ladder:
         chosen, trace, own = bufs["rung"], [], []
-        plain = F.solve_batch_fused_plain(cfg, ocp, state, trace,
-                                          follow=chosen)
-        free = F.to_solution(cfg, F.solve_batch_fused_plain(cfg, ocp, state,
-                                                            own))
+        plain = eng.plain(cfg, ocp, state, trace, follow=chosen)
+        free = eng.solution(cfg, eng.plain(cfg, ocp, state, own), state)
         regret = torch.stack([rung_regret(c, m)
                               for c, (_, m) in zip(chosen, trace)])
         differs = chosen != torch.stack([r for r, _ in own])
@@ -208,27 +281,33 @@ def compare(name, cfg, ocp, state, bufs=None, plain=None):
             "status_agreement_free_plain":
                 float((ker.status == free.status).double().mean())}
     elif plain is None:
-        plain = F.solve_batch_fused_plain(cfg, ocp, state)
-    pln = F.to_solution(cfg, plain)
+        plain = eng.plain(cfg, ocp, state)
+    pln = eng.solution(cfg, plain, state)
     torch.cuda.synchronize()
 
     errs, agree, need = {}, {}, {}
-    for f, (rtol, atol) in BANDS.items():
-        a, b = getattr(ker, f), getattr(pln, f)
-        errs[f] = max_abs(a, b)
-        agree[f] = float(lanes_close(a, b, rtol, atol).double().mean())
+    inband = {f: lanes_close(getattr(ker, f), getattr(pln, f), *band)
+              for f, band in eng.bands.items()}
+    noisy = rounding_lanes(eng, cfg, ocp, state, pln, inband,
+                           bufs["rung"] if ladder else None)
+    for f in eng.bands:
+        errs[f] = max_abs(getattr(ker, f), getattr(pln, f))
+        agree[f] = float((inband[f] | noisy[f]).double().mean())
         need[f] = 1.0
-    for f, (rtol, atol) in STATE_BANDS.items():
+    n_noisy = int(torch.stack(list(noisy.values())).any(0).sum())
+    extra["rounding_lanes"] = n_noisy
+    for f, (rtol, atol, lanes) in eng.state_bands.items():
         a, b = getattr(ker.state, f), getattr(pln.state, f)
         errs[f] = max_abs(a, b)
         agree[f] = float(lanes_close(a, b, rtol, atol).double().mean())
-        need[f] = MIN_LANE_AGREEMENT
+        need[f] = lanes
     agree["status"] = float((ker.status == pln.status).double().mean())
     need["status"] = MIN_LANE_AGREEMENT
-    line = {"phase": "check", "case": name, "lanes": int(ocp.x0.shape[0]),
-            "budget": f"{cfg.al_iters}x{cfg.sqp_iters}",
-            "alphas": list(cfg.alphas), "formulation": cfg.formulation,
-            "integrator": cfg.integrator,
+    line = {"phase": "check", "kernel": eng.name, "case": name,
+            "lanes": int(ocp.x0.shape[0]), "budget": eng.budget(cfg),
+            "alphas": list(cfg.ip_alphas if cfg.method == "ip"
+                           else cfg.alphas),
+            "formulation": cfg.formulation, "integrator": cfg.integrator,
             "moving": ocp.obs_centers.dim() == 4, "max_abs_err": errs,
             "lane_agreement": agree, "lane_agreement_needed": need, **extra,
             "kernel_feasible_lanes": int((ker.status >= 0).sum()),
@@ -237,10 +316,44 @@ def compare(name, cfg, ocp, state, bufs=None, plain=None):
     short = [f for f in agree if agree[f] < need[f]]
     require(not short, f"{name}: kernel and plain version agree on too few "
                        f"lanes in {short}")
+    require(n_noisy <= MAX_ROUNDING_SHARE * len(ker.status),
+            f"{name}: {n_noisy} lanes where float32 rounding alone leaves "
+            "the bands")
     require(not ladder or extra["max_rung_regret"] <= TIE_RTOL,
             f"{name}: the kernel committed a rung worse than the best by "
             f"{extra.get('max_rung_regret')} of its merit")
     return ker, errs
+
+
+def as_float64(ocp, state):
+    def f64(t):
+        return t.double() if t.is_floating_point() else t
+    return (ocp._replace(x0=f64(ocp.x0), x_ref=f64(ocp.x_ref),
+                         obs_centers=f64(ocp.obs_centers),
+                         min_dist=f64(ocp.min_dist),
+                         weights=ocp.weights.map(f64)), state.map(f64))
+
+
+def rounding_lanes(eng, cfg, ocp, state, pln, inband, follow):
+    """Per band field, the lanes whose band lies below float32 rounding:
+    the plain version in float64 (committing the same rungs) parts from
+    the float32 one by more than the band.  They depend on the inputs and
+    the plain version alone, never on the kernel, and are computed only
+    when some lane of the kernel is outside a band."""
+    if all(bool(v.all()) for v in inband.values()):
+        return {f: torch.zeros_like(v) for f, v in inband.items()}
+    ocp64, st64 = as_float64(ocp, state)
+    p64 = eng.solution(cfg, eng.plain(cfg, ocp64, st64, follow=follow), st64)
+    return {f: ~lanes_close(getattr(pln, f).double(), getattr(p64, f), *band)
+            for f, band in eng.bands.items()}
+
+
+def moving_obstacles(ocp, dev):
+    """The static obstacle of ``ocp`` drifting along the horizon."""
+    drift = torch.arange(H + 1, device=dev, dtype=torch.float32)[:, None,
+                                                                   None]
+    drift = drift * torch.tensor([0.3, 0.05], device=dev)
+    return ocp._replace(obs_centers=ocp.obs_centers[:, None] + drift)
 
 
 def phase_check(dev):
@@ -270,34 +383,67 @@ def phase_check(dev):
 
     lcfg, lp = bench_loop(n_lanes=B_SMALL, device=dev, al_iters=2,
                           sqp_iters=2, alphas=())
-    ocp = ocp_at(lcfg, lp)
-    drift = torch.arange(H + 1, device=dev, dtype=torch.float32)[:, None,
-                                                                   None]
-    drift = drift * torch.tensor([0.3, 0.05], device=dev)
-    ocp = ocp._replace(obs_centers=ocp.obs_centers[:, None] + drift)
+    ocp = moving_obstacles(ocp_at(lcfg, lp), dev)
     st = S.init_state(lcfg.solver, device=dev, batch=B_SMALL)
     _, results["moving_2x2"] = compare("moving_2x2", lcfg.solver, ocp,
                                        st)
     return results
 
 
-def phase_loop_vs_plain(dev):
-    """The first steps of the bench loop on the card vs the plain loop on
-    the CPU (bands of tests/test_torch_closed_loop.py)."""
+def phase_check_ip(dev):
+    """The IP kernel's checks: the cold-start and warm bench budgets, the
+    default ladder, casadi/Euler and moving obstacles."""
+    from mpc_tpu_torch.ops import sqp as S
+    results = {}
+    lcfg, lp = bench_loop(n_lanes=B_CHECK, device=dev, **IP_COLD)
+    ocp = ocp_at(lcfg, lp)
+    cold_cfg = lcfg.solver
+    st0 = S.init_state(cold_cfg, device=dev, batch=B_CHECK)
+    cold, results["ip_cold_5x10"] = compare("ip_cold_5x10", cold_cfg, ocp,
+                                            st0)
+    warm_cfg = dataclasses.replace(cold_cfg, **IP_WARM)
+    _, results["ip_warm_1x4"] = compare("ip_warm_1x4", warm_cfg, ocp,
+                                        cold.state)
+    ladder_cfg = dataclasses.replace(
+        cold_cfg, ip_sqp_iters=2, ip_iters=6, ip_warm_duals=True,
+        ip_alphas=S.SolverConfig(horizon=H).ip_alphas)
+    _, results["ip_ladder_2x6"] = compare("ip_ladder_2x6", ladder_cfg, ocp,
+                                          st0)
+
+    lcfg, lp = bench_loop(n_lanes=B_SMALL, mode="casadi", device=dev,
+                          method="ip", ip_sqp_iters=2, ip_iters=6,
+                          ip_warm_duals=True)
+    ocp = ocp_at(lcfg, lp, step=1)
+    st = S.init_state(lcfg.solver, device=dev, batch=B_SMALL)
+    _, results["ip_casadi_euler_2x6_ladder"] = compare(
+        "ip_casadi_euler_2x6_ladder", lcfg.solver, ocp, st)
+
+    lcfg, lp = bench_loop(n_lanes=B_SMALL, device=dev, method="ip",
+                          ip_sqp_iters=2, ip_iters=6, ip_alphas=())
+    ocp = moving_obstacles(ocp_at(lcfg, lp), dev)
+    st = S.init_state(lcfg.solver, device=dev, batch=B_SMALL)
+    _, results["ip_moving_2x6"] = compare("ip_moving_2x6", lcfg.solver, ocp,
+                                          st)
+    return results
+
+
+def phase_loop_vs_plain(dev, row, **budget):
+    """The first steps of a bench loop on the card vs the plain loop on the
+    CPU (bands of tests/test_torch_closed_loop.py)."""
     from mpc_tpu_torch.planner import closed_loop as cl
     B, T = 64, 10
-    lcfg, lp = bench_loop(n_lanes=B, device="cpu", **WARM)
+    lcfg, lp = bench_loop(n_lanes=B, device="cpu", **budget)
     lcfg = dataclasses.replace(lcfg, n_steps=T)
     ref = cl.closed_loop_batch_vec(lcfg, lp, device="cpu")
     got = cl.closed_loop_batch_vec(lcfg, lp, device=dev)
     err_x = max_abs(got.X.cpu(), ref.X)
     err_u = max_abs(got.U.cpu(), ref.U)
     same_feas = bool(torch.equal(got.status.cpu() >= 0, ref.status >= 0))
-    emit({"phase": "loop_vs_plain", "lanes": B, "steps": T,
+    emit({"phase": "loop_vs_plain", "row": row, "lanes": B, "steps": T,
           "max_abs_err": {"X": err_x, "U": err_u},
           "feasibility_equal": same_feas})
     require(err_x < 5e-2 and err_u < 5e-3 and same_feas,
-            "closed loop on the card differs from the plain loop")
+            f"{row} closed loop on the card differs from the plain loop")
 
 
 class _OpCount(TorchDispatchMode):
@@ -319,34 +465,32 @@ class _OpCount(TorchDispatchMode):
         name = func._overloadpacket.__name__.rstrip("_")
         if name in self.ELEMENTWISE:
             self.n += out.numel()
-        elif name == "sum":
+        elif name in ("sum", "amin"):
             self.n += args[0].numel() - out.numel()
         return out
 
 
 def ops_per_lane(cfg):
     """fp32 operations of one lane's solve under ``cfg``, counted on the
-    plain version at one lane on the CPU.  The plain version recomputes the
-    rows that the kernel reads from its cache on the first sweep of each
-    AL iteration, so the count is high by those rows."""
-    from mpc_tpu_torch.ops import fused_gn as F
+    plain version at one lane on the CPU.  The plain version recomputes
+    rows and Jacobians that the kernel reads from its caches, so the count
+    is a little high."""
     from mpc_tpu_torch.ops import sqp as S
     lcfg, lp = bench_loop(n_lanes=1, device="cpu")
     ocp = ocp_at(lcfg, lp)
     with _OpCount() as c:
-        F.solve_batch_fused_plain(cfg, ocp, S.init_state(cfg, batch=1))
+        engine(cfg).plain(cfg, ocp, S.init_state(cfg, batch=1))
     return c.n
 
 
-def kernel_bytes(bufs):
+def kernel_bytes(cfg, bufs):
     """Bytes the solve must move: each input read once, each output
     written once (the warm-start state is both)."""
-    from mpc_tpu_torch.ops import fused_gn as F
+    inputs, state, outputs = engine(cfg).kernel_io
 
     def nbytes(names):
         return sum(bufs[n].numel() * bufs[n].element_size() for n in names)
-    return (nbytes(F.KERNEL_INPUTS) + 2 * nbytes(F.KERNEL_STATE)
-            + nbytes(F.KERNEL_OUTPUTS))
+    return nbytes(inputs) + 2 * nbytes(state) + nbytes(outputs)
 
 
 def cuda_ms(fn):
@@ -365,11 +509,11 @@ def time_kernel_ms(cfg, ocp, state, reps, threads):
     """Median per-launch time over fresh copies of the same inputs (the
     kernel updates the warm state in place), after one warm-up launch;
     returns the last launch's buffers too."""
-    from mpc_tpu_torch.ops import fused_gn as F
+    eng = engine(cfg)
     times = []
     for i in range(reps + 1):
-        bufs = F.pack(cfg, ocp, state)
-        ms, _ = cuda_ms(lambda: F.launch(cfg, bufs, threads))
+        bufs = eng.pack(cfg, ocp, state, trace_rungs=False)
+        ms, _ = cuda_ms(lambda: eng.launch(cfg, bufs, threads))
         if i:
             times.append(ms)
     times.sort()
@@ -378,50 +522,104 @@ def time_kernel_ms(cfg, ocp, state, reps, threads):
 
 def time_plain_ms(cfg, ocp, state, reps):
     """Best time of ``reps`` plain solves, and the plain outputs."""
-    from mpc_tpu_torch.ops import fused_gn as F
-    runs = [cuda_ms(lambda: F.solve_batch_fused_plain(cfg, ocp, state))
-            for _ in range(reps)]
+    plain = engine(cfg).plain
+    runs = [cuda_ms(lambda: plain(cfg, ocp, state)) for _ in range(reps)]
     return min(ms for ms, _ in runs), runs[-1][1]
 
 
-def phase_timing(dev):
+def phase_timing(dev, cold_kw, warm_kw, warm_reps=20, cold_reps=5):
+    """Per-launch times of one kernel at the bench shape: the warm budget
+    from the cold-start state and the cold budget from ``init_state``."""
     from mpc_tpu_torch.ops import fused_gn as F
     from mpc_tpu_torch.ops import sqp as S
-    lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **COLD)
+    lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **cold_kw)
     ocp = ocp_at(lcfg, lp)
     cold_cfg = lcfg.solver
-    warm_cfg = dataclasses.replace(cold_cfg, **WARM)
+    warm_cfg = dataclasses.replace(cold_cfg, **warm_kw)
+    eng = engine(cold_cfg)
     st0 = S.init_state(cold_cfg, device=dev, batch=B_BENCH)
-    warm_state = F.solve_batch_fused(cold_cfg, ocp, st0, device=dev).state
+    bufs = eng.pack(cold_cfg, ocp, st0, trace_rungs=False)
+    eng.launch(cold_cfg, bufs)
+    warm_state = eng.solution(cold_cfg, eng.unpack(bufs), st0).state
     out = {}
-    for name, cfg, state, reps in (("warm_1x1", warm_cfg, warm_state, 20),
-                                   ("cold_3x4", cold_cfg, st0, 5)):
+    for case, cfg, state, reps in (
+            (f"warm_{eng.budget(warm_cfg)}", warm_cfg, warm_state, warm_reps),
+            (f"cold_{eng.budget(cold_cfg)}", cold_cfg, st0, cold_reps)):
         ms, bufs = time_kernel_ms(cfg, ocp, state, reps, F.THREADS)
         by_threads = {t: time_kernel_ms(cfg, ocp, state, reps, t)[0]
                       for t in (32, 64, 128)}
         plain_ms, plain = time_plain_ms(cfg, ocp, state,
-                                        3 if name == "warm_1x1" else 1)
-        _, errs = compare(f"timed_{name}", cfg, ocp, state, bufs, plain)
-        nbytes = kernel_bytes(bufs)
+                                        3 if case.startswith("warm") else 1)
+        _, errs = compare(f"timed_{case}", cfg, ocp, state, bufs, plain)
+        nbytes = kernel_bytes(cfg, bufs)
         ops = ops_per_lane(cfg) * B_BENCH
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
-        out[name] = {
+        out[case] = {
             "ms": ms, "threads": F.THREADS,
             "ms_by_threads": {str(t): v for t, v in by_threads.items()},
             "plain_ms": plain_ms, "bytes": nbytes, "fp32_ops": ops,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "max_abs_err": errs}
-        emit({"phase": "timing", "case": name, "lanes": B_BENCH, "horizon": H,
-              **out[name]})
+        emit({"phase": "timing", "kernel": eng.name, "case": case,
+              "lanes": B_BENCH, "horizon": H, **out[case]})
     return out
 
 
-def phase_loop(dev, card):
+def phase_bound_unported():
+    """The bound of the one TPU kernel not ported yet,
+    tools/ablation/pallas_riccati.py::_riccati_kernel (a Riccati sweep
+    alone), reckoned from its shapes at the bench point (B=16384, H=30):
+    per lane and stage it reads Q, R, M, qx, qu, A, B, r (86 floats) and
+    writes K, d, dV (14), per lane it reads QH, qH (30).  Its operations are
+    counted on the port's own sweep, ``fused_gn._backward_sweep``, at one
+    lane (the defect and dV terms, ~100 operations a stage, left out)."""
     from mpc_tpu_torch.ops import fused_gn as F
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand((1,) + shape, generator=gen)
+    cfg = F.S.SolverConfig(horizon=H)
+    qd = dict(Q=rand(H, 5, 5), R=rand(H, 2, 2), M=rand(H, 5, 2),
+              qx=rand(H, 5), qu=rand(H, 2), A=rand(H, 5, 5),
+              Bm=rand(H, 5, 2), QH=rand(5, 5), qH=rand(5))
+    with _OpCount() as c:
+        F._backward_sweep(cfg, types.SimpleNamespace(H=H), qd)
+    nbytes = 4 * B_BENCH * (H * (86 + 14) + 30)
+    ops = c.n * B_BENCH
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    line = {"phase": "bound", "kernel": "riccati (not ported)",
+            "replaces": "tools/ablation/pallas_riccati.py:104 "
+                        "(_riccati_kernel)", "lanes": B_BENCH, "horizon": H,
+            "bytes": nbytes, "fp32_ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit(line)
+    return line
+
+
+def reset_launch_counts():
+    from mpc_tpu_torch.ops import fused_gn as F
+    from mpc_tpu_torch.ops import fused_ip as FI
+    F.launch.launches = 0
+    FI.launch_ip.launches = 0
+
+
+def launch_counts():
+    from mpc_tpu_torch.ops import fused_gn as F
+    from mpc_tpu_torch.ops import fused_ip as FI
+    return {"fused_gn": F.launch.launches, "fused_ip": FI.launch_ip.launches}
+
+
+def phase_loop(dev, card, row, budget, **kw):
+    """One bench row: ``closed_loop_batch_vec`` at B=16384, H=30, T=100,
+    the kernel launches counted in a first run, then solves/s with CUDA
+    events, best of 3."""
     from mpc_tpu_torch.planner import closed_loop as cl
-    lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, method="al", **WARM)
+    lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **kw)
+    kernel = engine(lcfg.solver).name
 
     def run():
         res = cl.closed_loop_batch_vec(lcfg, lp, device=dev)
@@ -430,17 +628,18 @@ def phase_loop(dev, card):
                     + res.cost.sum())
         return feasible, checksum, res
 
-    F.launch.launches = 0                  # the main path's run
+    reset_launch_counts()                  # the main path's run
     feasible, checksum, res = run()
     torch.cuda.synchronize()
-    launches = F.launch.launches
+    launches = launch_counts()
     total = B_BENCH * T_BENCH
     require(tuple(res.X.shape) == (B_BENCH, T_BENCH, 5), "loop X shape")
     require(bool(torch.isfinite(checksum)), "loop checksum is not finite")
     require(int(feasible) == total,
-            f"feasible steps {int(feasible)} of {total}")
+            f"{row}: feasible steps {int(feasible)} of {total}")
     want = lcfg.cold_start_solves + T_BENCH
-    require(launches == want, f"kernel launches {launches}, want {want}")
+    require(launches[kernel] == want,
+            f"{row}: {kernel} launches {launches[kernel]}, want {want}")
 
     best = float("inf")
     for _ in range(3):
@@ -448,27 +647,28 @@ def phase_loop(dev, card):
         require(int(feasible) == total, "feasible steps changed between runs")
         best = min(best, ms / 1e3)
     name, limit = [s.strip() for s in card.split(",", 1)]
-    line = {"phase": "loop", "impl": "torch-cuda",
+    line = {"phase": "loop", "row": row, "impl": "torch-cuda",
             "metric": "nmpc_solves_per_s_per_chip_h30",
             "value": total / best, "unit": "solves/s/chip",
             "step_latency_ms": best / T_BENCH * 1e3, "loop_s": best,
             "feasible_steps": int(feasible), "total_solves": total,
             "batch": B_BENCH, "horizon": H, "steps": T_BENCH,
-            "budget": "al 1x1, alphas=() (unguarded RTI step)",
-            "cold_start_solves": lcfg.cold_start_solves,
-            "kernel_launches": launches, "checksum": float(checksum),
+            "budget": budget, "cold_start_solves": lcfg.cold_start_solves,
+            "kernel": kernel, "kernel_launches": launches[kernel],
+            "launches_by_kernel": launches, "checksum": float(checksum),
             "gpu": name, "power_limit": limit}
     emit(line)
     return line, lcfg, lp
 
 
-def phase_profile(dev, lcfg, lp):
+def phase_profile(dev, row, lcfg, lp):
     """Device time of one bench loop by kernel, from torch.profiler (the
     profiler's own host overhead widens the gaps between kernels, so the
     idle share comes from the unprofiled loop time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mpc_tpu_torch.planner import closed_loop as cl
+    kernel = engine(lcfg.solver).name
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         cl.closed_loop_batch_vec(lcfg, lp, device=dev)
@@ -481,16 +681,41 @@ def phase_profile(dev, lcfg, lp):
             by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     require(by_name, "the profiler saw no device kernels")
     busy = sum(ms for _, ms in by_name.values())
-    fused = [v for k, v in by_name.items() if k.startswith("fused_gn")]
+    fused = [v for k, v in by_name.items() if k.startswith(kernel)]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    line = {"phase": "profile", "device_busy_ms": busy,
-            "fused_gn_ms": sum(ms for _, ms in fused),
-            "fused_gn_launches": sum(n for n, _ in fused),
-            "kernel_launches": sum(n for n, _ in by_name.values()),
+    line = {"phase": "profile", "row": row, "device_busy_ms": busy,
+            "kernel": kernel, "kernel_ms": sum(ms for _, ms in fused),
+            "kernel_launches_seen": sum(n for n, _ in fused),
+            "device_launches": sum(n for n, _ in by_name.values()),
             "top": [{"kernel": k[:80], "launches": n, "ms": ms}
                     for k, (n, ms) in top]}
     emit(line)
     return line
+
+
+def kernel_line(eng, loop, timing, warm, cold, checks, build):
+    """The kernels-line entry of one kernel: the warm bench budget's
+    times, the main path's launches, the largest errors of every check."""
+    errs = list(checks.values()) + [t["max_abs_err"]
+                                    for t in timing.values()]
+    info = build[eng.name]
+    return {
+        "name": eng.name, "route": "cuda",
+        "source": f"mpc_tpu_torch/ops/csrc/{eng.name}.cu",
+        "replaces": eng.replaces,
+        "launches": loop["kernel_launches"],
+        "max_abs_err": max(e["U"] for e in errs),
+        "max_abs_err_U": max(e["U"] for e in errs),
+        "max_abs_err_X": max(e["X"] for e in errs),
+        "ms": timing[warm]["ms"], "plain_ms": timing[warm]["plain_ms"],
+        "bound_ms": timing[warm]["bound_ms"],
+        "bound_by": timing[warm]["bound_by"],
+        "library_ms": None,
+        cold: timing[cold],
+        "registers": info["registers"],
+        "spill_stores": info["spill_stores"],
+        "spill_loads": info["spill_loads"],
+        "ok": True}
 
 
 def main() -> int:
@@ -512,30 +737,30 @@ def main() -> int:
     card = phase_device()
     build = phase_build()
     checks = phase_check(dev)
-    phase_loop_vs_plain(dev)
-    timing = phase_timing(dev)
-    loop, lcfg, lp = phase_loop(dev, card)
-    phase_profile(dev, lcfg, lp)
+    checks_ip = phase_check_ip(dev)
+    phase_loop_vs_plain(dev, "soft", **WARM)
+    phase_loop_vs_plain(dev, "hard", **IP_WARM)
+    timing = phase_timing(dev, COLD, WARM)
+    timing_ip = phase_timing(dev, IP_COLD, IP_WARM)
+    loop, lcfg, lp = phase_loop(
+        dev, card, "soft", "al 1x1, alphas=() (unguarded RTI step)",
+        method="al", **WARM)
+    phase_profile(dev, "soft", lcfg, lp)
+    soft = engine(lcfg.solver)
+    loop_ip, lcfg, lp = phase_loop(
+        dev, card, "hard",
+        "ip 1x4, warm duals, ip_alphas=() (unguarded RTI step)", **IP_WARM)
+    phase_profile(dev, "hard", lcfg, lp)
+    hard = engine(lcfg.solver)
+    phase_bound_unported()
 
-    warm = timing["warm_1x1"]
-    errs = list(checks.values()) + [t["max_abs_err"] for t in timing.values()]
-    kernel = {
-        "name": "fused_gn", "route": "cuda",
-        "source": "mpc_tpu_torch/ops/csrc/fused_gn.cu",
-        "replaces": "mpc_tpu/ops/fused_gn.py:808 (_make_kernel)",
-        "launches": loop["kernel_launches"],
-        "max_abs_err": max(e["U"] for e in errs),
-        "max_abs_err_U": max(e["U"] for e in errs),
-        "max_abs_err_X": max(e["X"] for e in errs),
-        "ms": warm["ms"], "plain_ms": warm["plain_ms"],
-        "bound_ms": warm["bound_ms"], "bound_by": warm["bound_by"],
-        "library_ms": None,
-        "cold_3x4": timing["cold_3x4"],
-        "registers": build["fused_gn"]["registers"],
-        "spill_stores": build["fused_gn"]["spill_stores"],
-        "ok": True}
+    kernels = [
+        kernel_line(soft, loop, timing, "warm_1x1", "cold_3x4", checks,
+                    build),
+        kernel_line(hard, loop_ip, timing_ip, "warm_1x4", "cold_5x10",
+                    checks_ip, build)]
     print(card, flush=True)
-    emit({"kernels": [kernel], "seconds": time.perf_counter() - t_start})
+    emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/kernels/lib<name>-<hash>.so`` beside the package (``build/`` is
-git-ignored), at first use.  The hash covers the source and the flags, so an
-edited source builds anew and an unchanged one is loaded as it is.
+git-ignored), at first use.  The hash covers the source, every shared header
+``csrc/*.cuh`` and the flags, so an edited source or header builds anew and an
+unchanged one is loaded as it is.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ _P = ctypes.c_void_p
 # C signatures: name -> (function, argtypes)
 SIGNATURES = {
     "fused_gn": ("fused_gn_solve", [_P] * 20),
+    "fused_ip": ("fused_ip_solve", [_P] * 28),
 }
 
 _loaded: dict = {}
@@ -37,10 +39,15 @@ def nvcc() -> str:
     return found
 
 
-def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+def lib_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the library of ``csrc/<name>.cu`` goes: named by a hash of the
+    source, of every header in ``csrc`` (any source may include any of
+    them) and of the flags."""
+    key = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        key.update(header.name.encode() + b"\0" + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

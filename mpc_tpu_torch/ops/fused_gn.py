@@ -69,8 +69,8 @@ def make_consts(cfg: S.SolverConfig) -> dict:
 def ineligible_reason(cfg: S.SolverConfig, params: S.OcpParams):
     """Why the problem is outside the kernel's envelope, or None."""
     if cfg.method != "al":
-        return (f"method '{cfg.method}': the IP solve is the next slice "
-                "(ROADMAP queue A, item 'IP slice')")
+        return (f"method '{cfg.method}': this is the AL kernel; the IP "
+                "solve is ops.fused_ip")
     if cfg.model != "ks":
         return (f"model '{cfg.model}': the ST model in the AL kernel is a "
                 "later item (ROADMAP queue A, 'ST and boundary rows')")
@@ -245,6 +245,20 @@ def _row_values(r):
     return [r.h_f] + [c[0] for c in r.circ] + list(r.box)
 
 
+def _row_lin(r, dX, dU):
+    """Linearized row values h_i + J_i . (dX, dU) from the sparse gradients
+    (dU is zero at the terminal stage, whose g_a is already zero)."""
+    gd, gv, ga = r.gf
+    cs = [r.h_f + gd * dX[2] + gv * dX[3] + ga * dU[1]]
+    for (dist, ux, uy, gp) in r.circ:
+        cs.append(dist + ux * dX[0] + uy * dX[1] + gp * dX[4])
+    cs.append(r.box[0] + dU[0])
+    cs.append(r.box[1] + dU[1])
+    cs.append(r.box[2] + dX[2])
+    cs.append(r.box[3] + dX[3])
+    return cs
+
+
 def _row_bounds(consts, mind, is_term):
     """(lo, hi) per row; None = unbounded.  mind is per lane."""
     a_cap = (consts["a_max"] ** 2 if consts["formulation"] == "forcespro"
@@ -308,7 +322,11 @@ def _term_cost(x, xref, wqN):
 
 def _assemble_quad(r, terms, x, u_eff, xref, wq, wr, is_term, wqN=None,
                    use_terminal=True):
-    """GN quadratic of cost + AL rows at one stage (sparse analytic form).
+    """Quadratic of cost + rows at one stage (sparse analytic form).
+
+    ``terms`` gives each row as (psi, gh, gn): its gradient weight gh and
+    its curvature gn (the AL terms' d psi / d h and GN diagonal, or the IP's
+    barrier weight and z / s; psi is not read).
 
     Returns row-lists (Q 5x5, R 2x2, M 5x2, qx 5, qu 2), or (QH, qH) when
     is_term.
@@ -787,6 +805,32 @@ KERNEL_TRACE = ("rung",)     # optional: the rung each ladder step committed
 _OUT_ORDER = ("X", "U", "lam_lo", "lam_hi", "mu", "pviol", "diag")
 
 
+def _packed(t, shape):
+    """``t`` checked against the kernels' type and ``shape``, copied lanes
+    fastest."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"the fused kernels take float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"shape {tuple(t.shape)}, want {shape}")
+    return _soa(t)
+
+
+def pack_problem(cfg: S.SolverConfig, params: S.OcpParams) -> dict:
+    """The per-solve inputs both fused kernels read (KERNEL_INPUTS), copied
+    lanes fastest."""
+    B, H = params.x0.shape[0], cfg.horizon
+    moving = params.obs_centers.dim() == 4
+    w = params.weights
+    return dict(
+        x0=_packed(params.x0, (B, NX)),
+        xref=_packed(params.x_ref, (B, H + 1, NX)),
+        obs=_packed(params.obs_centers.reshape(B, -1, 6) if moving
+                    else params.obs_centers.reshape(B, 6),
+                    (B, H + 1, 6) if moving else (B, 6)),
+        mind=_packed(params.min_dist.reshape(B), (B,)),
+        w=_packed(torch.cat([w.q, w.r, w.qN], -1), (B, 2 * NX + NU)))
+
+
 def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
          trace_rungs: bool = False) -> dict:
     """The kernel's buffers, lanes fastest: every input copied into that
@@ -794,35 +838,18 @@ def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
     scratch buffer allocated.  The line-search trial chains are allocated
     only when the ladder is on, and the rung trace (al_iters * sqp_iters,
     B) only when it is on and ``trace_rungs`` asks for it."""
-    x0 = params.x0
     reason = ineligible_reason(cfg, params)
     if reason is not None:
         raise NotImplementedError(reason)
-    B, H = x0.shape[0], cfg.horizon
-    dev, f32 = x0.device, torch.float32
-    moving = params.obs_centers.dim() == 4
-
-    def inp(t, shape):
-        if t.dtype != f32:
-            raise TypeError(f"fused_gn kernel takes float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"shape {tuple(t.shape)}, want {shape}")
-        return _soa(t)
-
-    w = params.weights
-    bufs = dict(
-        x0=inp(x0, (B, NX)),
-        xref=inp(params.x_ref, (B, H + 1, NX)),
-        obs=inp(params.obs_centers.reshape(B, -1, 6) if moving
-                else params.obs_centers.reshape(B, 6),
-                (B, H + 1, 6) if moving else (B, 6)),
-        mind=inp(params.min_dist.reshape(B), (B,)),
-        w=inp(torch.cat([w.q, w.r, w.qN], -1), (B, 2 * NX + NU)),
-        U=inp(state.U, (B, H, NU)),
-        lam_lo=inp(state.lam_lo, (B, H + 1, NR)),
-        lam_hi=inp(state.lam_hi, (B, H + 1, NR)),
-        mu=inp(_prepared_mu(cfg, state.mu), (B, H + 1, NR)),
-        pviol=inp(state.prev_viol, (B, H + 1, NR)),
+    B, H = params.x0.shape[0], cfg.horizon
+    dev, f32 = params.x0.device, torch.float32
+    bufs = pack_problem(cfg, params)
+    bufs.update(
+        U=_packed(state.U, (B, H, NU)),
+        lam_lo=_packed(state.lam_lo, (B, H + 1, NR)),
+        lam_hi=_packed(state.lam_hi, (B, H + 1, NR)),
+        mu=_packed(_prepared_mu(cfg, state.mu), (B, H + 1, NR)),
+        pviol=_packed(state.prev_viol, (B, H + 1, NR)),
         X=torch.empty((H + 1, NX, B), dtype=f32, device=dev),
         diag=torch.empty((4, B), dtype=f32, device=dev),
         K=torch.empty((H, NU * NX, B), dtype=f32, device=dev),
@@ -837,6 +864,24 @@ def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
     return bufs
 
 
+def call_kernel(name: str, args: ctypes.Structure, bufs: dict, order):
+    """Call ``csrc/<name>.cu``'s C entry point on the current stream with
+    the argument block and the buffers named in ``order`` (a missing one is
+    passed as a null pointer); returns its CUDA error code."""
+    from mpc_tpu_torch.ops import _build
+
+    dev = bufs["x0"].device
+    if dev.type != "cuda":
+        raise ValueError(f"the {name} kernel needs CUDA tensors, got {dev}")
+    ptrs = [ctypes.c_void_p(bufs[n].data_ptr() if n in bufs else 0)
+            for n in order]
+    lib = _build.load(name)
+    fn = getattr(lib, _build.SIGNATURES[name][0])
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        return fn(ctypes.byref(args), *ptrs, stream)
+
+
 def launch(cfg: S.SolverConfig, bufs: dict, threads: int = THREADS):
     """Launch the kernel once on the current stream over packed ``bufs``.
 
@@ -844,22 +889,12 @@ def launch(cfg: S.SolverConfig, bufs: dict, threads: int = THREADS):
     pviol) in place, where the TPU kernel aliased inputs to outputs, and
     writes X and diag.  ``launch.launches`` counts the launches.
     """
-    from mpc_tpu_torch.ops import _build
-
-    dev = bufs["x0"].device
-    if dev.type != "cuda":
-        raise ValueError(f"the fused_gn kernel needs CUDA tensors, got {dev}")
-    B = bufs["x0"].shape[-1]
     order = (KERNEL_INPUTS + KERNEL_STATE + KERNEL_OUTPUTS + KERNEL_SCRATCH
              + KERNEL_TRACE)
-    ptrs = [ctypes.c_void_p(bufs[n].data_ptr() if n in bufs else 0)
-            for n in order]
-    args = kernel_args(cfg, B, bufs["obs"].dim() == 3, threads)
-    lib = _build.load("fused_gn")
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    with torch.cuda.device(dev):
-        err = lib.fused_gn_solve(ctypes.byref(args), *ptrs, stream)
-        launch.launches += 1
+    args = kernel_args(cfg, bufs["x0"].shape[-1], bufs["obs"].dim() == 3,
+                       threads)
+    err = call_kernel("fused_gn", args, bufs, order)
+    launch.launches += 1
     if err != 0:
         raise RuntimeError(f"fused_gn kernel launch failed: CUDA error {err}")
 

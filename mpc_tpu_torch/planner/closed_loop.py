@@ -20,6 +20,7 @@ from mpc_tpu_torch.device import resolve_device
 from mpc_tpu_torch.models import costs as cost_mod
 from mpc_tpu_torch.models import dynamics as dyn_mod
 from mpc_tpu_torch.ops import fused_gn
+from mpc_tpu_torch.ops import fused_ip
 from mpc_tpu_torch.ops import sqp
 from mpc_tpu_torch.planner import reference as ref_mod
 
@@ -80,12 +81,15 @@ class LoopResult(NamedTuple):
 
 def _warmup_cfg(lcfg: LoopConfig) -> sqp.SolverConfig:
     """Solver config of the cold-start solves: RTI budgets are warm-start
-    budgets, so the warm-ups run at least the full-strength AL budget (the
-    only method the port runs yet)."""
+    budgets, so the warm-ups run at least the full-strength budget of the
+    method (AL 3x4, IP 5x10)."""
     scfg = lcfg.solver
-    if not lcfg.warmup_full_strength or (scfg.al_iters >= 3
-                                         and scfg.sqp_iters >= 4):
+    if not lcfg.warmup_full_strength:
         return scfg
+    if scfg.method == "ip":
+        return dataclasses.replace(
+            scfg, ip_sqp_iters=max(scfg.ip_sqp_iters, 5),
+            ip_iters=max(scfg.ip_iters, 10))
     return dataclasses.replace(scfg, al_iters=max(scfg.al_iters, 3),
                                sqp_iters=max(scfg.sqp_iters, 4))
 
@@ -107,10 +111,11 @@ def _shift_state(st: sqp.SqpState) -> sqp.SqpState:
 
 
 def select_engine(scfg: sqp.SolverConfig):
-    """The batched solve for ``scfg``: the fused kernel engine.
+    """The batched solve for ``scfg``: the fused AL kernel engine, or the
+    fused IP kernel engine for ``method='ip'``.
 
     The JAX package falls back to its lanes-trailing XLA engine or to the
-    vmapped per-lane path outside the kernel's envelope; the port has
+    vmapped per-lane path outside the kernels' envelope; the port has
     neither yet, so those cases raise ``NotImplementedError`` naming the
     ROADMAP item that brings them.
     """
@@ -118,18 +123,16 @@ def select_engine(scfg: sqp.SolverConfig):
         raise NotImplementedError(
             "engine='xla': the sqp_vec/riccati_vec engine is ROADMAP queue "
             "A, item 'sqp_vec/riccati_vec engine'")
-    if scfg.method == "ip":
-        raise NotImplementedError(
-            "method='ip': the IP solve and its fused kernel are ROADMAP "
-            "queue A, item 'IP slice'")
     if scfg.model != "ks":
         raise NotImplementedError(
-            f"model='{scfg.model}': ST in the AL kernel is ROADMAP queue A, "
-            "item 'ST and boundary rows'")
+            f"model='{scfg.model}': ST in the fused kernels is ROADMAP "
+            "queue A, item 'ST and boundary rows'")
     if scfg.boundary_rows:
         raise NotImplementedError(
-            "boundary_rows: boundary rows in the AL kernel are ROADMAP "
+            "boundary_rows: boundary rows in the fused kernels are ROADMAP "
             "queue A, item 'ST and boundary rows'")
+    if scfg.method == "ip":
+        return fused_ip.solve_batch_fused_ip
     return fused_gn.solve_batch_fused
 
 

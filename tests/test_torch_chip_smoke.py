@@ -98,3 +98,74 @@ def test_loop_phases_use_a_track_where_rounding_does_not_part_lanes():
     assert short[0] > 5e-2 or short[1] > 5e-3 or not short[2]
     assert bench == (pytest.approx(0.0, abs=5e-2),
                      pytest.approx(0.0, abs=5e-3), True, 0)
+
+
+def _ocp64(ocp, st):
+    return cs.as_float64(ocp, st)
+
+
+def test_ip_stationarity_band_sits_above_float32_rounding():
+    """At the converged cold-start iterate of the IP bench check the
+    stationarity is float32 rounding: the plain version in float32 and in
+    float64 part by more than tests/test_fused_ip.py's atol (5e-3) on some
+    lanes, and by well under KKT_ATOL on every lane.  Every other band of
+    the check holds on every lane, and the status is equal."""
+    from mpc_tpu_torch.ops import fused_ip as TFI
+    B = 48
+    lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, H, B, device="cpu",
+                                    **cs.IP_COLD)
+    cfg = lcfg.solver
+    ocp = cs.ocp_at(lcfg, lp)
+    st = TS.init_state(cfg, batch=B)
+    o32 = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(cfg, ocp,
+                                                                 st), st.mu)
+    ocp64, st64 = _ocp64(ocp, st)
+    o64 = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
+        cfg, ocp64, st64), st64.mu)
+    gap = (o32.kkt_stat.double() - o64.kkt_stat).abs()
+    print(f"stationarity float32 vs float64: max {float(gap.max()):.3g}, "
+          f"{int((gap > 5e-3).sum())} of {B} lanes above 5e-3")
+    assert float(gap.max()) > 5e-3
+    assert float(gap.max()) < cs.KKT_ATOL / 2
+    for f, (rtol, atol) in cs.IP_BANDS.items():
+        assert bool(cs.lanes_close(getattr(o32, f).double(), getattr(o64, f),
+                                   rtol, atol).all()), f
+    assert torch.equal(o32.status, o64.status)
+
+
+def test_rounding_lanes_are_the_ill_conditioned_ones():
+    """Two lanes of the IP ladder check (lanes 283 and 1709 of its 2048)
+    solve a QP so ill-conditioned that the plain version's float32 and
+    float64 solves, committing the same rungs, leave the U band; the check
+    excuses exactly those, decided without the kernel."""
+    from mpc_tpu_torch.ops import fused_ip as TFI
+    lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, H, cs.B_CHECK, device="cpu",
+                                    **cs.IP_COLD)
+    lp = lp.map(lambda t: t[torch.tensor([283, 1709, 0, 1])])
+    cfg = dataclasses.replace(lcfg.solver, ip_sqp_iters=2, ip_iters=6,
+                              ip_warm_duals=True,
+                              ip_alphas=TS.SolverConfig(horizon=H).ip_alphas)
+    ocp = cs.ocp_at(lcfg, lp)
+    st = TS.init_state(cfg, batch=4)
+    rungs = []
+    pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
+        cfg, ocp, st, rungs), st.mu)
+    follow = torch.stack([r for r, _ in rungs])
+    eng = cs.engine(cfg)
+    inband = {f: torch.tensor([True, True, True, True]) for f in cs.IP_BANDS}
+    assert not any(v.any() for v in cs.rounding_lanes(
+        eng, cfg, ocp, st, pln, inband, follow).values())
+    inband["U"] = torch.tensor([False, True, True, True])
+    noisy = cs.rounding_lanes(eng, cfg, ocp, st, pln, inband, follow)
+    assert noisy["U"].tolist() == [True, True, False, False]
+
+
+def test_unported_kernel_bound_from_its_shapes():
+    """The Riccati-sweep kernel still to port moves 100 floats a lane and
+    stage (+30 a lane) and is bound by those bytes at the bench point."""
+    line = cs.phase_bound_unported()
+    assert line["bytes"] == 4 * cs.B_BENCH * (H * 100 + 30)
+    assert line["bound_by"] == "bytes"
+    assert line["bound_ms"] == pytest.approx(line["bytes"] / 3.35e9)
+    # ~1,000 fp32 operations a lane and stage: the 5x5 products
+    assert 500 < line["fp32_ops"] / (cs.B_BENCH * H) < 2000

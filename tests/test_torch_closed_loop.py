@@ -37,6 +37,27 @@ def test_closed_loop_matches_jax_on_the_bench_workload():
                                   np.asarray(ref.status) >= 0)
 
 
+def test_hard_closed_loop_matches_jax_on_the_bench_workload():
+    """The hard row of the bench (ip 1x4, warm duals, the unguarded step;
+    5x10 warm-ups) on the non-chaotic overtake workload, against the JAX
+    loop (on the CPU its vmapped ``sqp._solve_ip``), with the soft case's
+    bands."""
+    H, B, T = 10, 4, 20
+    lcfg, lp = jsyn.make_bench_loop(n_steps=T, horizon=H, n_lanes=B,
+                                    method="ip", ip_sqp_iters=1, ip_iters=4,
+                                    ip_warm_duals=True, ip_alphas=())
+    ref = jcl.closed_loop_batch_vec(lcfg, lp)
+    got = tcl.closed_loop_batch_vec(convert.loop_config(lcfg),
+                                    convert.loop_params(lp), device="cpu")
+    err_x = np.abs(np.asarray(ref.X) - got.X.numpy()).max()
+    err_u = np.abs(np.asarray(ref.U) - got.U.numpy()).max()
+    print(f"hard closed loop max abs err: X {err_x:.3g}  U {err_u:.3g}")
+    assert got.X.shape == (B, T, 5) and got.status.shape == (B, T)
+    assert err_x < 5e-2 and err_u < 5e-3
+    np.testing.assert_array_equal(got.status.numpy() >= 0,
+                                  np.asarray(ref.status) >= 0)
+
+
 @pytest.mark.parametrize("mode", ["forcespro", "casadi"])
 def test_build_track_and_window_match_jax(mode):
     H, T = 6, 12
@@ -105,6 +126,28 @@ def test_make_bench_loop_matches_jax_workload():
     assert spread[2] == 0 and 0 < spread[0] < 2.5
 
 
+def test_make_bench_loop_builds_the_hard_bench_row():
+    """bench.py's hard row (ip 1x4, warm duals, ip_alphas=()): the same
+    loop configuration as the JAX workload, and the converters carry the
+    ip_* fields and the duals across."""
+    from mpc_tpu.ops import sqp as JS
+    H, B, T = 8, 3, 10
+    kw = dict(method="ip", ip_sqp_iters=1, ip_iters=4, ip_warm_duals=True,
+              ip_alphas=())
+    jl, _ = jsyn.make_bench_loop(T, H, B, **kw)
+    tl, _ = tsyn.make_bench_loop(T, H, B, device="cpu", **kw)
+    assert tl == convert.loop_config(jl)
+    s = tl.solver
+    assert (s.method, s.ip_sqp_iters, s.ip_iters, s.ip_warm_duals,
+            s.ip_alphas, tl.cold_start_solves) == ("ip", 1, 4, True, (), 4)
+    jst = jax.vmap(lambda _: JS.init_state(jl.solver))(jnp.arange(B))
+    jst = jst._replace(lam_lo=jst.lam_lo + 0.25, lam_hi=jst.lam_hi + 0.5)
+    tst = convert.sqp_state(jst)
+    for f in ("lam_lo", "lam_hi", "U"):
+        np.testing.assert_array_equal(getattr(tst, f).numpy(),
+                                      np.asarray(getattr(jst, f)))
+
+
 def test_shift_state_holds_the_last_stage():
     cfg = TS.SolverConfig(horizon=3)
     st = TS.init_state(cfg, batch=2)
@@ -123,8 +166,25 @@ def test_warmup_budget_is_full_strength():
     assert tcl._warmup_cfg(lcfg2).al_iters == 1
 
 
+def test_ip_warmup_budget_is_5x10_and_selects_the_ip_kernel():
+    from mpc_tpu_torch.ops import fused_ip as TFI
+    lcfg, _ = tsyn.make_bench_loop(3, 4, 1, device="cpu", method="ip",
+                                   ip_sqp_iters=1, ip_iters=4,
+                                   ip_warm_duals=True, ip_alphas=())
+    w = tcl._warmup_cfg(lcfg)
+    assert (w.ip_sqp_iters, w.ip_iters, w.ip_warm_duals, w.ip_alphas) == (
+        5, 10, True, ())
+    assert tcl.select_engine(lcfg.solver) is TFI.solve_batch_fused_ip
+    big = dataclasses.replace(lcfg, solver=dataclasses.replace(
+        lcfg.solver, ip_sqp_iters=6, ip_iters=12))
+    assert (tcl._warmup_cfg(big).ip_sqp_iters,
+            tcl._warmup_cfg(big).ip_iters) == (6, 12)
+    lcfg2 = dataclasses.replace(lcfg, warmup_full_strength=False)
+    assert tcl._warmup_cfg(lcfg2).ip_iters == 4
+
+
 @pytest.mark.parametrize("solver_kw,loop_kw", [
-    (dict(method="ip"), {}),
+    (dict(method="ip", boundary_rows=True), {}),
     (dict(engine="xla"), {}),
     (dict(model="st"), {}),
     (dict(boundary_rows=True), {}),

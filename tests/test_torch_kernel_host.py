@@ -1,0 +1,179 @@
+"""The CUDA kernels' own arithmetic, compiled for the host and held
+against their plain PyTorch versions on the CPU.
+
+Each ``ops/csrc/<name>.cu`` is compiled with the host C++ compiler against
+a small stand-in for ``cuda_runtime.h`` (the CUDA qualifiers defined away,
+``blockIdx``/``threadIdx`` as globals) with its ``<<<...>>>`` launch line
+replaced by a loop over the lanes, and its C entry point is called through
+ctypes on the packed CPU buffers.  The card's build (``nvcc``) and timing
+are ``chip_smoke.py``'s; this holds the source's arithmetic, the buffer
+layout and the ctypes binding to the plain version wherever a host
+compiler is present.
+"""
+import ctypes
+import dataclasses
+import re
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+import chip_smoke as cs
+from mpc_tpu_torch.ops import _build
+from mpc_tpu_torch.ops import fused_gn as TF
+from mpc_tpu_torch.ops import fused_ip as TFI
+from mpc_tpu_torch.ops import sqp as TS
+from mpc_tpu_torch.utils import synthetic as tsyn
+
+SHIM = """#pragma once
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <math.h>
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __grid_constant__
+typedef void* cudaStream_t;
+struct HostDim { unsigned x; };
+static HostDim blockIdx, threadIdx, blockDim;
+inline int cudaGetLastError() { return 0; }
+"""
+LAUNCH = re.compile(r"(\w+)<<<blocks, threads, 0, \(cudaStream_t\)stream>>>"
+                    r"\(\*args, b\);")
+LOOP = (r"for (int bi = 0; bi < blocks; ++bi) "
+        r"for (int ti = 0; ti < threads; ++ti) { blockIdx.x = bi; "
+        r"threadIdx.x = ti; blockDim.x = threads; \1(*args, b); }")
+H, B = 8, 5
+
+
+@pytest.fixture(scope="module")
+def host_libs(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler (g++) to build the kernels with")
+    out = tmp_path_factory.mktemp("host_kernels")
+    (out / "cuda_runtime.h").write_text(SHIM)
+    for header in _build.CSRC.glob("*.cuh"):
+        shutil.copy(header, out / header.name)
+    libs = {}
+    for name in _build.SIGNATURES:
+        src, n = LAUNCH.subn(LOOP, (_build.CSRC / f"{name}.cu").read_text())
+        assert n == 1, f"{name}.cu: expected one kernel launch line"
+        (out / f"{name}.cpp").write_text(src)
+        lib = out / f"lib{name}.so"
+        subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+                        "-ffp-contract=off", "-I", str(out), "-o", str(lib),
+                        str(out / f"{name}.cpp")], check=True,
+                       capture_output=True, timeout=300)
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def run_host(libs, name, args, bufs, order):
+    fn = getattr(libs[name], _build.SIGNATURES[name][0])
+    fn.restype = ctypes.c_int
+    ptrs = [ctypes.c_void_p(bufs[n].data_ptr() if n in bufs else 0)
+            for n in order]
+    assert fn(ctypes.byref(args), *ptrs, ctypes.c_void_p(0)) == 0
+
+
+def host_gn(libs, cfg, ocp, st):
+    bufs = TF.pack(cfg, ocp, st, trace_rungs=True)
+    run_host(libs, "fused_gn", TF.kernel_args(cfg, B, ocp.obs_centers.dim()
+                                              == 4, threads=2), bufs,
+             TF.KERNEL_INPUTS + TF.KERNEL_STATE + TF.KERNEL_OUTPUTS
+             + TF.KERNEL_SCRATCH + TF.KERNEL_TRACE)
+    return bufs, TF.to_solution(cfg, TF.unpack(bufs))
+
+
+def host_ip(libs, cfg, ocp, st):
+    bufs = TFI.pack_ip(cfg, ocp, st, trace_rungs=True)
+    run_host(libs, "fused_ip", TFI.kernel_args_ip(
+        cfg, B, ocp.obs_centers.dim() == 4, threads=2), bufs,
+        TFI.KERNEL_INPUTS + TFI.KERNEL_STATE + TFI.KERNEL_OUTPUTS
+        + TFI.KERNEL_SCRATCH + TFI.KERNEL_TRACE)
+    return bufs, TFI.to_solution_ip(cfg, TFI.unpack_ip(bufs), st.mu)
+
+
+def bench_ocp(mode="forcespro", moving=False, **kw):
+    lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, H, B, mode=mode,
+                                    device="cpu", **kw)
+    ocp = cs.ocp_at(lcfg, lp, step=1 if mode == "casadi" else 0)
+    if moving:
+        drift = torch.arange(H + 1.0)[:, None, None] * torch.tensor(
+            [0.3, 0.05])
+        ocp = ocp._replace(obs_centers=ocp.obs_centers[:, None] + drift)
+    return lcfg.solver, ocp
+
+
+def assert_close(ker, pln, bands, state_bands):
+    for f, band in bands.items():
+        assert bool(cs.lanes_close(getattr(ker, f), getattr(pln, f),
+                                   *band).all()), f
+    for f, band in state_bands.items():
+        assert bool(cs.lanes_close(getattr(ker.state, f),
+                                   getattr(pln.state, f), *band).all()), f
+    assert torch.equal(ker.status, pln.status)
+
+
+AL_CASES = {
+    "cold-3x4": dict(al_iters=3, sqp_iters=4, alphas=()),
+    "ladder-2x2": dict(al_iters=2, sqp_iters=2),
+    "casadi-euler-ladder": dict(mode="casadi", al_iters=2, sqp_iters=2),
+    "moving-2x2": dict(moving=True, al_iters=2, sqp_iters=2, alphas=()),
+}
+
+
+@pytest.mark.parametrize("case", list(AL_CASES))
+def test_fused_gn_source_matches_the_plain_version(host_libs, case):
+    cfg, ocp = bench_ocp(**AL_CASES[case])
+    st = TS.init_state(cfg, batch=B)
+    bufs, ker = host_gn(host_libs, cfg, ocp, st)
+    pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
+        cfg, ocp, st, follow=bufs.get("rung")))
+    assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
+
+
+IP_CASES = {
+    "cold-5x10": dict(method="ip", ip_sqp_iters=5, ip_iters=10,
+                      ip_alphas=()),
+    "ladder-2x6-warm-duals": dict(method="ip", ip_sqp_iters=2, ip_iters=6,
+                                  ip_warm_duals=True),
+    "casadi-euler-ladder": dict(mode="casadi", method="ip", ip_sqp_iters=2,
+                                ip_iters=4),
+    "moving-2x6": dict(moving=True, method="ip", ip_sqp_iters=2, ip_iters=6,
+                       ip_alphas=()),
+}
+
+
+@pytest.mark.parametrize("case", list(IP_CASES))
+def test_fused_ip_source_matches_the_plain_version(host_libs, case):
+    cfg, ocp = bench_ocp(**IP_CASES[case])
+    st = TS.init_state(cfg, batch=B)
+    bufs, ker = host_ip(host_libs, cfg, ocp, st)
+    pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
+        cfg, ocp, st, follow=bufs.get("rung")), st.mu)
+    assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
+    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
+                               rtol=0.0, atol=1e-3)
+
+
+def test_fused_ip_source_warm_start_and_in_place_state(host_libs):
+    """The bench point: warm ip 1x4 from the cold-start state; the kernel
+    writes U and the duals in place and leaves the caller's state alone."""
+    cfg, ocp = bench_ocp(method="ip", ip_sqp_iters=5, ip_iters=10,
+                         ip_alphas=())
+    _, cold = host_ip(host_libs, cfg, ocp, TS.init_state(cfg, batch=B))
+    warm_cfg = dataclasses.replace(cfg, ip_sqp_iters=1, ip_iters=4,
+                                   ip_warm_duals=True)
+    before = cold.state.map(torch.clone)
+    bufs, ker = host_ip(host_libs, warm_cfg, ocp, cold.state)
+    for a, b in zip(cold.state, before):
+        assert torch.equal(a, b)
+    assert ker.U.data_ptr() == bufs["U"].data_ptr()
+    pln = TFI.to_solution_ip(warm_cfg, TFI.solve_batch_fused_ip_plain(
+        warm_cfg, ocp, cold.state), cold.state.mu)
+    assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
+    assert bool((ker.status >= 0).all())

@@ -203,7 +203,7 @@ def test_normalize_params_matches_jax(model):
 
 def _port_sources():
     return sorted((ROOT / "mpc_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -230,6 +230,11 @@ from mpc_tpu_torch.planner import closed_loop as cl
 from mpc_tpu_torch.utils import synthetic
 lcfg, p = synthetic.make_bench_loop(3, 4, 2, device="cpu", al_iters=1,
                                     sqp_iters=1, alphas=(),
+                                    cold_start_solves=1)
+res = cl.closed_loop_batch_vec(lcfg, p, device="cpu")
+assert res.X.shape == (2, 3, 5) and bool((res.status >= 0).all())
+lcfg, p = synthetic.make_bench_loop(3, 4, 2, device="cpu", method="ip",
+                                    ip_sqp_iters=1, ip_iters=2,
                                     cold_start_solves=1)
 res = cl.closed_loop_batch_vec(lcfg, p, device="cpu")
 assert res.X.shape == (2, 3, 5) and bool((res.status >= 0).all())
