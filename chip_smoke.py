@@ -1,6 +1,6 @@
 """Run the PyTorch/CUDA port on one NVIDIA GPU: build its kernels, hold
-each kernel against its plain PyTorch version, and drive both closed loops
-at the bench point.
+each kernel against its plain PyTorch version, and drive the closed loops
+of the port at the bench point.
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
 
@@ -25,30 +25,42 @@ Phases, each printing one JSON line (``"phase": ...``):
               cold-start state) and the default ladder (2x6, warm duals);
               the bands of tests/test_fused_ip.py on every lane, the status
               on >= 99.9% of lanes.
+            - riccati (the sweep of the xla engine): random well-conditioned
+              problems with a nonzero defect (B=2048 and a ragged B=250,
+              H=30), the quadratics the xla engine builds at the bench
+              point's step 0 (B=16384) and the same with road-boundary rows
+              (B=250); the bands of tests/test_sqp_vec.py:26-31 on every
+              lane, non-finite gains on the same entries.
+            - the xla engine (``sqp_vec.solve_batch_vec``) with the kernel
+              sweep against the same solve with the plain sweep, at
+              B=2048: al 1x1 unguarded and a 2x2 ladder.
             With the ladder on, the kernel records the rung each iteration
             committed and the plain version replays those choices: every
             choice must be the best rung, up to a relative merit regret of
             TIE_RTOL, under the plain version's merits (near-tied rungs go
             either way by rounding);
-4. loop_vs_plain  the first steps of each closed loop (soft and hard) on
-            the card against the same loop on the CPU (plain version), the
-            tests' closed-loop bands;
+4. loop_vs_plain  the first steps of a closed loop on the card against the
+            same loop on the CPU (plain version), the tests' closed-loop
+            bands: the soft and hard rows, the soft xla row plain and with
+            the RTI backoffs, and the hard row with the status gate on stage
+            0..1;
 5. timing   each kernel per launch at the main path's shape (B=16384,
-            H=30; AL warm 1x1 and cold 3x4, IP warm 1x4 and cold 5x10;
-            32/64/128 threads a block), the plain version's time, and the
-            bound: the larger of the bytes the solve must move over
-            3.35 TB/s and its fp32 operations (counted on the plain
-            version) over 67 TFLOP/s; the timed launches' outputs are held
-            against the plain version's, as in ``check``;
+            H=30; AL warm 1x1 and cold 3x4, IP warm 1x4 and cold 5x10, the
+            sweep on the bench point's step-0 quadratics; 32/64/128 threads
+            a block), the plain version's time, and the bound: the larger of
+            the bytes the call must move over 3.35 TB/s and its fp32
+            operations (counted on the plain version) over 67 TFLOP/s; the
+            timed launches' outputs are held against the plain version's,
+            as in ``check``;
 6. loop     ``closed_loop_batch_vec`` at B=16384, H=30, T=100 with 4
-            cold-start solves, for the soft row (al 1x1, ``alphas=()``) and
-            the hard row (ip 1x4, warm duals, ``ip_alphas=()``): launches
+            cold-start solves, for the soft row (al 1x1, ``alphas=()``), the
+            hard row (ip 1x4, warm duals, ``ip_alphas=()``) and the xla row
+            (the soft row on ``engine='xla'``): launches of every kernel
             counted in that run, then solves/s with CUDA events, best of 3
-            after it;
+            after it (one run where a loop takes more than 20 s), and the
+            peak device memory;
 7. profile  one more loop of each row under ``torch.profiler``: device time
             of the kernel and of the eager glue around it, by kernel name;
-8. bound    the bound of the one TPU kernel not ported yet (a Riccati sweep
-            alone), reckoned from its shapes at the bench point;
 
 then the card's name and power limit, the kernels line, and as the last
 line ``{"ok": true, "device": {...}}``.  A phase that fails raises: the
@@ -57,15 +69,16 @@ script then exits non-zero and prints no last line.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import subprocess
 import sys
 import time
-import types
 from pathlib import Path
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -81,6 +94,7 @@ WARM = dict(al_iters=1, sqp_iters=1, alphas=())
 IP_COLD = dict(method="ip", ip_sqp_iters=5, ip_iters=10, ip_alphas=())
 IP_WARM = dict(method="ip", ip_sqp_iters=1, ip_iters=4, ip_warm_duals=True,
                ip_alphas=())
+XLA_WARM = dict(engine="xla", **WARM)
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12                       # H100 SXM, fp32 non-tensor
 # (rtol, atol) of tests/test_fused_gn.py:42-55
@@ -107,6 +121,13 @@ KKT_ATOL = 5e-2
 IP_BANDS = {"U": (2e-3, 2e-3), "X": (2e-3, 2e-2), "viol": (0.0, 1e-3),
             "cost": (1e-3, 1e-2), "kkt_stat": (5e-2, KKT_ATOL)}
 IP_STATE_BANDS = {"lam_hi": (5e-2, 5e-2), "lam_lo": (5e-2, 5e-2)}
+# (rtol, atol) of the Riccati sweep's gains, tests/test_sqp_vec.py:26-31;
+# dV2 (a sum of d'(Quu + reg)d >= 0, as dV1 is of d'gu <= 0) in dV1's band
+RIC_BANDS = {"K": (2e-3, 2e-3), "d": (2e-3, 2e-3), "dV1": (1e-2, 0.0),
+             "dV2": (1e-2, 0.0)}
+# A loop whose counted run takes longer than this is timed once, not best
+# of 3
+ONE_TIMED_RUN_S = 20.0
 # A ladder choice may lose to the best rung by rounding: at most this much
 # of max(|best merit|, 1) under the plain version's merits.  The plain
 # version's own float32 choices stay well inside it under its float64
@@ -195,14 +216,17 @@ def lanes_close(a, b, rtol, atol):
     return ok.reshape(ok.shape[0], -1).all(1)
 
 
-def rung_regret(chosen, merits):
+def rung_regret(chosen, merits, best=None):
     """Per lane: how much the chosen rung's merit exceeds that of the rung
-    the ladder's rule picks (the first of least merit; a NaN trial never
-    wins, and a NaN at alpha = 0 keeps the iterate), relative to
-    max(|that merit|, 1)."""
+    the ladder's rule picks, relative to max(|that merit|, 1).  The fused
+    kernels' rule (``best`` None): the first of least merit; a NaN trial
+    never wins, and a NaN at alpha = 0 keeps the iterate.  The xla
+    engine's picks come as ``best``."""
     m = merits.double()
-    best = torch.where(m[0].isnan(), 0,
-                       m.nan_to_num(nan=float("inf")).argmin(0))
+    if best is None:
+        best = torch.where(m[0].isnan(), 0,
+                           m.nan_to_num(nan=float("inf")).argmin(0))
+    best = best.long()
     mc = m.gather(0, chosen.long()[None])[0]
     mb = m.gather(0, best[None])[0]
     reg = ((mc - mb) / mb.abs().clamp(min=1.0)).nan_to_num(nan=float("inf"))
@@ -427,6 +451,216 @@ def phase_check_ip(dev):
     return results
 
 
+def random_lqr(rng, B, Hs, device="cpu"):
+    """B random well-conditioned LQR problems of Hs stages with a nonzero
+    defect r: the distribution of tests/test_riccati.py's generator (SPD
+    Q, R, QH; A = I + noise; r ~ 0.1 N(0, 1)), drawn for all lanes at
+    once.  Returns (StageQuad, QH, qH, LinDyn), float32, lanes leading."""
+    from mpc_tpu_torch.ops.riccati import LinDyn, StageQuad
+
+    def spd(*lead, n):
+        m = rng.standard_normal(lead + (n, n))
+        return m @ m.swapaxes(-1, -2) + n * np.eye(n)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    quad = StageQuad(Q=t(spd(B, Hs, n=5)), R=t(spd(B, Hs, n=2)),
+                     M=t(0.1 * rng.standard_normal((B, Hs, 5, 2))),
+                     qx=t(rng.standard_normal((B, Hs, 5))),
+                     qu=t(rng.standard_normal((B, Hs, 2))))
+    QH, qH = t(spd(B, n=5)), t(rng.standard_normal((B, 5)))
+    dyn = LinDyn(A=t(np.eye(5) + 0.1 * rng.standard_normal((B, Hs, 5, 5))),
+                 B=t(rng.standard_normal((B, Hs, 5, 2))),
+                 r=t(0.1 * rng.standard_normal((B, Hs, 5))))
+    return quad, QH, qH, dyn
+
+
+def with_road_boundaries(ocp, half_width=4.0):
+    """``ocp`` with a road around each lane's reference window: left and
+    right polylines ``half_width`` m either side of the reference points,
+    extended 10 m back along the first heading, signs (-1, +1) so that h >
+    0 inside."""
+    xy, psi = ocp.x_ref[..., :2], ocp.x_ref[..., 4]
+    back = xy[:, :1] - 10.0 * torch.stack(
+        [torch.cos(psi[:, :1]), torch.sin(psi[:, :1])], -1)
+    xy = torch.cat([back, xy], 1)
+    psi = torch.cat([psi[:, :1], psi], 1)
+    normal = torch.stack([-torch.sin(psi), torch.cos(psi)], -1)
+    bnd = torch.stack([xy + half_width * normal, xy - half_width * normal],
+                      1)
+    signs = torch.tensor([-1.0, 1.0], dtype=xy.dtype, device=xy.device)
+    return ocp._replace(boundaries=bnd.contiguous(),
+                        boundary_signs=signs.expand(xy.shape[0], 2).clone())
+
+
+def gn_problem(cfg, ocp, state):
+    """The quadratics and dynamics the xla engine's first Gauss-Newton step
+    builds from ``state`` (its rollout, multipliers and penalties)."""
+    from mpc_tpu_torch.ops import sqp as S
+    ocp = S.normalize_params(cfg, ocp)
+    X = S._rollout(cfg, ocp.x0, state.U)
+    quad, QH, qH = S._build_quadratic(cfg, X, state.U, ocp, state.lam_lo,
+                                      state.lam_hi, state.mu)
+    return quad, QH, qH, S._linearize_dynamics(cfg, X, state.U)
+
+
+def _double(tree):
+    """A tensor, or a tuple (NamedTuples too) of them, in float64."""
+    if torch.is_tensor(tree):
+        return tree.double()
+    return type(tree)(*(_double(t) for t in tree))
+
+
+def riccati_lanes_close(a, b, bands=RIC_BANDS):
+    """Per lane: every gain within its band, non-finite entries equal."""
+    ok = None
+    for f, (rtol, atol) in bands.items():
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dim() == 1:
+            x, y = x[:, None], y[:, None]
+        lane = lanes_close(x, y, rtol, atol)
+        ok = lane if ok is None else ok & lane
+    return ok
+
+
+def riccati_compare(name, problem, reg, gains=None, plain=None):
+    """The sweep's kernel against its plain version on every lane of
+    ``problem`` (quad, QH, qH, dyn); ``gains``/``plain`` reuse outputs
+    already computed on it.  A lane outside a band is excused only where
+    the plain version's float32 and float64 sweeps part by more than that
+    band (at most MAX_ROUNDING_SHARE of the lanes)."""
+    from mpc_tpu_torch.ops import riccati_kernel as RK
+    from mpc_tpu_torch.ops import riccati_vec as RV
+    if gains is None:
+        gains = RK.sweep(*problem, reg)
+    if plain is None:
+        plain = RV.backward_pass_vec_plain(*problem, reg)
+    torch.cuda.synchronize()
+    ok = riccati_lanes_close(gains, plain)
+    noisy = torch.zeros_like(ok)
+    if not bool(ok.all()):
+        p64 = RV.backward_pass_vec_plain(*_double(problem), reg)
+        noisy = ~riccati_lanes_close(_double(plain), p64)
+    errs = {f: max_abs(getattr(gains, f), getattr(plain, f))
+            for f in RIC_BANDS}
+    nonfinite_equal = all(
+        bool(torch.equal(torch.isfinite(getattr(gains, f)),
+                         torch.isfinite(getattr(plain, f))))
+        for f in ("K", "d", "dV1", "dV2"))
+    B = int(ok.shape[0])
+    line = {"phase": "check", "kernel": "riccati", "case": name,
+            "lanes": B, "horizon": int(problem[0].Q.shape[1]),
+            "max_abs_err": errs,
+            "lane_agreement": float((ok | noisy).double().mean()),
+            "rounding_lanes": int(noisy.sum()),
+            "nonfinite_lanes": int((~torch.isfinite(plain.K).reshape(
+                B, -1).all(1)).sum()),
+            "nonfinite_equal": nonfinite_equal}
+    emit(line)
+    require(bool((ok | noisy).all()),
+            f"riccati {name}: kernel and plain version differ on "
+            f"{int((~(ok | noisy)).sum())} lanes")
+    require(int(noisy.sum()) <= MAX_ROUNDING_SHARE * B,
+            f"riccati {name}: {int(noisy.sum())} lanes where float32 "
+            "rounding alone leaves the bands")
+    require(nonfinite_equal, f"riccati {name}: non-finite gains differ")
+    return errs
+
+
+def phase_check_riccati(dev):
+    """The sweep's checks: random problems with a defect, and the
+    quadratics the xla engine builds at the bench point's step 0, plain
+    and with road-boundary rows."""
+    from mpc_tpu_torch.ops import sqp as S
+    results = {}
+    for B in (B_CHECK, B_SMALL):
+        prob = random_lqr(np.random.default_rng(B), B, H, dev)
+        results[f"random_{B}"] = riccati_compare(f"random_{B}", prob, 1e-6)
+    for B, boundary in ((B_BENCH, False), (B_SMALL, True)):
+        lcfg, lp = bench_loop(n_lanes=B, device=dev, boundary_rows=boundary,
+                              **XLA_WARM)
+        ocp = ocp_at(lcfg, lp)
+        if boundary:
+            ocp = with_road_boundaries(ocp)
+        st = S.init_state(lcfg.solver, device=dev, batch=B)
+        name = f"bench_step0_{B}" + ("_boundaries" if boundary else "")
+        results[name] = riccati_compare(
+            name, gn_problem(lcfg.solver, ocp, st), lcfg.solver.reg)
+    return results
+
+
+def phase_check_sqp_vec(dev):
+    """The xla engine with the kernel sweep against the same solve with the
+    plain sweep, on the card, at B=2048 from the cold start: al 1x1
+    unguarded, and a 2x2 ladder whose rung choices the plain-sweep solve
+    replays (each within TIE_RTOL of the best under its merits)."""
+    from mpc_tpu_torch.ops import riccati_vec as RV
+    from mpc_tpu_torch.ops import sqp as S
+    from mpc_tpu_torch.ops import sqp_vec as SV
+    results = {}
+    for name, budget in (("xla_1x1", WARM),
+                         ("xla_ladder_2x2", dict(al_iters=2, sqp_iters=2))):
+        lcfg, lp = bench_loop(n_lanes=B_CHECK, device=dev, engine="xla",
+                              **budget)
+        cfg, ocp = lcfg.solver, ocp_at(lcfg, lp)
+        st = S.init_state(cfg, device=dev, batch=B_CHECK)
+        ladder = bool(cfg.alphas)
+        chosen, trace = [], []
+        ker = SV.solve_batch_vec(cfg, ocp, st, device=dev,
+                                 rungs=chosen if ladder else None)
+        follow = torch.stack([r for r, _ in chosen]) if ladder else None
+        pln = SV.solve_batch_vec(cfg, ocp, st, device=dev,
+                                 sweep=RV.backward_pass_vec_plain,
+                                 rungs=trace if ladder else None,
+                                 follow=follow)
+        extra = {}
+        if ladder:
+            regret = torch.stack([
+                rung_regret(c, m, SV._pick(m[1:], m[0]))
+                for c, (_, m) in zip(follow, trace)])
+            extra = {"max_rung_regret": float(regret.max()),
+                     "rung_choices": int(follow.numel())}
+        torch.cuda.synchronize()
+        inband = {f: lanes_close(getattr(ker, f), getattr(pln, f), *band)
+                  for f, band in BANDS.items()}
+        noisy = {f: torch.zeros_like(v) for f, v in inband.items()}
+        if not all(bool(v.all()) for v in inband.values()):
+            ocp64, st64 = as_float64(ocp, st)
+            p64 = SV.solve_batch_vec(cfg, ocp64, st64, device=dev,
+                                     sweep=RV.backward_pass_vec_plain,
+                                     follow=follow)
+            noisy = {f: ~lanes_close(getattr(pln, f).double(),
+                                     getattr(p64, f), *band)
+                     for f, band in BANDS.items()}
+        errs = {f: max_abs(getattr(ker, f), getattr(pln, f)) for f in BANDS}
+        agree = {f: float((inband[f] | noisy[f]).double().mean())
+                 for f in BANDS}
+        for f, (rtol, atol) in STATE_BANDS.items():
+            a, b = getattr(ker.state, f), getattr(pln.state, f)
+            errs[f] = max_abs(a, b)
+            agree[f] = float(lanes_close(a, b, rtol, atol).double().mean())
+        agree["status"] = float((ker.status == pln.status).double().mean())
+        n_noisy = int(torch.stack(list(noisy.values())).any(0).sum())
+        emit({"phase": "check", "kernel": "riccati", "case": name,
+              "engine": "xla", "lanes": B_CHECK,
+              "budget": f"{cfg.al_iters}x{cfg.sqp_iters}",
+              "alphas": list(cfg.alphas), "max_abs_err": errs,
+              "lane_agreement": agree, "rounding_lanes": n_noisy, **extra,
+              "kernel_feasible_lanes": int((ker.status >= 0).sum())})
+        short = [f for f, v in agree.items()
+                 if v < (1.0 if f in BANDS else MIN_LANE_AGREEMENT)]
+        require(not short, f"{name}: kernel-sweep and plain-sweep solves "
+                           f"agree on too few lanes in {short}")
+        require(n_noisy <= MAX_ROUNDING_SHARE * B_CHECK,
+                f"{name}: {n_noisy} lanes where float32 rounding alone "
+                "leaves the bands")
+        require(not ladder or extra["max_rung_regret"] <= TIE_RTOL,
+                f"{name}: a rung worse than the best by "
+                f"{extra.get('max_rung_regret')} of its merit")
+        results[name] = errs
+    return results
+
+
 def phase_loop_vs_plain(dev, row, **budget):
     """The first steps of a bench loop on the card vs the plain loop on the
     CPU (bands of tests/test_torch_closed_loop.py)."""
@@ -440,7 +674,8 @@ def phase_loop_vs_plain(dev, row, **budget):
     err_u = max_abs(got.U.cpu(), ref.U)
     same_feas = bool(torch.equal(got.status.cpu() >= 0, ref.status >= 0))
     emit({"phase": "loop_vs_plain", "row": row, "lanes": B, "steps": T,
-          "max_abs_err": {"X": err_x, "U": err_u},
+          "config": budget, "max_abs_err": {"X": err_x, "U": err_u},
+          "feasible_steps": int((got.status >= 0).sum()),
           "feasibility_equal": same_feas})
     require(err_x < 5e-2 and err_u < 5e-3 and same_feas,
             f"{row} closed loop on the card differs from the plain loop")
@@ -567,59 +802,105 @@ def phase_timing(dev, cold_kw, warm_kw, warm_reps=20, cold_reps=5):
     return out
 
 
-def phase_bound_unported():
-    """The bound of the one TPU kernel not ported yet,
-    tools/ablation/pallas_riccati.py::_riccati_kernel (a Riccati sweep
-    alone), reckoned from its shapes at the bench point (B=16384, H=30):
-    per lane and stage it reads Q, R, M, qx, qu, A, B, r (86 floats) and
-    writes K, d, dV (14), per lane it reads QH, qH (30).  Its operations are
-    counted on the port's own sweep, ``fused_gn._backward_sweep``, at one
-    lane (the defect and dV terms, ~100 operations a stage, left out)."""
-    from mpc_tpu_torch.ops import fused_gn as F
-    gen = torch.Generator().manual_seed(0)
-
-    def rand(*shape):
-        return torch.rand((1,) + shape, generator=gen)
-    cfg = F.S.SolverConfig(horizon=H)
-    qd = dict(Q=rand(H, 5, 5), R=rand(H, 2, 2), M=rand(H, 5, 2),
-              qx=rand(H, 5), qu=rand(H, 2), A=rand(H, 5, 5),
-              Bm=rand(H, 5, 2), QH=rand(5, 5), qH=rand(5))
+def riccati_bound(bufs):
+    """The sweep's bound at the shapes of ``bufs``: its bytes (every input
+    read once, every output written once) over the card's memory rate, and
+    its fp32 operations, counted on the plain version at one lane of the
+    same horizon, over its fp32 rate."""
+    from mpc_tpu_torch.ops import riccati_kernel as RK
+    from mpc_tpu_torch.ops import riccati_vec as RV
+    Hs, _, B = bufs["Q"].shape
+    nbytes = sum(bufs[n].numel() * bufs[n].element_size()
+                 for n in RK.KERNEL_INPUTS + RK.KERNEL_OUTPUTS)
+    problem = random_lqr(np.random.default_rng(0), 1, Hs)
     with _OpCount() as c:
-        F._backward_sweep(cfg, types.SimpleNamespace(H=H), qd)
-    nbytes = 4 * B_BENCH * (H * (86 + 14) + 30)
-    ops = c.n * B_BENCH
+        RV.backward_pass_vec_plain(*problem, 1e-6)
+    ops = c.n * B
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
-    line = {"phase": "bound", "kernel": "riccati (not ported)",
-            "replaces": "tools/ablation/pallas_riccati.py:104 "
-                        "(_riccati_kernel)", "lanes": B_BENCH, "horizon": H,
-            "bytes": nbytes, "fp32_ops": ops, "bytes_ms": bytes_ms,
+    return {"bytes": nbytes, "fp32_ops": ops, "bytes_ms": bytes_ms,
             "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    emit(line)
+
+
+def phase_timing_riccati(dev, reps=20):
+    """The sweep per launch on the quadratics the xla engine builds at the
+    bench point's step 0 (B=16384, H=30): the median of ``reps`` launches
+    with CUDA events at 32/64/128 threads, the layout copies of ``pack``,
+    the plain version's time and the bound; the timed launch's gains held
+    against the plain version's."""
+    from mpc_tpu_torch.ops import riccati_kernel as RK
+    from mpc_tpu_torch.ops import riccati_vec as RV
+    from mpc_tpu_torch.ops import sqp as S
+    lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **XLA_WARM)
+    cfg = lcfg.solver
+    problem = gn_problem(cfg, ocp_at(lcfg, lp),
+                         S.init_state(cfg, device=dev, batch=B_BENCH))
+    bufs = RK.pack(*problem)
+
+    def median_ms(fn):
+        fn()
+        times = sorted(cuda_ms(fn)[0] for _ in range(reps))
+        return times[len(times) // 2]
+    by_threads = {t: median_ms(lambda: RK.launch(bufs, cfg.reg, t))
+                  for t in (32, 64, 128)}
+    ms = by_threads[RK.THREADS]
+    pack_ms = median_ms(lambda: RK.pack(*problem))
+    plain_ms, plain = min(
+        (cuda_ms(lambda: RV.backward_pass_vec_plain(*problem, cfg.reg))
+         for _ in range(3)), key=lambda r: r[0])
+    errs = riccati_compare("timed_bench_step0", problem, cfg.reg,
+                           RK.unpack(bufs), plain)
+    line = {"ms": ms, "threads": RK.THREADS,
+            "ms_by_threads": {str(t): v for t, v in by_threads.items()},
+            "pack_ms": pack_ms, "plain_ms": plain_ms, **riccati_bound(bufs),
+            "max_abs_err": errs}
+    emit({"phase": "timing", "kernel": "riccati", "case": "bench_step0",
+          "lanes": B_BENCH, "horizon": H, **line})
     return line
 
 
-def reset_launch_counts():
+def _launchers():
+    """Each kernel's launching wrapper, which counts its launches."""
     from mpc_tpu_torch.ops import fused_gn as F
     from mpc_tpu_torch.ops import fused_ip as FI
-    F.launch.launches = 0
-    FI.launch_ip.launches = 0
+    from mpc_tpu_torch.ops import riccati_kernel as RK
+    return {"fused_gn": F.launch, "fused_ip": FI.launch_ip,
+            "riccati": RK.launch}
+
+
+def reset_launch_counts():
+    for fn in _launchers().values():
+        fn.launches = 0
 
 
 def launch_counts():
-    from mpc_tpu_torch.ops import fused_gn as F
-    from mpc_tpu_torch.ops import fused_ip as FI
-    return {"fused_gn": F.launch.launches, "fused_ip": FI.launch_ip.launches}
+    return {name: fn.launches for name, fn in _launchers().items()}
+
+
+def row_kernel(lcfg):
+    """(kernel, launches it makes in one loop of ``lcfg``): one fused solve
+    per cold start and step, or one sweep per Gauss-Newton step of the xla
+    engine (the cold starts at their full-strength budget)."""
+    from mpc_tpu_torch.planner import closed_loop as cl
+    scfg = lcfg.solver
+    if scfg.engine != "xla":
+        return engine(scfg).name, lcfg.cold_start_solves + lcfg.n_steps
+    wcfg = cl._warmup_cfg(lcfg)
+    return "riccati", (lcfg.cold_start_solves * wcfg.al_iters
+                       * wcfg.sqp_iters
+                       + lcfg.n_steps * scfg.al_iters * scfg.sqp_iters)
 
 
 def phase_loop(dev, card, row, budget, **kw):
     """One bench row: ``closed_loop_batch_vec`` at B=16384, H=30, T=100,
-    the kernel launches counted in a first run, then solves/s with CUDA
-    events, best of 3."""
+    the launches of every kernel counted in a first run (the row's kernel
+    alone, as often as the row needs it) and its peak device memory, then
+    solves/s with CUDA events, best of 3 (one run when the counted run took
+    longer than ONE_TIMED_RUN_S)."""
     from mpc_tpu_torch.planner import closed_loop as cl
     lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **kw)
-    kernel = engine(lcfg.solver).name
+    kernel, want = row_kernel(lcfg)
 
     def run():
         res = cl.closed_loop_batch_vec(lcfg, lp, device=dev)
@@ -628,21 +909,29 @@ def phase_loop(dev, card, row, budget, **kw):
                     + res.cost.sum())
         return feasible, checksum, res
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                  # the main path's run
+    t0 = time.perf_counter()
     feasible, checksum, res = run()
     torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
     launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     total = B_BENCH * T_BENCH
     require(tuple(res.X.shape) == (B_BENCH, T_BENCH, 5), "loop X shape")
     require(bool(torch.isfinite(checksum)), "loop checksum is not finite")
     require(int(feasible) == total,
             f"{row}: feasible steps {int(feasible)} of {total}")
-    want = lcfg.cold_start_solves + T_BENCH
     require(launches[kernel] == want,
             f"{row}: {kernel} launches {launches[kernel]}, want {want}")
+    others = {k: n for k, n in launches.items() if k != kernel and n}
+    require(not others, f"{row}: other kernels launched: {others}")
+    del res
 
     best = float("inf")
-    for _ in range(3):
+    timed_runs = 1 if counted_s > ONE_TIMED_RUN_S else 3
+    for _ in range(timed_runs):
         ms, (feasible, checksum, _) = cuda_ms(run)
         require(int(feasible) == total, "feasible steps changed between runs")
         best = min(best, ms / 1e3)
@@ -651,28 +940,53 @@ def phase_loop(dev, card, row, budget, **kw):
             "metric": "nmpc_solves_per_s_per_chip_h30",
             "value": total / best, "unit": "solves/s/chip",
             "step_latency_ms": best / T_BENCH * 1e3, "loop_s": best,
+            "timed_runs": timed_runs, "counted_run_s": counted_s,
             "feasible_steps": int(feasible), "total_solves": total,
             "batch": B_BENCH, "horizon": H, "steps": T_BENCH,
-            "budget": budget, "cold_start_solves": lcfg.cold_start_solves,
+            "budget": budget, "engine": lcfg.solver.engine,
+            "cold_start_solves": lcfg.cold_start_solves,
             "kernel": kernel, "kernel_launches": launches[kernel],
-            "launches_by_kernel": launches, "checksum": float(checksum),
+            "launches_by_kernel": launches,
+            "peak_device_memory_bytes": peak, "checksum": float(checksum),
             "gpu": name, "power_limit": limit}
     emit(line)
     return line, lcfg, lp
 
 
-def phase_profile(dev, row, lcfg, lp):
+def phase_profile(dev, row, lcfg, lp, window=None):
     """Device time of one bench loop by kernel, from torch.profiler (the
     profiler's own host overhead widens the gaps between kernels, so the
-    idle share comes from the unprofiled loop time)."""
+    idle share comes from the unprofiled loop time).  ``window`` steps
+    profiles only that many steps after an unprofiled cold start, and only
+    the device's activity: a steady window, for a row of too many eager
+    launches to trace whole."""
     from torch.profiler import ProfilerActivity, profile
 
     from mpc_tpu_torch.planner import closed_loop as cl
-    kernel = engine(lcfg.solver).name
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        cl.closed_loop_batch_vec(lcfg, lp, device=dev)
+    kernel, _ = row_kernel(lcfg)
+    if window is None:
+        def body():
+            cl.closed_loop_batch_vec(lcfg, lp, device=dev)
+    else:
+        solve = functools.partial(cl.select_engine(lcfg.solver), device=dev)
+        state = cl._batch_cold_start(lcfg, lp, solve)
+        n = lp.x_init.shape[0]
+        carry = (0, lp.x_init, state,
+                 torch.zeros((n,), dtype=torch.int64, device=dev))
+
+        def body():
+            c = carry
+            for _ in range(window):
+                c, _ = cl._batched_step(lcfg, lp, solve, c, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    activities = [ProfilerActivity.CUDA]
+    if window is None:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        body()
         torch.cuda.synchronize()
+    profiled_s = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
     by_name = {}
     for e in prof.events():
@@ -682,10 +996,15 @@ def phase_profile(dev, row, lcfg, lp):
     require(by_name, "the profiler saw no device kernels")
     busy = sum(ms for _, ms in by_name.values())
     fused = [v for k, v in by_name.items() if k.startswith(kernel)]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    line = {"phase": "profile", "row": row, "device_busy_ms": busy,
+    copies = [v for k, v in by_name.items() if "opy" in k]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    line = {"phase": "profile", "row": row,
+            "window_steps": window if window else "whole loop",
+            "profiled_wall_ms": profiled_s * 1e3, "device_busy_ms": busy,
             "kernel": kernel, "kernel_ms": sum(ms for _, ms in fused),
             "kernel_launches_seen": sum(n for n, _ in fused),
+            "copy_kernels_ms": sum(ms for _, ms in copies),
+            "copy_kernel_launches": sum(n for n, _ in copies),
             "device_launches": sum(n for n, _ in by_name.values()),
             "top": [{"kernel": k[:80], "launches": n, "ms": ms}
                     for k, (n, ms) in top]}
@@ -694,7 +1013,7 @@ def phase_profile(dev, row, lcfg, lp):
 
 
 def kernel_line(eng, loop, timing, warm, cold, checks, build):
-    """The kernels-line entry of one kernel: the warm bench budget's
+    """The kernels-line entry of one fused kernel: the warm bench budget's
     times, the main path's launches, the largest errors of every check."""
     errs = list(checks.values()) + [t["max_abs_err"]
                                     for t in timing.values()]
@@ -718,6 +1037,29 @@ def kernel_line(eng, loop, timing, warm, cold, checks, build):
         "ok": True}
 
 
+def riccati_kernel_line(loop, timing, checks, checks_vec, build):
+    """The kernels-line entry of the sweep: its time on the bench point's
+    step-0 quadratics, its launches in the xla row, the largest gain error
+    of every sweep check (and the U error of the engine checks)."""
+    info = build["riccati"]
+    errs = list(checks.values()) + [timing["max_abs_err"]]
+    return {
+        "name": "riccati", "route": "cuda",
+        "source": "mpc_tpu_torch/ops/csrc/riccati.cu",
+        "replaces": "tools/ablation/pallas_riccati.py:104 (_riccati_kernel)",
+        "launches": loop["kernel_launches"],
+        "max_abs_err": max(e["K"] for e in errs),
+        "max_abs_err_d": max(e["d"] for e in errs),
+        "max_abs_err_engine_U": max(e["U"] for e in checks_vec.values()),
+        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "library_ms": None, "pack_ms": timing["pack_ms"],
+        "registers": info["registers"],
+        "spill_stores": info["spill_stores"],
+        "spill_loads": info["spill_loads"],
+        "ok": True}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -734,33 +1076,56 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     t_start = time.perf_counter()
-    card = phase_device()
-    build = phase_build()
-    checks = phase_check(dev)
-    checks_ip = phase_check_ip(dev)
-    phase_loop_vs_plain(dev, "soft", **WARM)
-    phase_loop_vs_plain(dev, "hard", **IP_WARM)
-    timing = phase_timing(dev, COLD, WARM)
-    timing_ip = phase_timing(dev, IP_COLD, IP_WARM)
-    loop, lcfg, lp = phase_loop(
-        dev, card, "soft", "al 1x1, alphas=() (unguarded RTI step)",
-        method="al", **WARM)
-    phase_profile(dev, "soft", lcfg, lp)
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    card = timed("device", phase_device)
+    build = timed("build", phase_build)
+    checks = timed("check_fused_gn", phase_check, dev)
+    checks_ip = timed("check_fused_ip", phase_check_ip, dev)
+    checks_ric = timed("check_riccati", phase_check_riccati, dev)
+    checks_vec = timed("check_xla", phase_check_sqp_vec, dev)
+    for row, kw in (("soft", WARM), ("hard", IP_WARM),
+                    ("soft-xla", XLA_WARM),
+                    ("soft-xla-backoff", dict(rti_margin=0.1,
+                                              rti_amax_scale=0.9,
+                                              **XLA_WARM)),
+                    ("hard-gate1", dict(gate_stages=1, **IP_WARM))):
+        timed(f"loop_vs_plain_{row}", phase_loop_vs_plain, dev, row, **kw)
+    timing = timed("timing_fused_gn", phase_timing, dev, COLD, WARM)
+    timing_ip = timed("timing_fused_ip", phase_timing, dev, IP_COLD,
+                      IP_WARM)
+    timing_ric = timed("timing_riccati", phase_timing_riccati, dev)
+    loop, lcfg, lp = timed(
+        "loop_soft", phase_loop, dev, card, "soft",
+        "al 1x1, alphas=() (unguarded RTI step)", method="al", **WARM)
+    timed("profile_soft", phase_profile, dev, "soft", lcfg, lp)
     soft = engine(lcfg.solver)
-    loop_ip, lcfg, lp = phase_loop(
-        dev, card, "hard",
+    loop_ip, lcfg, lp = timed(
+        "loop_hard", phase_loop, dev, card, "hard",
         "ip 1x4, warm duals, ip_alphas=() (unguarded RTI step)", **IP_WARM)
-    phase_profile(dev, "hard", lcfg, lp)
+    timed("profile_hard", phase_profile, dev, "hard", lcfg, lp)
     hard = engine(lcfg.solver)
-    phase_bound_unported()
+    loop_xla, lcfg, lp = timed(
+        "loop_xla", phase_loop, dev, card, "xla",
+        "al 1x1, alphas=() (unguarded RTI step), engine='xla'", **XLA_WARM)
+    timed("profile_xla", phase_profile, dev, "xla", lcfg, lp, window=5)
 
     kernels = [
         kernel_line(soft, loop, timing, "warm_1x1", "cold_3x4", checks,
                     build),
         kernel_line(hard, loop_ip, timing_ip, "warm_1x4", "cold_5x10",
-                    checks_ip, build)]
+                    checks_ip, build),
+        riccati_kernel_line(loop_xla, timing_ric, checks_ric, checks_vec,
+                            build)]
     print(card, flush=True)
-    emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
+    emit({"kernels": kernels, "seconds": time.perf_counter() - t_start,
+          "phase_seconds": seconds})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

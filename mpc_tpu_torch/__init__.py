@@ -7,7 +7,9 @@ library only; the JAX package stays the reference it is tested against.
 
 Entry points (``utils.synthetic.make_bench_loop``,
 ``planner.closed_loop.closed_loop_batch_vec``,
-``ops.fused_gn.solve_batch_fused``) run on ``cuda`` unless the caller passes
-``device="cpu"``; see :func:`mpc_tpu_torch.device.resolve_device`.
+``ops.fused_gn.solve_batch_fused``, ``ops.fused_ip.solve_batch_fused_ip``,
+``ops.sqp_vec.solve_batch_vec``, ``ops.riccati_vec.backward_pass_vec``)
+run on ``cuda`` unless the caller passes ``device="cpu"``; see
+:func:`mpc_tpu_torch.device.resolve_device`.
 """
 __version__ = "0.1.0"

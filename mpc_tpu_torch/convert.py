@@ -17,6 +17,7 @@ import torch
 from mpc_tpu_torch.models import constraints as C
 from mpc_tpu_torch.models import costs as cost_mod
 from mpc_tpu_torch.models import vehicle as veh_mod
+from mpc_tpu_torch.ops import riccati
 from mpc_tpu_torch.ops import sqp
 from mpc_tpu_torch.planner import closed_loop as cl
 from mpc_tpu_torch.planner import reference as ref_mod
@@ -61,6 +62,24 @@ def sqp_state(s, device=None) -> sqp.SqpState:
     f = fields_of(s)
     return sqp.SqpState(**{k: tensor(f[k], device)
                            for k in sqp.SqpState._fields})
+
+
+def stage_quad(q, device=None) -> riccati.StageQuad:
+    f = fields_of(q)
+    return riccati.StageQuad(**{k: tensor(f[k], device)
+                                for k in riccati.StageQuad._fields})
+
+
+def lin_dyn(d, device=None) -> riccati.LinDyn:
+    f = fields_of(d)
+    return riccati.LinDyn(**{k: tensor(f[k], device)
+                             for k in riccati.LinDyn._fields})
+
+
+def riccati_gains(g, device=None) -> riccati.RiccatiGains:
+    f = fields_of(g)
+    return riccati.RiccatiGains(**{k: tensor(f[k], device)
+                                   for k in riccati.RiccatiGains._fields})
 
 
 def reference_track(t, device=None) -> ref_mod.ReferenceTrack:

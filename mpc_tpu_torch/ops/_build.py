@@ -26,6 +26,7 @@ _P = ctypes.c_void_p
 SIGNATURES = {
     "fused_gn": ("fused_gn_solve", [_P] * 20),
     "fused_ip": ("fused_ip_solve", [_P] * 28),
+    "riccati": ("riccati_sweep", [_P] * 15),
 }
 
 _loaded: dict = {}

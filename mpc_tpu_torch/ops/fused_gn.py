@@ -870,7 +870,7 @@ def call_kernel(name: str, args: ctypes.Structure, bufs: dict, order):
     passed as a null pointer); returns its CUDA error code."""
     from mpc_tpu_torch.ops import _build
 
-    dev = bufs["x0"].device
+    dev = bufs[order[0]].device
     if dev.type != "cuda":
         raise ValueError(f"the {name} kernel needs CUDA tensors, got {dev}")
     ptrs = [ctypes.c_void_p(bufs[n].data_ptr() if n in bufs else 0)

@@ -1,12 +1,20 @@
-"""Solver data layer of the augmented-Lagrangian SQP (``mpc_tpu.ops.sqp``).
+"""Augmented-Lagrangian SQP: data layer and model assembly
+(``mpc_tpu.ops.sqp``).
 
 The configuration, the warm-startable state, the per-solve parameters and
-the solution, plus the helpers that build and widen them.  The solve itself
-is ``ops.fused_gn``; the per-lane and lanes-trailing engines of the JAX
-package (``sqp.solve``, ``sqp_vec``) are later items of ROADMAP queue A.
+the solution, the helpers that build and widen them, and the model of one
+Gauss-Newton step that the batched engine ``ops.sqp_vec`` runs: the stage
+rows, the AL terms, the objective and merit, the rollout, the stagewise
+quadratic (``torch.func.jacfwd`` of the rows under ``torch.func.vmap``), the
+linearized dynamics and the KKT residuals (``torch.func.grad`` of the merit
+through the rollout).  The fused engines are ``ops.fused_gn`` and
+``ops.fused_ip``; the per-lane vmapped solve (``sqp.solve``) is a later item
+of ROADMAP queue A (item 9).
 
 Every tensor carries an explicit leading lane axis where the JAX package
 vmaps: ``OcpParams.x0`` is (B, NX), ``SqpState.U`` is (B, H, NU), and so on.
+The model functions broadcast over any further leading axes, so the merits of all
+line-search rungs are one call.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch
 from mpc_tpu_torch.models import constraints as C
 from mpc_tpu_torch.models import costs as cost_mod
 from mpc_tpu_torch.models import dynamics as dyn_mod
+from mpc_tpu_torch.ops import riccati
 
 NX = dyn_mod.NX
 NU = dyn_mod.NU
@@ -217,3 +226,243 @@ def init_state(cfg: SolverConfig, U0: Optional[torch.Tensor] = None,
         lam_hi=torch.zeros(shape, dtype=dtype, device=device),
         mu=torch.full(shape, cfg.mu0, dtype=dtype, device=device),
         prev_viol=torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Model assembly: the model of one Gauss-Newton step
+# ---------------------------------------------------------------------------
+
+
+def _step_fn(cfg: SolverConfig):
+    return dyn_mod.make_step_fn(cfg.integrator, cfg.dt, cfg.wheelbase,
+                                cfg.model, cfg.vehicle)
+
+
+def _stage_rows(cfg: SolverConfig, x, u, obs: C.ObstacleParams, stage_idx,
+                boundaries=None, boundary_signs=None):
+    """All ``nrows(cfg)`` two-sided rows of stages: formulation rows, then
+    the box rows [u0, u1, delta, v], then the optional boundary rows.
+
+    x (..., NX), u (..., NU), obs and the boundaries broadcast against
+    them; ``stage_idx`` is an integer tensor of the stage of each (stage H
+    is terminal: its inputs are masked to 0 and its u rows are unbounded).
+    Returns (h, lo, hi), each (..., nrows).
+    """
+    if not torch.is_tensor(stage_idx):
+        stage_idx = torch.as_tensor(stage_idx, device=x.device)
+    is_term = stage_idx >= cfg.horizon
+    u_eff = torch.where(is_term[..., None], torch.zeros_like(u), u)
+    if cfg.formulation == "forcespro":
+        h, lo, hi = C.stage_ineq_forcespro(
+            x, u_eff, obs, cfg.ego_length, cfg.ego_width, cfg.wheelbase,
+            cfg.a_max)
+    elif cfg.formulation == "casadi":
+        h, lo, hi = C.stage_ineq_casadi(
+            x, u_eff, obs, cfg.ego_length, cfg.ego_width, cfg.wheelbase,
+            cfg.a_max, friction_active=(stage_idx == 0))
+    else:
+        raise ValueError(f"unknown formulation '{cfg.formulation}'")
+    shape = h.shape[:-1]
+    bnd = cfg.bounds
+    inf = float("inf")
+
+    def full(v):
+        return torch.full(shape, v, dtype=x.dtype, device=x.device)
+
+    def u_bound(v, unbounded):
+        return torch.where(is_term, full(unbounded), full(v))
+
+    box_h = torch.stack([torch.broadcast_to(t, shape) for t in (
+        u_eff[..., 0], u_eff[..., 1], x[..., 2], x[..., 3])], -1)
+    box_lo = torch.stack([u_bound(bnd.u_lo[0], -inf),
+                          u_bound(bnd.u_lo[1], -inf),
+                          full(bnd.x_lo[2]), full(bnd.x_lo[3])], -1)
+    box_hi = torch.stack([u_bound(bnd.u_hi[0], inf),
+                          u_bound(bnd.u_hi[1], inf),
+                          full(bnd.x_hi[2]), full(bnd.x_hi[3])], -1)
+    hs, los, his = [h, box_h], [lo, box_lo], [hi, box_hi]
+    if cfg.boundary_rows:
+        if boundaries is None or boundary_signs is None:
+            raise ValueError(
+                "boundary_rows=True needs params.boundaries + signs")
+        r_ego, _ = C.approx_circle_radius(cfg.ego_length, cfg.ego_width)
+        bh, blo, bhi = C.boundary_rows(x, cfg.ego_length, cfg.ego_width,
+                                       boundaries, boundary_signs, r_ego)
+        hs.append(torch.broadcast_to(bh, shape + bh.shape[-1:]))
+        los.append(torch.broadcast_to(blo, shape + blo.shape[-1:]))
+        his.append(torch.broadcast_to(bhi, shape + bhi.shape[-1:]))
+    return torch.cat(hs, -1), torch.cat(los, -1), torch.cat(his, -1)
+
+
+def _stage_obs(params: OcpParams, k) -> C.ObstacleParams:
+    """Obstacle circles of stages ``k`` (an integer tensor (S,)): centers
+    (B, S, 3, 2), min_dist (B, S); static obstacles repeat their centers,
+    moving ones (B, H+1, 3, 2) are indexed."""
+    k = torch.as_tensor(k, device=params.x0.device)
+    c = params.obs_centers
+    centers = (c[:, k] if c.dim() == 4
+               else c[:, None].expand(c.shape[:1] + k.shape + c.shape[1:]))
+    return C.ObstacleParams(
+        centers=centers,
+        min_dist=params.min_dist[:, None].expand(c.shape[:1] + k.shape))
+
+
+def _stage_boundaries(params: OcpParams, n: int):
+    """Boundaries (B, n, 2, NB, 2) and signs (B, n, 2) repeated over n
+    stages (views), or (None, None)."""
+    if params.boundaries is None or params.boundary_signs is None:
+        return None, None
+    b, s = params.boundaries, params.boundary_signs
+    return (b[:, None].expand((b.shape[0], n) + b.shape[1:]),
+            s[:, None].expand((s.shape[0], n) + s.shape[1:]))
+
+
+def _all_rows(cfg: SolverConfig, X, U, params: OcpParams):
+    """Rows of all H+1 stages, h, lo, hi each (..., B, H+1, nrows); X
+    (..., B, H+1, NX) and U (..., B, H, NU) may carry leading axes."""
+    U_ext = torch.cat([U, U[..., -1:, :]], dim=-2)  # stage H reuses U[H-1]
+    idx = torch.arange(cfg.horizon + 1, device=X.device)
+    bnd, sgn = _stage_boundaries(params, cfg.horizon + 1)
+    return _stage_rows(cfg, X, U_ext, _stage_obs(params, idx), idx, bnd, sgn)
+
+
+def _al_terms(h, lo, hi, lam_lo, lam_hi, mu):
+    """AL penalty value, d(psi)/dh and active-set GN diagonal, elementwise.
+
+    For one-sided c <= 0 with multiplier lam >= 0:
+        psi = (1/2mu) * (max(0, lam + mu c)^2 - lam^2)
+    Infinite bounds are handled by guarding every product with the active
+    mask (no inf * 0 NaNs, also under ``torch.func.grad``).
+    """
+    t_hi = lam_hi + mu * (h - hi)
+    t_lo = lam_lo + mu * (lo - h)
+    act_hi = t_hi > 0
+    act_lo = t_lo > 0
+    zero = torch.zeros_like(t_hi)
+    m_hi = torch.where(act_hi, t_hi, zero)
+    m_lo = torch.where(act_lo, t_lo, zero)
+    psi = (m_hi * m_hi - lam_hi * lam_hi
+           + m_lo * m_lo - lam_lo * lam_lo) / (2.0 * mu)
+    grad_h = m_hi - m_lo
+    gn_diag = mu * (act_hi.to(h.dtype) + act_lo.to(h.dtype))
+    return psi, grad_h, gn_diag
+
+
+def _objective(cfg: SolverConfig, X, U, params: OcpParams):
+    """Tracking objective per lane, (..., B)."""
+    w = params.weights
+    dx = X - params.x_ref
+    stage = (torch.sum(w.q[:, None] * dx[..., :-1, :] * dx[..., :-1, :], -1)
+             + torch.sum(w.r[:, None] * U * U, -1))
+    obj = torch.sum(stage, -1)
+    if cfg.use_terminal_cost:
+        obj = obj + torch.sum(w.qN * dx[..., -1, :] * dx[..., -1, :], -1)
+    return obj
+
+
+def _merit(cfg: SolverConfig, X, U, params: OcpParams, lam_lo, lam_hi, mu):
+    """AL merit per lane, (..., B): objective + every row's psi."""
+    h, lo, hi = _all_rows(cfg, X, U, params)
+    psi, _, _ = _al_terms(h, lo, hi, lam_lo, lam_hi, mu)
+    return _objective(cfg, X, U, params) + torch.sum(psi, (-2, -1))
+
+
+def _rollout(cfg: SolverConfig, x0, U):
+    """States (B, H+1, NX) of the inputs U (B, H, NU) from x0 (B, NX)."""
+    step = _step_fn(cfg)
+    xs = [x0]
+    for k in range(U.shape[-2]):
+        xs.append(step(xs[-1], U[..., k, :]))
+    return torch.stack(xs, -2)
+
+
+def _build_quadratic(cfg: SolverConfig, X, U, params: OcpParams,
+                     lam_lo, lam_hi, mu):
+    """Stagewise AL-Gauss-Newton quadratic model around (X, U): the row
+    Jacobians by ``jacfwd`` of the rows of one stage under ``vmap`` over
+    lanes and stages, then J' g_h and J' diag(gn) J plus the exact cost
+    terms.  Returns (StageQuad (B, H, ...), QH (B, NX, NX), qH (B, NX))."""
+    w = params.weights
+    B, H = X.shape[0], cfg.horizon
+    nxv = X.shape[-1]
+    idx = torch.arange(H + 1, device=X.device)
+    U_ext = torch.cat([U, U[:, -1:]], dim=1)
+    Z = torch.cat([X, U_ext], dim=-1)                  # (B, H+1, NX+NU)
+    obs = _stage_obs(params, idx)
+    bnd, sgn = params.boundaries, params.boundary_signs
+
+    def rows_z(z, k, centers, mind, b, s):
+        hh, _, _ = _stage_rows(cfg, z[:nxv], z[nxv:],
+                               C.ObstacleParams(centers, mind), k, b, s)
+        return hh
+
+    b_dims = None if bnd is None else 0
+    per_stage = torch.func.vmap(torch.func.jacfwd(rows_z),
+                                in_dims=(0, 0, 0, 0, None, None))
+    per_lane = torch.func.vmap(per_stage,
+                               in_dims=(0, None, 0, 0, b_dims, b_dims))
+    # jacfwd may carry the tangents in float64 (Python scalars meeting
+    # 0-dim tensors); the model is float32
+    J = per_lane(Z, idx, obs.centers, obs.min_dist, bnd, sgn).to(X.dtype)
+
+    h, lo, hi = _all_rows(cfg, X, U, params)
+    _, grad_h, gn_diag = _al_terms(h, lo, hi, lam_lo, lam_hi, mu)
+    g_con = torch.sum(J * grad_h[..., None], -2)          # (B, H+1, NZ)
+    H_con = torch.matmul((J * gn_diag[..., None]).transpose(-1, -2), J)
+
+    dx = X - params.x_ref
+    g_cost_x = 2.0 * w.q[:, None] * dx                    # (B, H+1, NX)
+    g_cost_u = 2.0 * w.r[:, None] * U                     # (B, H, NU)
+    Q_cost = torch.diag_embed(2.0 * w.q)                  # (B, NX, NX)
+    R_cost = torch.diag_embed(2.0 * w.r)
+
+    Qs = Q_cost[:, None] + H_con[:, :-1, :nxv, :nxv]
+    Rs = R_cost[:, None] + H_con[:, :-1, nxv:, nxv:]
+    Ms = H_con[:, :-1, :nxv, nxv:]
+    qx = g_cost_x[:, :-1] + g_con[:, :-1, :nxv]
+    qu = g_cost_u + g_con[:, :-1, nxv:]
+    if cfg.use_terminal_cost:
+        QH_cost = torch.diag_embed(2.0 * w.qN)
+        gH_cost = 2.0 * w.qN * dx[:, -1]
+    else:
+        QH_cost = torch.zeros((B, nxv, nxv), dtype=X.dtype, device=X.device)
+        gH_cost = torch.zeros((B, nxv), dtype=X.dtype, device=X.device)
+    QH = QH_cost + H_con[:, -1, :nxv, :nxv]
+    qH = gH_cost + g_con[:, -1, :nxv]
+    quad = riccati.StageQuad(Q=Qs, R=Rs, M=Ms, qx=qx, qu=qu)
+    return quad, QH, qH
+
+
+def _linearize_dynamics(cfg: SolverConfig, X, U):
+    """(A, B) of the discrete step at every (lane, stage) by ``jacfwd``
+    under ``vmap``; the defect r is zero (the rollout keeps X consistent
+    with U)."""
+    step = _step_fn(cfg)
+    jac = torch.func.vmap(torch.func.vmap(
+        torch.func.jacfwd(step, argnums=(0, 1))))
+    A, Bm = jac(X[:, :-1], U)
+    return riccati.LinDyn(A=A.to(X.dtype), B=Bm.to(X.dtype),
+                          r=torch.zeros_like(X[:, :-1]))
+
+
+def _kkt_residuals(cfg: SolverConfig, params: OcpParams, X, U,
+                   lam_lo, lam_hi, mu):
+    """Stationarity of the AL (inf-norm of the merit's gradient in U,
+    through the rollout) and the max scaled violation, each (B,)."""
+    def merit_of_U(Uf):
+        Xf = _rollout(cfg, params.x0, Uf)
+        return torch.sum(_merit(cfg, Xf, Uf, params, lam_lo, lam_hi, mu))
+
+    g = torch.func.grad(merit_of_U)(U)
+    stat = torch.amax(torch.abs(g), (-2, -1))
+    h, lo, hi = _all_rows(cfg, X, U, params)
+    return stat, _max_scaled_viol(cfg, h, lo, hi)
+
+
+def _max_scaled_viol(cfg: SolverConfig, h, lo, hi):
+    """max over stages and rows of max(lo - h, h - hi, 0) / row_scales,
+    non-finite violations counted as 0; (..., B)."""
+    viol = torch.clamp(torch.maximum(lo - h, h - hi), min=0.0)
+    viol = torch.where(torch.isfinite(viol), viol, torch.zeros_like(viol))
+    return torch.amax(viol / row_scales(cfg, viol.dtype, viol.device),
+                      (-2, -1))

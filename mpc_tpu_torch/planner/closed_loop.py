@@ -2,11 +2,15 @@
 
 The batched part of the JAX module: every lane runs T steps of
 
-    reference window -> warm-started fused solve -> plant step -> shift
+    reference window -> warm-started solve -> status gate -> plant step
+    -> shift
 
-after the configured cold-start solves.  The JAX package traces the steps
-into one ``lax.scan``; here they are a Python loop over eager PyTorch ops
-and one kernel launch per solve, and nothing leaves the device inside it.
+after the configured cold-start solves.  The solve is one launch of a fused
+kernel (``ops.fused_gn``, ``ops.fused_ip``) or the lanes-leading engine
+``ops.sqp_vec`` (``engine='xla'``), whose Riccati sweep is one kernel
+launch per Gauss-Newton step.  The JAX package traces the steps into one
+``lax.scan``; here they are a Python loop over eager PyTorch ops and kernel
+launches, and nothing leaves the device inside it.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from mpc_tpu_torch.models import dynamics as dyn_mod
 from mpc_tpu_torch.ops import fused_gn
 from mpc_tpu_torch.ops import fused_ip
 from mpc_tpu_torch.ops import sqp
+from mpc_tpu_torch.ops import sqp_vec
 from mpc_tpu_torch.planner import reference as ref_mod
 
 
@@ -38,10 +43,12 @@ class LoopConfig:
     warmup_obstacle_free: bool = True  # first warm-up ignores the obstacle
     progress_window: bool = False  # window base = closest path index
     warmup_full_strength: bool = True  # warm-ups run at least al 3x4
-    rti_margin: float = 0.0      # RTI clearance backoff (not ported yet)
-    rti_amax_scale: float = 1.0  # RTI friction backoff (not ported yet)
-    gate_stages: Optional[int] = None  # applied-prefix status gate (not
-                                       # ported yet)
+    rti_margin: float = 0.0      # RTI clearance backoff: the solver sees
+                                 # min_dist + rti_margin
+    rti_amax_scale: float = 1.0  # RTI friction backoff: the solver sees
+                                 # a_max * rti_amax_scale
+    gate_stages: Optional[int] = None  # status gated on stages 0..g of the
+                                       # plan against the true problem
 
 
 class LoopParams(NamedTuple):
@@ -82,8 +89,8 @@ class LoopResult(NamedTuple):
 def _warmup_cfg(lcfg: LoopConfig) -> sqp.SolverConfig:
     """Solver config of the cold-start solves: RTI budgets are warm-start
     budgets, so the warm-ups run at least the full-strength budget of the
-    method (AL 3x4, IP 5x10)."""
-    scfg = lcfg.solver
+    method (AL 3x4, IP 5x10), on the tightened problem."""
+    scfg = _tightened_solver_cfg(lcfg)
     if not lcfg.warmup_full_strength:
         return scfg
     if scfg.method == "ip":
@@ -111,38 +118,98 @@ def _shift_state(st: sqp.SqpState) -> sqp.SqpState:
 
 
 def select_engine(scfg: sqp.SolverConfig):
-    """The batched solve for ``scfg``: the fused AL kernel engine, or the
-    fused IP kernel engine for ``method='ip'``.
+    """The batched solve for ``scfg``.
 
-    The JAX package falls back to its lanes-trailing XLA engine or to the
-    vmapped per-lane path outside the kernels' envelope; the port has
-    neither yet, so those cases raise ``NotImplementedError`` naming the
-    ROADMAP item that brings them.
+    ``engine='xla'``: the lanes-leading AL engine ``sqp_vec.solve_batch_vec``
+    (KS, with or without boundary rows).  ``'auto'`` and ``'fused'``: the
+    fused AL kernel engine, or the fused IP kernel engine for
+    ``method='ip'``.  Outside an engine's envelope the JAX package falls
+    back to another engine; the port raises ``NotImplementedError`` naming
+    the ROADMAP item that brings the case instead of rerouting it.
     """
     if scfg.engine == "xla":
-        raise NotImplementedError(
-            "engine='xla': the sqp_vec/riccati_vec engine is ROADMAP queue "
-            "A, item 'sqp_vec/riccati_vec engine'")
+        if scfg.method != "al":
+            raise NotImplementedError(
+                f"engine='xla', method '{scfg.method}': the JAX package "
+                "solves it on the vmapped per-lane path, ROADMAP queue A, "
+                "item 9")
+        if scfg.model != "ks":
+            raise NotImplementedError(
+                f"engine='xla', model='{scfg.model}': the ST model is "
+                "ROADMAP queue A, item 'Next 4. ST and boundary rows'")
+        if scfg.lqr_backend == "pscan":
+            raise NotImplementedError(
+                "lqr_backend='pscan': the parallel-scan sweep is ROADMAP "
+                "queue A, item 12")
+        return sqp_vec.solve_batch_vec
     if scfg.model != "ks":
         raise NotImplementedError(
             f"model='{scfg.model}': ST in the fused kernels is ROADMAP "
-            "queue A, item 'ST and boundary rows'")
+            "queue A, item 'Next 4. ST and boundary rows'")
     if scfg.boundary_rows:
         raise NotImplementedError(
             "boundary_rows: boundary rows in the fused kernels are ROADMAP "
-            "queue A, item 'ST and boundary rows'")
+            "queue A, item 'Next 4. ST and boundary rows'")
     if scfg.method == "ip":
         return fused_ip.solve_batch_fused_ip
     return fused_gn.solve_batch_fused
 
 
-def _check_loop_envelope(lcfg: LoopConfig):
-    if (lcfg.gate_stages is not None or lcfg.rti_margin != 0.0
-            or lcfg.rti_amax_scale != 1.0):
-        raise NotImplementedError(
-            "gate_stages / rti_margin / rti_amax_scale: the status gate and "
-            "the backoff knobs are ROADMAP queue A, item 'gate_stages and "
-            "the backoff knobs'")
+def _tightened_solver_cfg(lcfg: LoopConfig) -> sqp.SolverConfig:
+    """Solver-side config with the RTI friction backoff applied
+    (``rti_amax_scale``); the status gate keeps ``lcfg.solver``."""
+    if lcfg.rti_amax_scale == 1.0:
+        return lcfg.solver
+    return dataclasses.replace(
+        lcfg.solver, a_max=lcfg.solver.a_max * lcfg.rti_amax_scale)
+
+
+def _tighten_ocp(lcfg: LoopConfig, ocp: sqp.OcpParams) -> sqp.OcpParams:
+    """The OCP the solver sees (``rti_margin`` clearance backoff applied)."""
+    if lcfg.rti_margin == 0.0:
+        return ocp
+    return ocp._replace(min_dist=ocp.min_dist + lcfg.rti_margin)
+
+
+def _gated_status(scfg: sqp.SolverConfig, ocp: sqp.OcpParams, sol,
+                  g: int) -> torch.Tensor:
+    """Status re-gated against the TRUE problem over stages 0..g, (B,).
+
+    Re-evaluates the scaled rows of the plan's first g+1 stages against
+    ``scfg``/``ocp`` (the un-tightened problem) and rewrites the
+    feasibility half of the status: -7 becomes 0 where the window's true
+    violation is under ``tol_infeas``, and any status becomes -7 where the
+    window violates the true bounds.  Other codes pass through.
+    ``Solution.viol`` stays the solver's own (tightened, full-plan) figure.
+    """
+    ocp = sqp.normalize_params(scfg, ocp)
+    if g >= scfg.horizon:
+        h, lo, hi = sqp._all_rows(scfg, sol.X, sol.U, ocp)
+    else:
+        idx = torch.arange(g + 1, device=sol.X.device)
+        bnd, sgn = sqp._stage_boundaries(ocp, g + 1)
+        h, lo, hi = sqp._stage_rows(scfg, sol.X[:, :g + 1],
+                                    sol.U[:, :g + 1],
+                                    sqp._stage_obs(ocp, idx), idx, bnd, sgn)
+    ok = sqp._max_scaled_viol(scfg, h, lo, hi) < scfg.tol_infeas
+    seven = torch.full_like(sol.status, -7)
+    return torch.where(ok, torch.where(sol.status == seven,
+                                       torch.zeros_like(sol.status),
+                                       sol.status), seven)
+
+
+def _step_status(lcfg: LoopConfig, scfg: sqp.SolverConfig,
+                 ocp: sqp.OcpParams, sol) -> torch.Tensor:
+    """Per-step status under the loop's gating policy: the solver's own
+    status; with ``gate_stages=g`` the gate over stages 0..g; with a
+    backoff and no gate, the gate over the full plan (the solver solved the
+    tightened problem, so its own status would count the backoff band as
+    infeasible)."""
+    if lcfg.gate_stages is not None:
+        return _gated_status(scfg, ocp, sol, lcfg.gate_stages)
+    if lcfg.rti_margin != 0.0 or lcfg.rti_amax_scale != 1.0:
+        return _gated_status(scfg, ocp, sol, scfg.horizon)
+    return sol.status
 
 
 def _batch_helpers(lcfg: LoopConfig, params: LoopParams):
@@ -200,8 +267,9 @@ def _batch_cold_start(lcfg: LoopConfig, params: LoopParams, batched_solve):
         obs0 = step_obs(0)
         if i == 0 and lcfg.warmup_obstacle_free:
             obs0 = torch.full_like(obs0, -1e4)  # rows trivially satisfied
-        state = batched_solve(wcfg, make_ocp(params.x_init, x_ref0, obs0),
-                              state).state
+        state = batched_solve(
+            wcfg, _tighten_ocp(lcfg, make_ocp(params.x_init, x_ref0, obs0)),
+            state).state
     return state
 
 
@@ -216,8 +284,10 @@ def _batched_step(lcfg: LoopConfig, params: LoopParams, batched_solve,
     batched_window, step_obs, make_ocp = _batch_helpers(lcfg, params)
     step_idx, x, sqp_state, prev_bases = carry
     x_ref, bases = batched_window(step_idx, x, prev_bases)
-    sol = batched_solve(lcfg.solver, make_ocp(x, x_ref, step_obs(step_idx)),
+    ocp = make_ocp(x, x_ref, step_obs(step_idx))
+    sol = batched_solve(_tightened_solver_cfg(lcfg), _tighten_ocp(lcfg, ocp),
                         sqp_state)
+    status = _step_status(lcfg, lcfg.solver, ocp, sol)
     u_apply = sol.U[:, 0]
     if gen is not None:
         u_apply = u_apply + lcfg.noise_std * torch.randn(
@@ -225,7 +295,7 @@ def _batched_step(lcfg: LoopConfig, params: LoopParams, batched_solve,
             device=u_apply.device)
     x_next = _plant_step(lcfg, x, u_apply)
     warm = _shift_state(sol.state)
-    out = (x, u_apply, sol.status, sol.viol, sol.cost, sol.kkt_stat)
+    out = (x, u_apply, status, sol.viol, sol.cost, sol.kkt_stat)
     return (step_idx + 1, x_next, warm, bases), out
 
 
@@ -238,7 +308,6 @@ def closed_loop_batch_vec(lcfg: LoopConfig, params: LoopParams,
     ``closed_loop_batch_vec``; results are (B, T, ...).
     """
     dev = resolve_device(device)
-    _check_loop_envelope(lcfg)
     engine = select_engine(lcfg.solver)
     batched_solve = functools.partial(engine, device=dev)
     params = params.map(lambda t: t.to(dev))

@@ -2,6 +2,7 @@
 tolerance of its ladder-rung gate, and the track its loop phases run on."""
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -161,11 +162,47 @@ def test_rounding_lanes_are_the_ill_conditioned_ones():
 
 
 def test_unported_kernel_bound_from_its_shapes():
-    """The Riccati-sweep kernel still to port moves 100 floats a lane and
-    stage (+30 a lane) and is bound by those bytes at the bench point."""
-    line = cs.phase_bound_unported()
-    assert line["bytes"] == 4 * cs.B_BENCH * (H * 100 + 30)
+    """The Riccati sweep (B4, the last TPU kernel to be ported) moves 98
+    floats a lane and stage (86 read, 12 written) and 32 a lane, and at the
+    bench horizon it is bound by those bytes; its operations are counted on
+    the plain version."""
+    from mpc_tpu_torch.ops import riccati_kernel as TRK
+    B = 64
+    bufs = TRK.pack(*cs.random_lqr(np.random.default_rng(0), B, H))
+    line = cs.riccati_bound(bufs)
+    assert line["bytes"] == 4 * B * (H * 98 + 32)
     assert line["bound_by"] == "bytes"
     assert line["bound_ms"] == pytest.approx(line["bytes"] / 3.35e9)
     # ~1,000 fp32 operations a lane and stage: the 5x5 products
-    assert 500 < line["fp32_ops"] / (cs.B_BENCH * H) < 2000
+    assert 500 < line["fp32_ops"] / (B * H) < 2000
+
+
+@pytest.mark.parametrize("kw,kernel,launches", [
+    (cs.WARM, "fused_gn", 104), (cs.IP_WARM, "fused_ip", 104),
+    (cs.XLA_WARM, "riccati", 148)], ids=["soft", "hard", "xla"])
+def test_each_row_launches_its_kernel_as_often_as_it_solves(kw, kernel,
+                                                            launches):
+    """One fused launch per cold start and step; one sweep per
+    Gauss-Newton step on the xla engine: 4 cold starts at 3x4 and 100
+    steps at 1x1."""
+    lcfg, _ = tsyn.make_bench_loop(cs.T_BENCH, H, 2, device="cpu", **kw)
+    assert cs.row_kernel(lcfg) == (kernel, launches)
+
+
+def test_road_boundaries_hold_the_reference_inside():
+    """The boundary rows of the synthetic road read +half_width (4 m) at
+    the reference points, above their bound r_ego = 1.2 m; the front and
+    rear circles sit 1.5 m along the heading of a curving road, hence the
+    0.1 m band."""
+    B, Hs = 3, 8
+    lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, Hs, B, device="cpu",
+                                    boundary_rows=True, **cs.XLA_WARM)
+    ocp = cs.with_road_boundaries(cs.ocp_at(lcfg, lp))
+    cfg = lcfg.solver
+    idx = torch.arange(Hs + 1)
+    bnd, sgn = TS._stage_boundaries(ocp, Hs + 1)
+    h, lo, _ = TS._stage_rows(cfg, ocp.x_ref, torch.zeros(B, Hs + 1, 2),
+                              TS._stage_obs(ocp, idx), idx, bnd, sgn)
+    torch.testing.assert_close(h[..., -6:], torch.full((B, Hs + 1, 6), 4.0),
+                               atol=0.1, rtol=0.0)
+    assert bool((lo[..., -6:] == 1.2).all())

@@ -16,6 +16,7 @@ import re
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,7 +24,10 @@ import chip_smoke as cs
 from mpc_tpu_torch.ops import _build
 from mpc_tpu_torch.ops import fused_gn as TF
 from mpc_tpu_torch.ops import fused_ip as TFI
+from mpc_tpu_torch.ops import riccati_kernel as TRK
+from mpc_tpu_torch.ops import riccati_vec as TRV
 from mpc_tpu_torch.ops import sqp as TS
+from mpc_tpu_torch.ops import sqp_vec as TSV
 from mpc_tpu_torch.utils import synthetic as tsyn
 
 SHIM = """#pragma once
@@ -177,3 +181,63 @@ def test_fused_ip_source_warm_start_and_in_place_state(host_libs):
         warm_cfg, ocp, cold.state), cold.state.mu)
     assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
     assert bool((ker.status >= 0).all())
+
+
+def host_riccati(libs, quad, QH, qH, dyn, reg):
+    bufs = TRK.pack(quad, QH, qH, dyn)
+    Hs, _, Bs = bufs["Q"].shape
+    run_host(libs, "riccati", TRK.RicArgs(B=Bs, H=Hs, threads=2, reg=reg),
+             bufs, TRK.KERNEL_INPUTS + TRK.KERNEL_OUTPUTS)
+    return TRK.unpack(bufs)
+
+
+def bench_gn_problem(boundary_rows=False):
+    """The quadratics the xla engine builds at the bench point's step 0
+    (cold start), with a nonzero defect r."""
+    cfg, ocp = bench_ocp(al_iters=1, sqp_iters=1, alphas=(),
+                         boundary_rows=boundary_rows)
+    if boundary_rows:
+        ocp = cs.with_road_boundaries(ocp)
+    quad, QH, qH, dyn = cs.gn_problem(cfg, ocp, TS.init_state(cfg, batch=B))
+    r = 0.01 * torch.sin(torch.arange(dyn.r.numel(), dtype=torch.float32))
+    return quad, QH, qH, dyn._replace(r=r.reshape(dyn.r.shape))
+
+
+@pytest.mark.parametrize("case", ["random", "bench-step0",
+                                  "bench-step0-boundaries", "singular-lane"])
+def test_riccati_source_matches_the_plain_version(host_libs, case):
+    """The sweep's source against ``backward_pass_vec_plain`` in the bands
+    of tests/test_sqp_vec.py:26-31, with non-finite gains on the same
+    entries (a lane whose Quu is singular at reg = 0)."""
+    reg = 1e-6
+    if case == "random":
+        quad, QH, qH, dyn = cs.random_lqr(np.random.default_rng(0), B, H)
+    else:
+        quad, QH, qH, dyn = bench_gn_problem(case.endswith("boundaries"))
+    if case == "singular-lane":
+        reg = 0.0
+        quad = quad._replace(R=quad.R.clone())
+        quad.R[1] = 0.0
+        dyn = dyn._replace(B=dyn.B.clone())
+        dyn.B[1] = 0.0
+    ker = host_riccati(host_libs, quad, QH, qH, dyn, reg)
+    pln = TRV.backward_pass_vec_plain(quad, QH, qH, dyn, reg)
+    ok = cs.riccati_lanes_close(ker, pln)
+    assert bool(ok.all()), ok
+    if case == "singular-lane":
+        assert not bool(torch.isfinite(ker.K[1]).any())
+        assert bool(torch.isfinite(ker.K[0]).all())
+
+
+def test_xla_engine_with_the_riccati_source_matches_the_plain_sweep(
+        host_libs):
+    """The bench point's warm solve on the xla engine (al 1x1, unguarded)
+    with the sweep's source in place of the plain sweep."""
+    cfg, ocp = bench_ocp(al_iters=1, sqp_iters=1, alphas=(), engine="xla")
+    st = TS.init_state(cfg, batch=B)
+
+    def host_sweep(quad, QH, qH, dyn, reg):
+        return host_riccati(host_libs, quad, QH, qH, dyn, reg)
+    ker = TSV.solve_batch_vec(cfg, ocp, st, device="cpu", sweep=host_sweep)
+    pln = TSV.solve_batch_vec(cfg, ocp, st, device="cpu")
+    assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
