@@ -9,7 +9,9 @@ Phases, each printing one JSON line (``"phase": ...``):
 1. device   the card's name and power limit (``nvidia-smi``);
 2. build    ``nvcc`` builds every kernel from ``mpc_tpu_torch/ops/csrc``
             (one process per source, all at once) into the git-ignored
-            ``build/kernels``; registers and spills from ``-Xptxas -v``;
+            ``build/kernels``; registers, spills and static shared memory
+            from ``-Xptxas -v``, and fused_ip's dynamic shared memory and
+            lanes a block at the bench shape;
 3. check    each kernel against its plain version on the card at the bench
             shape (KS, RK4, forcespro, H=30, B=2048 lanes of
             ``make_bench_loop``), then one small case each for
@@ -46,8 +48,10 @@ Phases, each printing one JSON line (``"phase": ...``):
             0..1;
 5. timing   each kernel per launch at the main path's shape (B=16384,
             H=30; AL warm 1x1 and cold 3x4, IP warm 1x4 and cold 5x10, the
-            sweep on the bench point's step-0 quadratics; 32/64/128 threads
-            a block), the plain version's time, and the bound: the larger of
+            sweep on the bench point's step-0 quadratics; fused_gn and the
+            sweep at 32/64/128 threads a block, fused_ip at 1, 2, 4, 8 and
+            the most lanes a block and at its own choice), the plain
+            version's time, and the bound: the larger of
             the bytes the call must move over 3.35 TB/s and its fp32
             operations (counted on the plain version) over 67 TFLOP/s; the
             timed launches' outputs are held against the plain version's,
@@ -165,23 +169,53 @@ def phase_device():
     return card
 
 
+def ptxas_entries(text):
+    """Per entry function in ``-Xptxas -v`` output: registers, spill stores
+    and loads, stack frame and static shared memory (bytes)."""
+    out = {}
+    for block in text.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+
+        def first(pattern, group=1):
+            m = re.search(pattern, block)
+            return int(m.group(group)) if m else None
+        out[name] = {
+            "registers": first(r"Used (\d+) registers"),
+            "spill_stores": first(r"(\d+) bytes spill stores"),
+            "spill_loads": first(r"(\d+) bytes spill loads"),
+            "stack_frame": first(r"(\d+) bytes stack frame"),
+            "static_smem_bytes": first(r"(\d+) bytes smem") or 0}
+    return out
+
+
+def main_entry(entries):
+    """The entry function the main path launches: the only one, or for
+    fused_ip the instance for one stage a thread (H + 1 <= 32)."""
+    if len(entries) == 1:
+        return next(iter(entries.values()))
+    return next(v for k, v in entries.items() if "ILi1E" in k)
+
+
 def phase_build():
+    """Build every kernel; per kernel the registers, spills and shared
+    memory a block of its main-path entry (static from ``-Xptxas -v``;
+    fused_ip's dynamic shared memory at the bench geometry), and every
+    entry function's figures."""
     from mpc_tpu_torch.ops import _build
+    from mpc_tpu_torch.ops import fused_ip as FI
     t0 = time.perf_counter()
     logs = _build.build_all()
     seconds = time.perf_counter() - t0
     info = {}
     for name, text in logs.items():
         _build.load(name)
-        regs = re.findall(r"Used (\d+) registers", text)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                          text)
-        stack = re.search(r"(\d+) bytes stack frame", text)
-        info[name] = {
-            "registers": int(regs[-1]) if regs else None,
-            "spill_stores": int(spill.group(1)) if spill else None,
-            "spill_loads": int(spill.group(2)) if spill else None,
-            "stack_frame": int(stack.group(1)) if stack else None}
+        entries = ptxas_entries(text)
+        info[name] = dict(main_entry(entries), entries=entries)
+        info[name]["smem_bytes_per_block"] = info[name]["static_smem_bytes"]
+    lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **IP_WARM)
+    geo = FI.geometry(lcfg.solver, B_BENCH)
+    info["fused_ip"].update(smem_bytes_per_block=geo["smem_bytes_per_block"],
+                            geometry=geo)
     emit({"phase": "build", "seconds": seconds, "kernels": info})
     return info
 
@@ -240,7 +274,7 @@ class Engine(NamedTuple):
     name: str
     replaces: str              # file:line of the TPU kernel
     pack: Callable             # (cfg, ocp, state, trace_rungs) -> bufs
-    launch: Callable           # (cfg, bufs, threads); counts its launches
+    launch: Callable           # (cfg, bufs, geometry); counts its launches
     unpack: Callable           # bufs -> the plain version's output tuple
     plain: Callable            # (cfg, ocp, state, rungs, follow) -> outputs
     solution: Callable         # (cfg, outputs, state) -> Solution
@@ -249,6 +283,10 @@ class Engine(NamedTuple):
     bands: dict                # Solution fields: (rtol, atol), every lane
     state_bands: dict          # state fields: (rtol, atol, lanes needed)
     kernel_io: tuple           # (inputs, in-place state, outputs) names
+    geometry: str              # the launch knob: "threads" (a block) or
+                               # "lanes_per_block"
+    sweep: Callable            # cfg -> the values of the knob to time
+    default: int               # the knob's default (0: the kernel picks)
 
 
 def engine(cfg) -> Engine:
@@ -265,14 +303,26 @@ def engine(cfg) -> Engine:
             lambda c: f"{c.ip_sqp_iters}x{c.ip_iters}", IP_BANDS,
             {"lam_hi": (*IP_STATE_BANDS["lam_hi"], 1.0),
              "lam_lo": (*IP_STATE_BANDS["lam_lo"], MIN_LANE_AGREEMENT)},
-            (FI.KERNEL_INPUTS, FI.KERNEL_STATE, FI.KERNEL_OUTPUTS))
+            (FI.KERNEL_INPUTS, FI.KERNEL_STATE, FI.KERNEL_OUTPUTS),
+            "lanes_per_block",
+            lambda c: ip_lane_sweep(FI.geometry(
+                c, B_BENCH)["max_lanes_per_block"]), 0)
     return Engine(
         "fused_gn", "mpc_tpu/ops/fused_gn.py:808 (_make_kernel)",
         F.pack, F.launch, F.unpack, F.solve_batch_fused_plain,
         lambda c, out, st: F.to_solution(c, out), lambda c: bool(c.alphas),
         lambda c: f"{c.al_iters}x{c.sqp_iters}", BANDS,
         {f: (*b, MIN_LANE_AGREEMENT) for f, b in STATE_BANDS.items()},
-        (F.KERNEL_INPUTS, F.KERNEL_STATE, F.KERNEL_OUTPUTS))
+        (F.KERNEL_INPUTS, F.KERNEL_STATE, F.KERNEL_OUTPUTS),
+        "threads", lambda c: (32, 64, 128), F.THREADS)
+
+
+def ip_lane_sweep(most):
+    """Lanes a block to time the IP kernel at: 1, 2, 4, 8 and ``most``, the
+    most whose block fits an SM (registers and shared memory), with 0 (the
+    kernel's own choice)."""
+    return (0,) + tuple(sorted({n for n in (1, 2, 4, 8) if n < most}
+                               | {most}))
 
 
 def compare(name, cfg, ocp, state, bufs=None, plain=None):
@@ -740,15 +790,16 @@ def cuda_ms(fn):
     return e0.elapsed_time(e1), out
 
 
-def time_kernel_ms(cfg, ocp, state, reps, threads):
+def time_kernel_ms(cfg, ocp, state, reps, geometry):
     """Median per-launch time over fresh copies of the same inputs (the
-    kernel updates the warm state in place), after one warm-up launch;
-    returns the last launch's buffers too."""
+    kernel updates the warm state in place), after one warm-up launch, at
+    the launch ``geometry`` (the engine's knob); returns the last launch's
+    buffers too."""
     eng = engine(cfg)
     times = []
     for i in range(reps + 1):
         bufs = eng.pack(cfg, ocp, state, trace_rungs=False)
-        ms, _ = cuda_ms(lambda: eng.launch(cfg, bufs, threads))
+        ms, _ = cuda_ms(lambda: eng.launch(cfg, bufs, geometry))
         if i:
             times.append(ms)
     times.sort()
@@ -764,8 +815,8 @@ def time_plain_ms(cfg, ocp, state, reps):
 
 def phase_timing(dev, cold_kw, warm_kw, warm_reps=20, cold_reps=5):
     """Per-launch times of one kernel at the bench shape: the warm budget
-    from the cold-start state and the cold budget from ``init_state``."""
-    from mpc_tpu_torch.ops import fused_gn as F
+    from the cold-start state and the cold budget from ``init_state``, at
+    the default launch geometry and at each value of the engine's sweep."""
     from mpc_tpu_torch.ops import sqp as S
     lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **cold_kw)
     ocp = ocp_at(lcfg, lp)
@@ -780,9 +831,9 @@ def phase_timing(dev, cold_kw, warm_kw, warm_reps=20, cold_reps=5):
     for case, cfg, state, reps in (
             (f"warm_{eng.budget(warm_cfg)}", warm_cfg, warm_state, warm_reps),
             (f"cold_{eng.budget(cold_cfg)}", cold_cfg, st0, cold_reps)):
-        ms, bufs = time_kernel_ms(cfg, ocp, state, reps, F.THREADS)
-        by_threads = {t: time_kernel_ms(cfg, ocp, state, reps, t)[0]
-                      for t in (32, 64, 128)}
+        ms, bufs = time_kernel_ms(cfg, ocp, state, reps, eng.default)
+        by_geometry = {g: time_kernel_ms(cfg, ocp, state, reps, g)[0]
+                       for g in eng.sweep(cfg)}
         plain_ms, plain = time_plain_ms(cfg, ocp, state,
                                         3 if case.startswith("warm") else 1)
         _, errs = compare(f"timed_{case}", cfg, ocp, state, bufs, plain)
@@ -791,8 +842,9 @@ def phase_timing(dev, cold_kw, warm_kw, warm_reps=20, cold_reps=5):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
         out[case] = {
-            "ms": ms, "threads": F.THREADS,
-            "ms_by_threads": {str(t): v for t, v in by_threads.items()},
+            "ms": ms, eng.geometry: eng.default,
+            f"ms_by_{eng.geometry}": {str(g): v
+                                      for g, v in by_geometry.items()},
             "plain_ms": plain_ms, "bytes": nbytes, "fp32_ops": ops,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -995,7 +1047,8 @@ def phase_profile(dev, row, lcfg, lp, window=None):
             by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     require(by_name, "the profiler saw no device kernels")
     busy = sum(ms for _, ms in by_name.values())
-    fused = [v for k, v in by_name.items() if k.startswith(kernel)]
+    # "fused_ip_kernel<1>(IpArgs, IpBufs)" and the like
+    fused = [v for k, v in by_name.items() if f"{kernel}_kernel" in k]
     copies = [v for k, v in by_name.items() if "opy" in k]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     line = {"phase": "profile", "row": row,
@@ -1034,6 +1087,8 @@ def kernel_line(eng, loop, timing, warm, cold, checks, build):
         "registers": info["registers"],
         "spill_stores": info["spill_stores"],
         "spill_loads": info["spill_loads"],
+        "smem_bytes_per_block": info["smem_bytes_per_block"],
+        **({"geometry": info["geometry"]} if "geometry" in info else {}),
         "ok": True}
 
 
@@ -1057,6 +1112,7 @@ def riccati_kernel_line(loop, timing, checks, checks_vec, build):
         "registers": info["registers"],
         "spill_stores": info["spill_stores"],
         "spill_loads": info["spill_loads"],
+        "smem_bytes_per_block": info["smem_bytes_per_block"],
         "ok": True}
 
 

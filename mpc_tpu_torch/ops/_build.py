@@ -25,7 +25,7 @@ _P = ctypes.c_void_p
 # C signatures: name -> (function, argtypes)
 SIGNATURES = {
     "fused_gn": ("fused_gn_solve", [_P] * 20),
-    "fused_ip": ("fused_ip_solve", [_P] * 28),
+    "fused_ip": ("fused_ip_solve", [_P] * 14),
     "riccati": ("riccati_sweep", [_P] * 15),
 }
 

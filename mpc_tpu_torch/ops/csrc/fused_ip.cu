@@ -16,26 +16,62 @@
 // The plain PyTorch version of the same function is
 // fused_ip.py::solve_batch_fused_ip_plain.
 //
-// What bounds it on an H100.  Each lane is a long sequential program, and
-// the Newton step's state does not fit in registers: slacks, duals and
-// their steps (6 x 14 rows), the row and (A, B) caches, K, d and the
-// primal steps come to ~190 floats a stage, ~23 KB a lane at H=30.  Every
-// Newton step walks them four times (backward sweep, forward pass, steps,
-// apply), so the scratch traffic through L2 and device memory, far above
-// the ~10 KB of inputs and outputs a lane, and the latency of each
-// dependent load at one warp per scheduler set the time.  PERF.md has the
-// measured times beside the bound.
+// What bounds it on an H100.  A lane's Newton state (slacks, duals, the row
+// and (A, B) caches, the stage quadratics, K, d, the primal steps) is ~160
+// floats a stage, ~20 KB a lane at H=30, and every Newton step walks it
+// several times.  Kept in device memory (one thread a lane) it is ~460 MB
+// at B=16384, nine times the L2, and its traffic plus one warp per
+// scheduler set the time.  Most of the work is separable by stage; only
+// the rollouts, the Riccati sweep, the forward pass and the adjoint carry
+// a dependency from stage to stage.  The bound (operations, PERF.md) is far
+// below what this design reaches: the sweep, a chain of 5x5 products per
+// stage, runs on one thread a lane and takes about half the time.
 //
-// What the design does about it.  One thread per lane, as in fused_gn.cu:
-// no synchronisation, P, A, B, K, d and each stage's quadratic in
-// registers, every per-stage array stored (stage, field, lane) so the 32
-// threads of a warp load neighbouring addresses.  The rows and (A, B) of
-// the outer iterate are cached once per RTI iteration (the first Newton
-// sweep fills (A, B), later ones read it), so the transcendental-heavy
-// chain runs once, not ip_iters times.  The warm state (U, z_lo, z_hi) is
-// updated in place.  The ragged edge is masked; no lane is padded.  When
-// the caller passes a rung buffer, each ladder iteration writes the rung it
-// committed (0 for alpha = 0, r + 1 for alphas[r]).
+// What the design does about it.
+// - One warp a lane.  Thread t owns stages t, t + 32, ... (SPT stages a
+//   thread, a template parameter; H + 1 <= 32 * MAX_SPT).  The phases that
+//   are separable by stage run on the owners at once: slacks and duals at
+//   the start of a QP, the row weights and stage quadratic, (A, B) by the
+//   chain rule through RK4, the slack and dual steps, the rows and
+//   violations of a rollout, the diagnostics' per-stage terms.
+// - A stage's slacks, duals, dX and dU live in its owner's registers.  The
+//   rows cache, (A, B), the stage quadratics, K, d, the Newton direction
+//   (ddX, ddU), X, U, xref, the obstacles and the terminal P live in
+//   dynamic shared memory (Layout; 19,228 B a lane at H=30, 12 lanes a
+//   block).  The slack and dual steps are never stored: one pass takes the
+//   fraction-to-boundary ratio, a second recomputes the steps and applies
+//   them.  No per-lane scratch is in device memory.
+// - The rollouts: a step's increment depends on (delta, v) in its steering
+//   and speed rows, on (delta, v, u) in its heading row and on (delta, v,
+//   psi, u) in its position rows, so three rounds of increments on every
+//   stage's owner at once (the transcendentals of step_fn's four KS
+//   evaluations), each followed by its running sum on thread 0, with
+//   step_fn's own additions in order.
+// - The Riccati sweep with the forward pass, and the diagnostics' adjoint,
+//   run for lane l on thread l of warp 0, between two __syncthreads: P and
+//   p in registers, riccati_step (ks_rows.cuh, the single-thread step of
+//   fused_gn.cu) a stage, operands read from the lane's shared memory; a
+//   warp thus sweeps 12 lanes at once.  A spread sweep (each stage's 5x5
+//   products over the 32 or 8 threads of a lane, with __syncwarp between
+//   phases) was slower on the card (PERF.md).
+// - Reductions across stages: the fraction-to-boundary minimum and the
+//   violation maximum by __shfl_xor_sync butterflies of the NaN-propagating
+//   nmin / nmax (exact in any order); the complementarity gap, the ladder
+//   merit and the cost as sums per thread in stage order, then a butterfly,
+//   each result broadcast from thread 0.  Those three sums change order
+//   against the single-thread kernel: a few ulp of relative rounding
+//   (~1e-7), far inside the cost band (1e-3, 1e-2); the gap enters only
+//   through the barrier mu = 0.2 gap / n_act; near-tied merits are covered
+//   by the check's rung replay at TIE_RTOL = 1e-4.
+// - Every buffer is lanes leading, (B, ...): one lane's arrays are
+//   contiguous, so a warp loads and stores them at consecutive addresses.
+// - Lanes a block: given, or chosen by the occupancy API from registers and
+//   shared memory together (fused_ip_geometry reports the choice).
+//   __launch_bounds__ caps the registers at 168 so that 12 warps fit an SM;
+//   a spare warp of the ragged last block solves a copy of the last lane
+//   and stores nothing, so that every warp meets the same __syncthreads.
+// - No tensor cores: the products are 5x5 in float32, and TF32 would break
+//   the float32 bands.
 //
 // Semantics kept from the TPU kernel on purpose: maxima, minima and clips
 // propagate NaN; the unguarded step commits a non-finite rollout; a
@@ -45,6 +81,30 @@
 #include "ks_rows.cuh"
 
 #define NAB (NX * NX + NX * NU)
+#define TPL 32         // threads per lane: one warp
+#define MAX_SPT 2      // stages a thread holds, at most
+// Lanes a block, at most: caps the registers at 65536 / (32 * 12) = 168 a
+// thread, so that three warps fit each of an SM's four register
+// partitions (16,384 registers each) and shared memory, not registers,
+// bounds the lanes an SM holds (12 at H=30).
+#define MAX_LPB 12
+#define ROW_LD 45      // floats a stage in the rows cache (44, padded odd)
+#define QUAD_LD 37     // floats a stage of the quadratics (36, padded odd)
+#define OBS_LD 7       // floats a stage of the obstacles (6, padded odd)
+#define FULL_MASK 0xffffffffu
+
+// one stage quadratic: Q's upper triangle (15), R (4), M (10), qx, qu
+#define QO_R 15
+#define QO_M 19
+#define QO_QX 29
+#define QO_QU 34
+// a lane's constants: wq, wr, wqN, x0, min_dist
+#define C_WQ 0
+#define C_WR 5
+#define C_WQN 7
+#define C_X0 12
+#define C_MIND 17
+#define NCST 18
 
 // ipqp constants (mpc_tpu_torch/ops/ipqp.py)
 #define S_FLOOR 1e-10f
@@ -59,34 +119,71 @@
 
 struct IpArgs {
   int32_t B, H, ip_sqp_iters, ip_iters, n_alphas;
-  int32_t forcespro, rk4, moving, use_term, warm, threads;
+  int32_t forcespro, rk4, moving, use_term, warm, lanes_per_block;
   float dt, half_dt, dt6, inv_l, reg, d_ego, a_cap, inv_fr_scale;
   float u_lo0, u_hi0, u_lo1, u_hi1, d_lo, d_hi, v_lo, v_hi;
   float rho, n_act;
   float alphas[MAX_ALPHAS];
 };
 
+// Every buffer lanes leading: (B, ...), one lane contiguous.
 struct IpBufs {
   const float *x0, *xref, *obs, *mind, *w;
   float *U, *z_lo, *z_hi;   // warm state, updated in place
   float *X, *pviol, *diag;  // outputs
-  float *K, *d, *dX, *dU, *ddX, *ddU, *s_lo, *s_hi, *ds_lo, *ds_hi, *dz_lo,
-      *dz_hi, *rows, *ab;   // scratch
   int32_t* rung;            // (ip_sqp_iters, B) or null
 };
 
-// Linearized row values c_i = h_i + J_i . (dX, dU) (sparse gradients).
-__device__ __forceinline__ void row_lin(const Rows& r, const float dX[NX],
-                                        const float dU[NU], float c[NR]) {
-  c[0] = r.hf + r.gf[0] * dX[2] + r.gf[1] * dX[3] + r.gf[2] * dU[1];
-#pragma unroll
-  for (int p = 0; p < 9; ++p)
-    c[1 + p] = r.circ[p][0] + r.circ[p][1] * dX[0] + r.circ[p][2] * dX[1] +
-               r.circ[p][3] * dX[4];
-  c[10] = r.box[0] + dU[0];
-  c[11] = r.box[1] + dU[1];
-  c[12] = r.box[2] + dX[2];
-  c[13] = r.box[3] + dX[3];
+// Offsets (floats) of one lane's arrays in shared memory.
+struct Layout {
+  int rows, quad, ab, K, d, ddX, ddU, X, Xt, inc, U, Ut, xref, obs, P, p,
+      stat, cst, total;
+  __host__ __device__ explicit Layout(int H) {
+    const int S = H + 1;
+    int o = 0;
+    rows = o;  o += ROW_LD * S;
+    quad = o;  o += QUAD_LD * S;
+    // a rollout's scratch shares the quadratics' space: the rollouts run
+    // between the last Newton step of an RTI iteration and the next
+    // quadratics
+    Xt = quad;               // a ladder trial's states
+    inc = Xt + NX * S;       // a rollout's per-stage increments
+    Ut = inc + NX * H;       // a ladder trial's inputs
+    ab = o;    o += NAB * H;
+    K = o;     o += NU * NX * H;
+    d = o;     o += NU * H;
+    ddX = o;   o += NX * S;     // the Newton direction
+    ddU = o;   o += NU * S;     // (zero at the terminal stage)
+    X = o;     o += NX * S;
+    U = o;     o += NU * S;     // (zero at the terminal stage)
+    xref = o;  o += NX * S;
+    obs = o;   o += OBS_LD * S;
+    P = o;     o += NX * NX;    // the terminal cost-to-go
+    p = o;     o += NX;
+    stat = o;  o += 1;          // the adjoint's stationarity
+    cst = o;   o += NCST;
+    total = o;
+  }
+};
+
+// Index of Q[i][j] in its stored upper triangle.
+__host__ __device__ __forceinline__ int ut(int i, int j) {
+  return i <= j ? i * NX - i * (i - 1) / 2 + j - i
+                : j * NX - j * (j - 1) / 2 + i - j;
+}
+
+// Linearized value c_i = h_i + J_i . (dX, dU) of row i (sparse gradient),
+// one row at a time so that no row array stays live.
+__device__ __forceinline__ float row_lin(const Rows& r, int i,
+                                         const float dX[NX],
+                                         const float dU[NU]) {
+  if (i == 0) return r.hf + r.gf[0] * dX[2] + r.gf[1] * dX[3] + r.gf[2] * dU[1];
+  if (i < 10) {
+    const float* c = r.circ[i - 1];
+    return c[0] + c[1] * dX[0] + c[2] * dX[1] + c[3] * dX[4];
+  }
+  if (i < 12) return r.box[i - 10] + dU[i - 10];
+  return r.box[i - 10] + dX[i - 10];
 }
 
 // Fraction-to-boundary: min(amin, -v / dv) where dv < 0.
@@ -106,347 +203,364 @@ __device__ __forceinline__ void side_init(float margin, float z0, bool warm,
   z = nmin(nmax(z0 > 0.f ? z0 : zc, zc / WARM_KAPPA), zc * WARM_KAPPA);
 }
 
-// Per-lane solve state and accessors.
-struct IpSolve {
-  const IpArgs& a;
-  const IpBufs& b;
-  Lane L;
-  float wq[NX], wr[NU], wqN[NX], x0[NX], mind;
+// Butterfly reductions over the warp, the result broadcast from thread 0
+// so that every thread holds the same bits.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = TPL / 2; m > 0; m >>= 1)
+    v = v + __shfl_xor_sync(FULL_MASK, v, m);
+  return __shfl_sync(FULL_MASK, v, 0);
+}
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int m = TPL / 2; m > 0; m >>= 1)
+    v = nmin(v, __shfl_xor_sync(FULL_MASK, v, m));
+  return __shfl_sync(FULL_MASK, v, 0);
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int m = TPL / 2; m > 0; m >>= 1)
+    v = nmax(v, __shfl_xor_sync(FULL_MASK, v, m));
+  return __shfl_sync(FULL_MASK, v, 0);
+}
 
-  __device__ IpSolve(const IpArgs& a_, const IpBufs& b_, int lane)
-      : a(a_), b(b_) {
-    L.B = a.B;
-    L.lane = lane;
+// One stage's Newton state, in its owner's registers.
+struct StageState {
+  float sl[NR], sh[NR], zl[NR], zh[NR];  // slacks and duals, both sides
+  float dx[NX], du[NU];
+};
+
+// The Riccati sweep and the linear forward pass of the lane whose shared
+// memory is ``sm``, on one thread: P and p in registers from the terminal
+// quadratic, each stage's quadratic and (A, B) read from shared memory,
+// one riccati_step (ks_rows.cuh) a stage; K and d, then ddX and ddU
+// (ddx_0 = 0, x0 pinned; ddu_k = d_k + K_k ddx_k; ddx_{k+1} = A ddx +
+// B ddu) into shared memory.
+template <class Args>
+__device__ void sweep_lane(const Args& a, float* sm, const Layout& L) {
+  const int H = a.H;
+  float P[NX][NX], p[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int c = 0; c < NX; ++c) P[i][c] = sm[L.P + i * NX + c];
+    p[i] = sm[L.p + i];
+  }
+  for (int k = H - 1; k >= 0; --k) {
+    const float* q = sm + L.quad + k * QUAD_LD;
+    const float* abk = sm + L.ab + k * NAB;
+    float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU], A[NX][NX],
+        Bm[NX][NU];
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
-      wq[i] = b.w[L.at(0, i, 1)];
-      wqN[i] = b.w[L.at(0, NX + NU + i, 1)];
-      x0[i] = b.x0[L.at(0, i, 1)];
+#pragma unroll
+      for (int c = 0; c < NX; ++c) {
+        Q[i][c] = q[ut(i, c)];
+        A[i][c] = abk[i * NX + c];
+      }
+#pragma unroll
+      for (int c = 0; c < NU; ++c) {
+        M[i][c] = q[QO_M + i * NU + c];
+        Bm[i][c] = abk[NX * NX + i * NU + c];
+      }
+      qx[i] = q[QO_QX + i];
     }
 #pragma unroll
-    for (int i = 0; i < NU; ++i) wr[i] = b.w[L.at(0, NX + i, 1)];
-    mind = b.mind[L.at(0, 0, 1)];
+    for (int i = 0; i < NU; ++i) {
+#pragma unroll
+      for (int c = 0; c < NU; ++c) R[i][c] = q[QO_R + i * NU + c];
+      qu[i] = q[QO_QU + i];
+    }
+    float Kk[NU][NX], dk[NU];
+    riccati_step(a.reg, P, p, Q, R, M, qx, qu, A, Bm, Kk, dk);
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+#pragma unroll
+      for (int c = 0; c < NX; ++c) sm[L.K + k * NU * NX + i * NX + c] = Kk[i][c];
+      sm[L.d + k * NU + i] = dk[i];
+    }
+  }
+  float ddx[NX] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < H; ++k) {
+    const float* Kk = sm + L.K + k * NU * NX;
+    const float* dk = sm + L.d + k * NU;
+    const float* abk = sm + L.ab + k * NAB;
+    float ddu[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < NX; ++c) s += Kk[i * NX + c] * ddx[c];
+      ddu[i] = dk[i] + s;
+      sm[L.ddU + k * NU + i] = ddu[i];
+    }
+    float nxt[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      sm[L.ddX + k * NX + i] = ddx[i];
+      float sa = 0.f, sb = 0.f;
+#pragma unroll
+      for (int c = 0; c < NX; ++c) sa += abk[i * NX + c] * ddx[c];
+#pragma unroll
+      for (int c = 0; c < NU; ++c) sb += abk[NX * NX + i * NU + c] * ddu[c];
+      nxt[i] = sa + sb;
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) ddx[i] = nxt[i];
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) sm[L.ddX + H * NX + i] = ddx[i];
+}
+
+// The adjoint recursion of the diagnostics for the lane whose shared
+// memory is ``sm``, on one thread: lam_H = qx_H, g_u = qu_k + B' lam,
+// lam <- qx_k + A' lam, with qx, qu (lam = z_hi - z_lo) and (A, B) of the
+// final iterate in shared memory; the largest |g_u| into ``stat``.
+template <class Args>
+__device__ void adjoint_lane(const Args& a, float* sm, const Layout& L) {
+  float lam[NX], stat = 0.f;
+#pragma unroll
+  for (int i = 0; i < NX; ++i) lam[i] = sm[L.quad + a.H * QUAD_LD + QO_QX + i];
+  for (int k = a.H - 1; k >= 0; --k) {
+    const float* q = sm + L.quad + k * QUAD_LD;
+    const float* abk = sm + L.ab + k * NAB;
+    float g_u[NU], lam_new[NX];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < NX; ++c) s += abk[NX * NX + c * NU + i] * lam[c];
+      g_u[i] = q[QO_QU + i] + s;
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < NX; ++c) s += abk[c * NX + i] * lam[c];
+      lam_new[i] = q[QO_QX + i] + s;
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) lam[i] = lam_new[i];
+    stat = nmax(stat, nmax(fabsf(g_u[0]), fabsf(g_u[1])));
+  }
+  sm[L.stat] = stat;
+}
+
+// One lane's solve, run by the 32 threads of its warp; the lanes of a
+// block meet at __syncthreads around the recursions that thread l of
+// warp 0 runs for lane l.
+template <int SPT>
+struct IpLane {
+  const IpArgs& a;
+  const IpBufs& b;
+  const int lane, t, w, lpb, H, S;
+  const bool live;         // false: a copy of the last lane that stores
+                           // nothing (the ragged block's spare warps)
+  float* const block_sm;   // the block's shared memory
+  float* const sm;         // this lane's
+  const Layout L;
+  StageState st[SPT];
+
+  __device__ __forceinline__ IpLane(const IpArgs& a_, const IpBufs& b_,
+                                    int lane_, bool live_, int t_, int w_,
+                                    int lpb_, float* block_sm_,
+                                    const Layout& L_)
+      : a(a_), b(b_), lane(lane_), t(t_), w(w_), lpb(lpb_), H(a_.H),
+        S(a_.H + 1), live(live_), block_sm(block_sm_),
+        sm(block_sm_ + (size_t)w_ * L_.total), L(L_) {}
+
+  // ---- shared-memory views
+  __device__ __forceinline__ Rows& rows(int k) const {
+    return *reinterpret_cast<Rows*>(sm + L.rows + k * ROW_LD);
+  }
+  __device__ __forceinline__ float* quad(int k) const {
+    return sm + L.quad + k * QUAD_LD;
+  }
+  __device__ __forceinline__ float* ab(int k) const {
+    return sm + L.ab + k * NAB;
+  }
+  __device__ __forceinline__ float* xref(int k) const {
+    return sm + L.xref + k * NX;
+  }
+  __device__ __forceinline__ const float* cst(int i) const {
+    return sm + L.cst + i;
+  }
+  __device__ __forceinline__ float mind() const { return *cst(C_MIND); }
+  // stage k of slot j, or -1 past the horizon
+  __device__ __forceinline__ int stage(int j) const {
+    const int k = t + TPL * j;
+    return k <= H ? k : -1;
   }
 
-  __device__ void obs_at(int k, float o[6]) const {
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-      o[i] = a.moving ? b.obs[L.at(k, i, 6)] : b.obs[L.at(0, i, 6)];
-  }
-  __device__ __forceinline__ void load(const float* p, int k, int n,
-                                       float* out) const {
-#pragma unroll
-    for (int i = 0; i < n; ++i) out[i] = p[L.at(k, i, n)];
-  }
-  __device__ __forceinline__ void store(float* p, int k, int n,
-                                        const float* v) const {
-#pragma unroll
-    for (int i = 0; i < n; ++i) p[L.at(k, i, n)] = v[i];
-  }
-  // dX, dU (zero at the terminal stage) of stage k from (px, pu)
-  __device__ __forceinline__ void load_xu(const float* px, const float* pu,
-                                          int k, float x[NX],
-                                          float u[NU]) const {
-    load(px, k, NX, x);
-    if (k < a.H) {
-      load(pu, k, NU, u);
-    } else {
-      u[0] = u[1] = 0.f;
-    }
-  }
   __device__ void fresh_rows(int k, const float x[NX], const float u[NU],
                              Rows& r) const {
-    float o[6];
-    obs_at(k, o);
-    compute_rows(a, x, u, o, k == a.H, k == 0, r);
+    const float* o = sm + L.obs + (a.moving ? k * OBS_LD : 0);
+    float ob[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) ob[i] = o[i];
+    compute_rows(a, x, u, ob, k == H, k == 0, r);
   }
 
-  __device__ void initial_rollout() const {
-    float x[NX], u[NU], xn[NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = x0[i];
-    Rows r;
-    for (int k = 0; k < a.H; ++k) {
-      store(b.X, k, NX, x);
-      load(b.U, k, NU, u);
-      fresh_rows(k, x, u, r);
-      store_rows(L, b.rows, k, r);
-      step_fn(a, x, u, xn);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) x[i] = xn[i];
+  // ---- the lane's inputs into shared memory and registers
+  __device__ void load() {
+    const size_t l = (size_t)lane;
+    for (int e = t; e < NX * S; e += TPL)
+      sm[L.xref + e] = b.xref[l * NX * S + e];
+    for (int e = t; e < NU * H; e += TPL) sm[L.U + e] = b.U[l * NU * H + e];
+    if (t < NU) {   // the terminal stage's inputs and input step: zero
+      sm[L.U + H * NU + t] = 0.f;
+      sm[L.ddU + H * NU + t] = 0.f;
     }
-    store(b.X, a.H, NX, x);
-    const float zu[NU] = {0.f, 0.f};
-    fresh_rows(a.H, x, zu, r);
-    store_rows(L, b.rows, a.H, r);
-  }
-
-  // Slacks and duals from the margins of the cached rows (or the warm
-  // duals); dX = dU = 0.
-  __device__ void init_ip() const {
-    const float zero[NX] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k <= a.H; ++k) {
-      const bool is_term = k == a.H;
-      Rows r;
-      load_rows(L, b.rows, k, r);
+    if (a.moving) {
+      for (int e = t; e < 6 * S; e += TPL)
+        sm[L.obs + (e / 6) * OBS_LD + e % 6] = b.obs[l * 6 * S + e];
+    } else if (t < 6) {
+      sm[L.obs + t] = b.obs[l * 6 + t];
+    }
+    if (t < C_X0) {
+      sm[L.cst + t] = b.w[l * C_X0 + t];           // wq, wr, wqN
+    } else if (t < C_MIND) {
+      sm[L.cst + t] = b.x0[l * NX + t - C_X0];
+    } else if (t == C_MIND) {
+      sm[L.cst + t] = b.mind[l];
+    }
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int k = stage(j);
+      if (k < 0) continue;
+      const float* zl = b.z_lo + (l * S + k) * NR;
+      const float* zh = b.z_hi + (l * S + k) * NR;
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
-        bool has_lo, has_hi;
-        float lo, hi;
-        row_bounds(a, i, is_term, mind, has_lo, lo, has_hi, hi);
-        const float h = row_value(r, i);
-        float sl = 1.f, zl = 0.f, sh = 1.f, zh = 0.f;
-        if (has_lo)
-          side_init(h - lo, b.z_lo[L.at(k, i, NR)], a.warm != 0, sl, zl);
-        if (has_hi)
-          side_init(hi - h, b.z_hi[L.at(k, i, NR)], a.warm != 0, sh, zh);
-        b.s_lo[L.at(k, i, NR)] = sl;
-        b.s_hi[L.at(k, i, NR)] = sh;
-        b.z_lo[L.at(k, i, NR)] = zl;
-        b.z_hi[L.at(k, i, NR)] = zh;
+        st[j].zl[i] = zl[i];
+        st[j].zh[i] = zh[i];
+        st[j].sl[i] = st[j].sh[i] = 1.f;
       }
-      store(b.dX, k, NX, zero);
-      if (!is_term) store(b.dU, k, NU, zero);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) st[j].dx[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < NU; ++i) st[j].du[i] = 0.f;
     }
+    __syncwarp();
   }
 
-  // IP row weights of stage k at the current (dX, dU): w (into gh) and
-  // sigma = z / s (into gn), summed over the row's bounded sides.
-  __device__ void ip_terms(int k, const Rows& r, const float dXk[NX],
-                           const float dUk[NU], float mu_b, float gh[NR],
-                           float gn[NR]) const {
-    const bool is_term = k == a.H;
-    float cs[NR];
-    row_lin(r, dXk, dUk, cs);
+  // ---- the results back to device memory
+  __device__ void store() const {
+    if (!live) return;
+    const size_t l = (size_t)lane;
+    for (int e = t; e < NX * S; e += TPL) b.X[l * NX * S + e] = sm[L.X + e];
+    for (int e = t; e < NU * H; e += TPL) b.U[l * NU * H + e] = sm[L.U + e];
 #pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      bool has_lo, has_hi;
-      float lo, hi;
-      row_bounds(a, i, is_term, mind, has_lo, lo, has_hi, hi);
-      float w = 0.f, sig = 0.f;
-      if (has_hi) {
-        const float s = b.s_hi[L.at(k, i, NR)], z = b.z_hi[L.at(k, i, NR)];
-        const float rs = s - (hi - cs[i]);
-        const float sg = z / s;
-        w = w + mu_b / s + sg * rs;
-        sig = sig + sg;
-      }
-      if (has_lo) {
-        const float s = b.s_lo[L.at(k, i, NR)], z = b.z_lo[L.at(k, i, NR)];
-        const float rs = s - (cs[i] - lo);
-        const float sg = z / s;
-        w = w - mu_b / s - sg * rs;
-        sig = sig + sg;
-      }
-      gh[i] = w;
-      gn[i] = sig;
-    }
-  }
-
-  // Riccati sweep of the QP at the shifted point (X + dX, U + dU) -> K, d;
-  // fills the (A, B) cache at the outer iterate when ``fill_ab``.
-  __device__ void backward_sweep(float mu_b, bool fill_ab) const {
-    const int H = a.H;
-    float P[NX][NX], p[NX];
-    {
-      float x[NX], dx[NX], du[NU], xref[NX], gh[NR], gn[NR], R[NU][NU],
-          M[NX][NU], qu[NU];
-      const float zu[NU] = {0.f, 0.f};
-      load(b.X, H, NX, x);
-      load_xu(b.dX, b.dU, H, dx, du);
-      load(b.xref, H, NX, xref);
-      Rows r;
-      load_rows(L, b.rows, H, r);
-      ip_terms(H, r, dx, du, mu_b, gh, gn);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) x[i] = x[i] + dx[i];
-      assemble_quad(r, gh, gn, x, zu, xref, wqN, wr, true, a.use_term != 0,
-                    P, R, M, p, qu);
-    }
-    for (int k = H - 1; k >= 0; --k) {
-      float x[NX], u[NU], dx[NX], du[NU], xref[NX];
-      load(b.X, k, NX, x);
-      load(b.U, k, NU, u);
-      load_xu(b.dX, b.dU, k, dx, du);
-      load(b.xref, k, NX, xref);
-      float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU];
-      {
-        float gh[NR], gn[NR], xc[NX], uc[NU];
-        Rows r;
-        load_rows(L, b.rows, k, r);
-        ip_terms(k, r, dx, du, mu_b, gh, gn);
-#pragma unroll
-        for (int i = 0; i < NX; ++i) xc[i] = x[i] + dx[i];
-#pragma unroll
-        for (int i = 0; i < NU; ++i) uc[i] = u[i] + du[i];
-        assemble_quad(r, gh, gn, xc, uc, xref, wq, wr, false, true, Q, R, M,
-                      qx, qu);
-      }
-      float A[NX][NX], Bm[NX][NU];
-      if (fill_ab) {
-        lin_step(a, x, u, A, Bm);
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-#pragma unroll
-          for (int j = 0; j < NX; ++j) b.ab[L.at(k, i * NX + j, NAB)] = A[i][j];
-#pragma unroll
-          for (int j = 0; j < NU; ++j)
-            b.ab[L.at(k, NX * NX + i * NU + j, NAB)] = Bm[i][j];
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-#pragma unroll
-          for (int j = 0; j < NX; ++j) A[i][j] = b.ab[L.at(k, i * NX + j, NAB)];
-#pragma unroll
-          for (int j = 0; j < NU; ++j)
-            Bm[i][j] = b.ab[L.at(k, NX * NX + i * NU + j, NAB)];
-        }
-      }
-      float Kk[NU][NX], dk[NU];
-      riccati_step(a.reg, P, p, Q, R, M, qx, qu, A, Bm, Kk, dk);
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) b.K[L.at(k, i * NX + j, NU * NX)] = Kk[i][j];
-        b.d[L.at(k, i, NU)] = dk[i];
-      }
-    }
-  }
-
-  // ddx_0 = 0 (x0 pinned); ddu_k = d_k + K_k ddx_k; ddx_{k+1} = A ddx + B ddu
-  __device__ void forward_pass() const {
-    float ddx[NX] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < a.H; ++k) {
-      store(b.ddX, k, NX, ddx);
-      float ddu[NU];
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < NX; ++j)
-          s += b.K[L.at(k, i * NX + j, NU * NX)] * ddx[j];
-        ddu[i] = b.d[L.at(k, i, NU)] + s;
-      }
-      store(b.ddU, k, NU, ddu);
-      float nxt[NX];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        float sa = 0.f, sb = 0.f;
-#pragma unroll
-        for (int j = 0; j < NX; ++j) sa += b.ab[L.at(k, i * NX + j, NAB)] * ddx[j];
-#pragma unroll
-        for (int j = 0; j < NU; ++j)
-          sb += b.ab[L.at(k, NX * NX + i * NU + j, NAB)] * ddu[j];
-        nxt[i] = sa + sb;
-      }
-#pragma unroll
-      for (int i = 0; i < NX; ++i) ddx[i] = nxt[i];
-    }
-    store(b.ddX, a.H, NX, ddx);
-  }
-
-  // Slack and dual steps of every stage; returns the least
-  // fraction-to-boundary ratio.
-  __device__ float dual_steps(float mu_b) const {
-    float amin = BIG;
-    for (int k = 0; k <= a.H; ++k) {
-      const bool is_term = k == a.H;
-      float dx[NX], du[NU], ddx[NX], ddu[NU], cs[NR], jl[NR];
-      Rows r;
-      load_rows(L, b.rows, k, r);
-      load_xu(b.dX, b.dU, k, dx, du);
-      load_xu(b.ddX, b.ddU, k, ddx, ddu);
-      row_lin(r, dx, du, cs);
-      row_lin(r, ddx, ddu, jl);
+    for (int j = 0; j < SPT; ++j) {
+      const int k = stage(j);
+      if (k < 0) continue;
+      float* zl = b.z_lo + (l * S + k) * NR;
+      float* zh = b.z_hi + (l * S + k) * NR;
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
-        bool has_lo, has_hi;
-        float lo, hi;
-        row_bounds(a, i, is_term, mind, has_lo, lo, has_hi, hi);
-        const float jd = jl[i] - row_value(r, i);
-        float dsl = 0.f, dzl = 0.f, dsh = 0.f, dzh = 0.f;
-        if (has_lo) {
-          const float s = b.s_lo[L.at(k, i, NR)], z = b.z_lo[L.at(k, i, NR)];
-          const float rs = s - (cs[i] - lo);
-          const float sg = z / s;
-          dsl = jd - rs;
-          dzl = mu_b / s - z - sg * dsl;
-          amin = ftb(s, dsl, amin);
-          amin = ftb(z, dzl, amin);
-        }
-        if (has_hi) {
-          const float s = b.s_hi[L.at(k, i, NR)], z = b.z_hi[L.at(k, i, NR)];
-          const float rs = s - (hi - cs[i]);
-          const float sg = z / s;
-          dsh = -jd - rs;
-          dzh = mu_b / s - z - sg * dsh;
-          amin = ftb(s, dsh, amin);
-          amin = ftb(z, dzh, amin);
-        }
-        b.ds_lo[L.at(k, i, NR)] = dsl;
-        b.dz_lo[L.at(k, i, NR)] = dzl;
-        b.ds_hi[L.at(k, i, NR)] = dsh;
-        b.dz_hi[L.at(k, i, NR)] = dzh;
+        zl[i] = st[j].zl[i];
+        zh[i] = st[j].zh[i];
       }
     }
-    return amin;
   }
 
-  // The step of length alpha on (dX, dU, s, z), slacks floored at S_FLOOR
-  // and duals capped at Z_MAX; returns the complementarity gap.
-  __device__ float apply_step(float alpha) const {
-    float gap = 0.f;
-    for (int k = 0; k <= a.H; ++k) {
-      const bool is_term = k == a.H;
-#pragma unroll
-      for (int i = 0; i < NX; ++i)
-        b.dX[L.at(k, i, NX)] = b.dX[L.at(k, i, NX)] + alpha * b.ddX[L.at(k, i, NX)];
-      if (!is_term) {
-#pragma unroll
-        for (int i = 0; i < NU; ++i)
-          b.dU[L.at(k, i, NU)] = b.dU[L.at(k, i, NU)] + alpha * b.ddU[L.at(k, i, NU)];
-      }
-#pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        bool has_lo, has_hi;
-        float lo, hi;
-        row_bounds(a, i, is_term, mind, has_lo, lo, has_hi, hi);
-        const size_t at = L.at(k, i, NR);
-        float sl = 1.f, zl = 0.f, sh = 1.f, zh = 0.f;
-        if (has_lo) {
-          sl = nmax(b.s_lo[at] + alpha * b.ds_lo[at], S_FLOOR);
-          zl = nmin(b.z_lo[at] + alpha * b.dz_lo[at], Z_MAX);
-          gap = gap + sl * zl;
-        }
-        if (has_hi) {
-          sh = nmax(b.s_hi[at] + alpha * b.ds_hi[at], S_FLOOR);
-          zh = nmin(b.z_hi[at] + alpha * b.dz_hi[at], Z_MAX);
-          gap = gap + sh * zh;
-        }
-        b.s_lo[at] = sl;
-        b.z_lo[at] = zl;
-        b.s_hi[at] = sh;
-        b.z_hi[at] = zh;
-      }
+  // ---- rollouts
+
+  // Running sum of column i of the per-stage increments from x0 into Xs
+  // (thread 0): x_{k+1} = x_k + inc_k, the additions of step_fn in order.
+  __device__ __forceinline__ void running_sum(float* Xs, int i) const {
+    const float* inc = sm + L.inc;
+    float x = *cst(C_X0 + i);
+    for (int k = 0; k < H; ++k) {
+      Xs[k * NX + i] = x;
+      x = x + inc[k * NX + i];
     }
-    return gap;
+    Xs[H * NX + i] = x;
   }
 
-  // One primal-dual Newton step; returns the next barrier.
-  __device__ float newton(float mu_b, bool fill_ab) const {
-    backward_sweep(mu_b, fill_ab);
-    forward_pass();
-    const float alpha = nmin(1.f, TAU * dual_steps(mu_b));
-    const float gap = apply_step(alpha);
-    return nmax(SIGMA_B * gap / a.n_act, MU_MIN);
+  // States from x0 under the inputs Us (no feedback) into Xs.  A step's
+  // increment x_{k+1} - x_k = dt6 (k1 + 2 k2 + 2 k3 + k4) (dt k1 for
+  // Euler) depends on (delta, v) alone in its steering and speed rows, on
+  // (delta, v, u) alone in its heading row and on (delta, v, psi, u) alone
+  // in its position rows.  So three rounds, each an increment on every
+  // stage's owner at once (the transcendentals of step_fn's four KS
+  // evaluations, with step_fn's own arithmetic) and then its running sum
+  // on thread 0: steering and speed, heading, position.
+  __device__ void rollout(const float* Us, float* Xs) const {
+    float* inc = sm + L.inc;
+    float kp[SPT][3];   // heading rates of k1, k2, k3 at each own stage
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int k = stage(j);
+      if (k < 0 || k == H) continue;
+      const float u0 = Us[k * NU], u1 = Us[k * NU + 1];
+      inc[k * NX + 2] = a.rk4 ? a.dt6 * (u0 + 2.f * u0 + 2.f * u0 + u0)
+                              : a.dt * u0;
+      inc[k * NX + 3] = a.rk4 ? a.dt6 * (u1 + 2.f * u1 + 2.f * u1 + u1)
+                              : a.dt * u1;
+    }
+    __syncwarp();
+    if (t == 0) {
+      running_sum(Xs, 2);
+      running_sum(Xs, 3);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int k = stage(j);
+      if (k < 0 || k == H) continue;
+      const float delta = Xs[k * NX + 2], v = Xs[k * NX + 3];
+      const float u0 = Us[k * NU], u1 = Us[k * NU + 1];
+      const float k1 = v * tanf(delta) * a.inv_l;
+      kp[j][0] = k1;
+      if (!a.rk4) {
+        inc[k * NX + 4] = a.dt * k1;
+        continue;
+      }
+      // x2 and x3 share (delta, v): k3's heading rate is k2's
+      const float v2 = v + a.half_dt * u1;
+      const float k2 = v2 * tanf(delta + a.half_dt * u0) * a.inv_l;
+      const float v4 = v + a.dt * u1;
+      const float k4 = v4 * tanf(delta + a.dt * u0) * a.inv_l;
+      kp[j][1] = kp[j][2] = k2;
+      inc[k * NX + 4] = a.dt6 * (k1 + 2.f * k2 + 2.f * k2 + k4);
+    }
+    __syncwarp();
+    if (t == 0) running_sum(Xs, 4);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int k = stage(j);
+      if (k < 0 || k == H) continue;
+      const float v = Xs[k * NX + 3], psi = Xs[k * NX + 4];
+      if (!a.rk4) {
+        inc[k * NX + 0] = a.dt * (v * cosf(psi));
+        inc[k * NX + 1] = a.dt * (v * sinf(psi));
+        continue;
+      }
+      const float u1 = Us[k * NU + 1];
+      const float v2 = v + a.half_dt * u1, v4 = v + a.dt * u1;
+      const float p2 = psi + a.half_dt * kp[j][0];
+      const float p3 = psi + a.half_dt * kp[j][1];
+      const float p4 = psi + a.dt * kp[j][2];
+      inc[k * NX + 0] = a.dt6 * (v * cosf(psi) + 2.f * (v2 * cosf(p2)) +
+                                 2.f * (v2 * cosf(p3)) + v4 * cosf(p4));
+      inc[k * NX + 1] = a.dt6 * (v * sinf(psi) + 2.f * (v2 * sinf(p2)) +
+                                 2.f * (v2 * sinf(p3)) + v4 * sinf(p4));
+    }
+    __syncwarp();
+    if (t == 0) {
+      running_sum(Xs, 0);
+      running_sum(Xs, 1);
+    }
+    __syncwarp();
   }
 
   // max(lo - h, h - hi, 0) of row i (raw).
   __device__ float row_viol(const Rows& r, int i, bool is_term) const {
     bool has_lo, has_hi;
     float lo, hi;
-    row_bounds(a, i, is_term, mind, has_lo, lo, has_hi, hi);
+    row_bounds(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
     const float h = row_value(r, i);
     float vi = 0.f;
     if (has_hi) vi = nmax(vi, h - hi);
@@ -457,7 +571,6 @@ struct IpSolve {
   __device__ __forceinline__ float scaled(int i, float vi) const {
     return i == 0 ? vi * a.inv_fr_scale : vi;
   }
-
   // sum over the rows of their scaled violations
   __device__ float penalty_viol(const Rows& r, bool is_term) const {
     float v = 0.f;
@@ -466,60 +579,295 @@ struct IpSolve {
     return v;
   }
 
-  // The RTI step U <- clip(U + alpha dU) and its rollout from x0 (no
-  // feedback).  ``write`` commits (X, U) and the rows cache; ``merit``
-  // returns objective + rho * viol (1e30 when not finite).
-  __device__ float du_rollout(float alpha, bool write, bool merit) const {
-    float x[NX], xn[NX], u[NU], ub[NU], dk[NU];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = x0[i];
+  // The rows of the rollout (Xs, Us), each stage on its owner: stored into
+  // the rows cache when ``write``; with ``merit``, returns objective +
+  // rho * viol (1e30 when not finite).
+  __device__ float stage_rows(const float* Xs, const float* Us, bool write,
+                              bool merit) {
     float acc = 0.f;
-    Rows r;
-    for (int k = 0; k < a.H; ++k) {
-      load(b.U, k, NU, ub);
-      load(b.dU, k, NU, dk);
-      u[0] = clipf(ub[0] + alpha * dk[0], a.u_lo0, a.u_hi0);
-      u[1] = clipf(ub[1] + alpha * dk[1], a.u_lo1, a.u_hi1);
-      fresh_rows(k, x, u, r);
-      if (write) store_rows(L, b.rows, k, r);
-      if (merit) {
-        float xref[NX];
-        load(b.xref, k, NX, xref);
-        acc = acc + stage_cost(x, u, xref, wq, wr) + a.rho * penalty_viol(r, false);
-      }
-      if (write) {
-        store(b.X, k, NX, x);
-        store(b.U, k, NU, u);
-      }
-      step_fn(a, x, u, xn);
 #pragma unroll
-      for (int i = 0; i < NX; ++i) x[i] = xn[i];
+    for (int j = 0; j < SPT; ++j) {
+      const int k = stage(j);
+      if (k < 0) continue;
+      const bool is_term = k == H;
+      const float* x = Xs + k * NX;
+      const float* u = Us + k * NU;
+      Rows r;
+      fresh_rows(k, x, u, r);
+      if (write) rows(k) = r;
+      if (merit) {
+        if (!is_term) {
+          acc = acc + (stage_cost(x, u, xref(k), cst(C_WQ), cst(C_WR)) +
+                       a.rho * penalty_viol(r, false));
+        } else {
+          const float tc =
+              a.use_term ? term_cost(x, xref(k), cst(C_WQN)) : 0.f;
+          acc = acc + (tc + a.rho * penalty_viol(r, true));
+        }
+      }
     }
-    const float zu[NU] = {0.f, 0.f};
-    fresh_rows(a.H, x, zu, r);
-    if (write) {
-      store_rows(L, b.rows, a.H, r);
-      store(b.X, a.H, NX, x);
-    }
+    __syncwarp();
     if (!merit) return 0.f;
-    if (a.use_term) {
-      float xref[NX];
-      load(b.xref, a.H, NX, xref);
-      acc = acc + term_cost(x, xref, wqN);
-    }
-    acc = acc + a.rho * penalty_viol(r, true);
+    acc = warp_sum(acc);
     return finite_f32(acc) ? acc : BIG;
+  }
+
+  // The RTI step U <- clip(U + alpha dU) and its rollout; ``write``
+  // commits (X, U) and the rows cache, else the trial goes to (Xt, Ut).
+  __device__ float du_rollout(float alpha, bool write, bool merit) {
+    float* Ud = sm + (write ? L.U : L.Ut);
+    float* Xd = sm + (write ? L.X : L.Xt);
+    const float* Us = sm + L.U;
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int k = stage(j);
+      if (k < 0) continue;
+      if (k == H) {   // the terminal stage has no input
+        Ud[k * NU] = Ud[k * NU + 1] = 0.f;
+        continue;
+      }
+      const float u0 = clipf(Us[k * NU] + alpha * st[j].du[0], a.u_lo0,
+                             a.u_hi0);
+      const float u1 = clipf(Us[k * NU + 1] + alpha * st[j].du[1], a.u_lo1,
+                             a.u_hi1);
+      Ud[k * NU] = u0;
+      Ud[k * NU + 1] = u1;
+    }
+    __syncwarp();
+    rollout(Ud, Xd);
+    return stage_rows(Xd, Ud, write, merit);
+  }
+
+  // ---- the IP iterations
+
+  // Slacks and duals from the margins of the cached rows (or the warm
+  // duals); dX = dU = 0.
+  __device__ void init_ip() {
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int k = stage(j);
+      if (k < 0) continue;
+      const bool is_term = k == H;
+      const Rows& r = rows(k);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        bool has_lo, has_hi;
+        float lo, hi;
+        row_bounds(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
+        const float h = row_value(r, i);
+        float sl = 1.f, zl = 0.f, sh = 1.f, zh = 0.f;
+        if (has_lo) side_init(h - lo, st[j].zl[i], a.warm != 0, sl, zl);
+        if (has_hi) side_init(hi - h, st[j].zh[i], a.warm != 0, sh, zh);
+        st[j].sl[i] = sl;
+        st[j].sh[i] = sh;
+        st[j].zl[i] = zl;
+        st[j].zh[i] = zh;
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) st[j].dx[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < NU; ++i) st[j].du[i] = 0.f;
+    }
+  }
+
+  // Stage quadratics at the shifted point (X + dX, U + dU), each on its
+  // owner: the IP row weights w (gh) and sigma = z / s (gn), then the
+  // quadratic into shared memory (the terminal one into P and p, where the
+  // sweep starts); with ``fill_ab`` also (A, B) at the outer iterate.
+  __device__ void stage_quads(float mu_b, bool fill_ab) {
+    __syncwarp();   // the last step's readers of P, the quadratics, ab
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int k = stage(j);
+      if (k < 0) continue;
+      const bool is_term = k == H;
+      const StageState& s = st[j];
+      const Rows& r = rows(k);
+      float gh[NR], gn[NR];
+      {
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          bool has_lo, has_hi;
+          float lo, hi;
+          row_bounds(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
+          const float c = row_lin(r, i, s.dx, s.du);
+          float w = 0.f, sig = 0.f;
+          if (has_hi) {
+            const float rs = s.sh[i] - (hi - c);
+            const float sg = s.zh[i] / s.sh[i];
+            w = w + mu_b / s.sh[i] + sg * rs;
+            sig = sig + sg;
+          }
+          if (has_lo) {
+            const float rs = s.sl[i] - (c - lo);
+            const float sg = s.zl[i] / s.sl[i];
+            w = w - mu_b / s.sl[i] - sg * rs;
+            sig = sig + sg;
+          }
+          gh[i] = w;
+          gn[i] = sig;
+        }
+      }
+      const float* xk = sm + L.X + k * NX;
+      const float* uk = sm + L.U + k * NU;
+      float xc[NX], uc[NU];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) xc[i] = xk[i] + s.dx[i];
+#pragma unroll
+      for (int i = 0; i < NU; ++i) uc[i] = is_term ? 0.f : uk[i] + s.du[i];
+      float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU];
+      assemble_quad(r, gh, gn, xc, uc, xref(k),
+                    is_term ? cst(C_WQN) : cst(C_WQ), cst(C_WR), is_term,
+                    is_term ? a.use_term != 0 : true, Q, R, M, qx, qu);
+      if (is_term) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+#pragma unroll
+          for (int c = 0; c < NX; ++c) sm[L.P + i * NX + c] = Q[i][c];
+          sm[L.p + i] = qx[i];
+        }
+        continue;
+      }
+      float* q = quad(k);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+#pragma unroll
+        for (int c = i; c < NX; ++c) q[ut(i, c)] = Q[i][c];
+#pragma unroll
+        for (int c = 0; c < NU; ++c) q[QO_M + i * NU + c] = M[i][c];
+        q[QO_QX + i] = qx[i];
+      }
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+#pragma unroll
+        for (int c = 0; c < NU; ++c) q[QO_R + i * NU + c] = R[i][c];
+        q[QO_QU + i] = qu[i];
+      }
+      if (fill_ab) store_ab(k, xk, uk);
+    }
+    __syncwarp();
+  }
+
+  __device__ void store_ab(int k, const float* xk, const float* uk) const {
+    float A[NX][NX], Bm[NX][NU];
+    lin_step(a, xk, uk, A, Bm);
+    float* o = ab(k);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+#pragma unroll
+      for (int c = 0; c < NX; ++c) o[i * NX + c] = A[i][c];
+#pragma unroll
+      for (int c = 0; c < NU; ++c) o[NX * NX + i * NU + c] = Bm[i][c];
+    }
+  }
+
+  // Slack and dual steps of row i from the current (dX, dU) and the
+  // Newton direction; a missing side steps by 0.
+  __device__ __forceinline__ void side_steps(const StageState& s, int i,
+                                             bool has_lo, float lo,
+                                             bool has_hi, float hi, float c,
+                                             float jd, float mu_b, float& dsl,
+                                             float& dzl, float& dsh,
+                                             float& dzh) const {
+    dsl = dzl = dsh = dzh = 0.f;
+    if (has_lo) {
+      const float rs = s.sl[i] - (c - lo);
+      const float sg = s.zl[i] / s.sl[i];
+      dsl = jd - rs;
+      dzl = mu_b / s.sl[i] - s.zl[i] - sg * dsl;
+    }
+    if (has_hi) {
+      const float rs = s.sh[i] - (hi - c);
+      const float sg = s.zh[i] / s.sh[i];
+      dsh = -jd - rs;
+      dzh = mu_b / s.sh[i] - s.zh[i] - sg * dsh;
+    }
+  }
+
+  // The slack and dual steps of every stage: the least fraction-to-
+  // boundary ratio (``apply`` false), or the step of length alpha on
+  // (dX, dU, s, z), slacks floored at S_FLOOR and duals capped at Z_MAX,
+  // returning this thread's share of the complementarity gap.
+  template <bool apply>
+  __device__ float dual_pass(float mu_b, float alpha) {
+    float acc = apply ? 0.f : BIG;
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int k = stage(j);
+      if (k < 0) continue;
+      const bool is_term = k == H;
+      StageState& s = st[j];
+      const Rows& r = rows(k);
+      const float* ddx = sm + L.ddX + k * NX;
+      const float* ddu = sm + L.ddU + k * NU;
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        bool has_lo, has_hi;
+        float lo, hi;
+        row_bounds(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
+        const float c = row_lin(r, i, s.dx, s.du);
+        const float jd = row_lin(r, i, ddx, ddu) - row_value(r, i);
+        float dsl, dzl, dsh, dzh;
+        side_steps(s, i, has_lo, lo, has_hi, hi, c, jd, mu_b, dsl, dzl, dsh,
+                   dzh);
+        if (!apply) {
+          if (has_lo) {
+            acc = ftb(s.sl[i], dsl, acc);
+            acc = ftb(s.zl[i], dzl, acc);
+          }
+          if (has_hi) {
+            acc = ftb(s.sh[i], dsh, acc);
+            acc = ftb(s.zh[i], dzh, acc);
+          }
+          continue;
+        }
+        float sl = 1.f, zl = 0.f, sh = 1.f, zh = 0.f;
+        if (has_lo) {
+          sl = nmax(s.sl[i] + alpha * dsl, S_FLOOR);
+          zl = nmin(s.zl[i] + alpha * dzl, Z_MAX);
+          acc = acc + sl * zl;
+        }
+        if (has_hi) {
+          sh = nmax(s.sh[i] + alpha * dsh, S_FLOOR);
+          zh = nmin(s.zh[i] + alpha * dzh, Z_MAX);
+          acc = acc + sh * zh;
+        }
+        s.sl[i] = sl;
+        s.zl[i] = zl;
+        s.sh[i] = sh;
+        s.zh[i] = zh;
+      }
+      if (!apply) continue;
+#pragma unroll
+      for (int i = 0; i < NX; ++i) s.dx[i] = s.dx[i] + alpha * ddx[i];
+      if (!is_term) {
+#pragma unroll
+        for (int i = 0; i < NU; ++i) s.du[i] = s.du[i] + alpha * ddu[i];
+      }
+    }
+    return acc;
+  }
+
+  // One primal-dual Newton step; returns the next barrier.
+  __device__ float newton(float mu_b, bool fill_ab) {
+    stage_quads(mu_b, fill_ab);
+    __syncthreads();
+    if (w == 0 && t < lpb) sweep_lane(a, block_sm + t * L.total, L);
+    __syncthreads();
+    const float amin = warp_min(dual_pass<false>(mu_b, 0.f));
+    const float alpha = nmin(1.f, TAU * amin);
+    const float gap = warp_sum(dual_pass<true>(mu_b, alpha));
+    return nmax(SIGMA_B * gap / a.n_act, MU_MIN);
   }
 
   // The RTI step of SQP iteration ``si``: dU scrubbed, then the unguarded
   // full step or the ladder.
-  __device__ void rti_step(int si) const {
-    for (int k = 0; k < a.H; ++k)
+  __device__ void rti_step(int si) {
 #pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        const float v = b.dU[L.at(k, i, NU)];
-        b.dU[L.at(k, i, NU)] = finite_f32(v) ? v : 0.f;
-      }
+    for (int j = 0; j < SPT; ++j)
+#pragma unroll
+      for (int i = 0; i < NU; ++i)
+        st[j].du[i] = finite_f32(st[j].du[i]) ? st[j].du[i] : 0.f;
     if (a.n_alphas == 0) {
       du_rollout(1.f, true, false);
       return;
@@ -534,97 +882,88 @@ struct IpSolve {
         best_rung = r + 1;
       }
     }
-    if (b.rung) b.rung[(size_t)si * a.B + L.lane] = best_rung;
+    if (b.rung && t == 0 && live)
+      b.rung[(size_t)si * a.B + lane] = best_rung;
     du_rollout(best_a, true, false);
-  }
-
-  // Per-row violations of stage k's rows (raw, into pviol) and ``viol``
-  // maxed with their scaled values.
-  __device__ float store_viol(int k, const Rows& r, float viol) const {
-#pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      const float vi = row_viol(r, i, k == a.H);
-      b.pviol[L.at(k, i, NR)] = vi;
-      viol = nmax(viol, scaled(i, vi));
-    }
-    return viol;
   }
 
   // stat (adjoint Lagrangian stationarity with lam = z_hi - z_lo), viol,
   // cost at the final iterate; rows from the cache, (A, B) recomputed.
-  __device__ void diagnostics() const {
-    const int H = a.H;
+  // The per-stage terms on the owners, the adjoint on one thread.
+  __device__ void diagnostics() {
     const float zero[NR] = {};
-    float lam[NX], stat = 0.f, viol, cost;
-    {
-      float xT[NX], xref[NX], lr[NR], Q[NX][NX], R[NU][NU], M[NX][NU],
-          qu[NU];
-      const float zu[NU] = {0.f, 0.f};
-      load(b.X, H, NX, xT);
-      load(b.xref, H, NX, xref);
+    const size_t l = (size_t)lane;
+    float viol = 0.f, cost = 0.f;
 #pragma unroll
-      for (int i = 0; i < NR; ++i)
-        lr[i] = b.z_hi[L.at(H, i, NR)] - b.z_lo[L.at(H, i, NR)];
-      Rows r;
-      load_rows(L, b.rows, H, r);
-      assemble_quad(r, lr, zero, xT, zu, xref, wqN, wr, true, a.use_term != 0,
-                    Q, R, M, lam, qu);
-      viol = store_viol(H, r, 0.f);
-      cost = a.use_term ? term_cost(xT, xref, wqN) : 0.f;
-    }
-    for (int k = H - 1; k >= 0; --k) {
-      float x[NX], u[NU], xref[NX], lr[NR], Q[NX][NX], R[NU][NU], M[NX][NU],
-          qx[NX], qu[NU];
-      load(b.X, k, NX, x);
-      load(b.U, k, NU, u);
-      load(b.xref, k, NX, xref);
+    for (int j = 0; j < SPT; ++j) {
+      const int k = stage(j);
+      if (k < 0) continue;
+      const bool is_term = k == H;
+      const Rows& r = rows(k);
+      float lr[NR];
 #pragma unroll
-      for (int i = 0; i < NR; ++i)
-        lr[i] = b.z_hi[L.at(k, i, NR)] - b.z_lo[L.at(k, i, NR)];
-      Rows r;
-      load_rows(L, b.rows, k, r);
-      assemble_quad(r, lr, zero, x, u, xref, wq, wr, false, true, Q, R, M, qx,
-                    qu);
-      float A[NX][NX], Bm[NX][NU];
-      lin_step(a, x, u, A, Bm);
-      float g_u[NU], lam_new[NX];
+      for (int i = 0; i < NR; ++i) lr[i] = st[j].zh[i] - st[j].zl[i];
+      const float* x = sm + L.X + k * NX;
+      const float* u = sm + L.U + k * NU;
+      float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU];
+      assemble_quad(r, lr, zero, x, u, xref(k),
+                    is_term ? cst(C_WQN) : cst(C_WQ), cst(C_WR), is_term,
+                    is_term ? a.use_term != 0 : true, Q, R, M, qx, qu);
+      float* q = quad(k);
 #pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        float s = 0.f;
+      for (int i = 0; i < NX; ++i) q[QO_QX + i] = qx[i];
 #pragma unroll
-        for (int t = 0; t < NX; ++t) s += Bm[t][i] * lam[t];
-        g_u[i] = qu[i] + s;
+      for (int i = 0; i < NU; ++i) q[QO_QU + i] = qu[i];
+      if (!is_term) store_ab(k, x, u);
+      float* pv = b.pviol + (l * S + k) * NR;
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const float vi = row_viol(r, i, is_term);
+        if (live) pv[i] = vi;
+        viol = nmax(viol, scaled(i, vi));
       }
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        float s = 0.f;
-#pragma unroll
-        for (int t = 0; t < NX; ++t) s += A[t][i] * lam[t];
-        lam_new[i] = qx[i] + s;
+      if (!is_term) {
+        cost = cost + stage_cost(x, u, xref(k), cst(C_WQ), cst(C_WR));
+      } else if (a.use_term) {
+        cost = cost + term_cost(x, xref(k), cst(C_WQN));
       }
-#pragma unroll
-      for (int i = 0; i < NX; ++i) lam[i] = lam_new[i];
-      stat = nmax(stat, nmax(fabsf(g_u[0]), fabsf(g_u[1])));
-      viol = store_viol(k, r, viol);
-      cost = cost + stage_cost(x, u, xref, wq, wr);
     }
-    b.diag[L.at(0, 0, 4)] = stat;
-    b.diag[L.at(0, 1, 4)] = viol;
-    b.diag[L.at(0, 2, 4)] = cost;
-    b.diag[L.at(0, 3, 4)] = cost;
+    __syncwarp();
+    viol = warp_max(viol);
+    cost = warp_sum(cost);
+    __syncthreads();
+    if (w == 0 && t < lpb) adjoint_lane(a, block_sm + t * L.total, L);
+    __syncthreads();
+    const float stat = sm[L.stat];
+    if (t == 0 && live) {
+      b.diag[l * 4 + 0] = stat;
+      b.diag[l * 4 + 1] = viol;
+      b.diag[l * 4 + 2] = cost;
+      b.diag[l * 4 + 3] = cost;
+    }
   }
 };
 
-// __grid_constant__: the IpSolve object keeps references to the
-// parameters, which then stay in the constant bank instead of a local copy.
-__global__ void fused_ip_kernel(const __grid_constant__ IpArgs a,
+// One warp a lane, lanes_per_block warps a block.  __grid_constant__: the
+// IpLane object keeps references to the parameters, which then stay in the
+// constant bank instead of a local copy.
+template <int SPT>
+__global__ void __launch_bounds__(TPL * MAX_LPB)
+fused_ip_kernel(const __grid_constant__ IpArgs a,
                                 const __grid_constant__ IpBufs b) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.B) return;
-  IpSolve s(a, b, lane);
-  s.initial_rollout();
+  extern __shared__ float smem_dyn[];
+  const int w = threadIdx.x / TPL, lpb = blockDim.x / TPL;
+  const int lane = blockIdx.x * lpb + w;
+  // a warp past the last lane solves a copy of it and stores nothing, so
+  // that every warp of the block meets the same __syncthreads
+  const Layout L(a.H);
+  IpLane<SPT> s(a, b, lane < a.B ? lane : a.B - 1, lane < a.B,
+                threadIdx.x % TPL, w, lpb, smem_dyn, L);
+  s.load();
+  s.rollout(s.sm + L.U, s.sm + L.X);
+  s.stage_rows(s.sm + L.X, s.sm + L.U, true, false);
   for (int si = 0; si < a.ip_sqp_iters; ++si) {
-    // warm duals chain across SQP iterations and MPC steps: z_lo / z_hi
+    // warm duals chain across SQP iterations and MPC steps: the registers
     // hold the caller's duals at si = 0 and the last QP's after
     s.init_ip();
     float mu_b = MU0;
@@ -632,23 +971,104 @@ __global__ void fused_ip_kernel(const __grid_constant__ IpArgs a,
     s.rti_step(si);
   }
   s.diagnostics();
+  s.store();
+}
+
+// Lanes per block when the caller gives none: the most lanes resident on
+// an SM (occupancy API: registers and shared memory together), the most
+// lanes a block among equals.  Fills out[] as fused_ip_geometry does; the
+// most lanes a block is the most whose block fits an SM at all.
+template <int SPT>
+static int geometry(const IpArgs* args, int32_t out[6]) {
+  auto kernel = fused_ip_kernel<SPT>;
+  int dev = 0, optin = 0, err;
+  if ((err = cudaGetDevice(&dev))) return err;
+  if ((err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)))
+    return err;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)))
+    return err;
+  const int lane_bytes = Layout(args->H).total * (int)sizeof(float);
+  int smem_lpb = optin / lane_bytes;
+  if (smem_lpb > MAX_LPB) smem_lpb = MAX_LPB;
+  int best = 0, best_per_sm = 0, max_lpb = 0, given_per_sm = 0;
+  for (int l = 1; l <= smem_lpb; ++l) {
+    int nb = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &nb, kernel, TPL * l, (size_t)l * lane_bytes)))
+      return err;
+    if (nb < 1) break;
+    max_lpb = l;
+    if (nb * l >= best_per_sm) best = l, best_per_sm = nb * l;
+    if (l == args->lanes_per_block) given_per_sm = nb * l;
+  }
+  const int lpb = args->lanes_per_block > 0 ? args->lanes_per_block : best;
+  const int per_sm = args->lanes_per_block > 0 ? given_per_sm : best_per_sm;
+  cudaFuncAttributes fa;
+  if ((err = cudaFuncGetAttributes(&fa, kernel))) return err;
+  out[0] = lpb;
+  out[1] = lane_bytes;
+  out[2] = lpb * lane_bytes;
+  out[3] = lpb > 0 ? per_sm / lpb : 0;
+  out[4] = fa.numRegs;
+  out[5] = max_lpb;
+  return 0;
+}
+
+template <int SPT>
+static int launch(const IpArgs* args, const IpBufs& b, void* stream) {
+  int32_t g[6];
+  int err = geometry<SPT>(args, g);
+  if (err) return err;
+  const int lpb = g[0];
+  if (lpb < 1 || lpb > g[5]) return (int)cudaErrorInvalidValue;
+  // the smallest shared-memory carveout that holds the resident blocks
+  // (1 KB a block is the system's), leaving the rest to L1
+  int dev = 0, sm_bytes = 0;
+  if ((err = cudaGetDevice(&dev))) return err;
+  if ((err = cudaDeviceGetAttribute(
+           &sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev)))
+    return err;
+  const long need = (long)g[3] * (g[2] + 1024);
+  int pct = (int)((100 * need + sm_bytes - 1) / sm_bytes);
+  if (pct > 100) pct = 100;
+  if ((err = cudaFuncSetAttribute(
+           fused_ip_kernel<SPT>, cudaFuncAttributePreferredSharedMemoryCarveout,
+           pct)))
+    return err;
+  const int threads = TPL * lpb;
+  const int blocks = (args->B + lpb - 1) / lpb;
+  const size_t smem = (size_t)g[2];
+  fused_ip_kernel<SPT><<<blocks, threads, smem, (cudaStream_t)stream>>>(*args, b);
+  return (int)cudaGetLastError();
+}
+
+// Floats of one lane's shared memory at horizon H (the Python side's
+// eligibility mirrors it).
+extern "C" int fused_ip_lane_floats(int H) { return Layout(H).total; }
+
+// The launch geometry at args: lanes per block (given or chosen), shared
+// bytes a lane and a block, blocks resident an SM, registers a thread, the
+// most lanes a block's shared memory holds.
+extern "C" int fused_ip_geometry(const IpArgs* args, int32_t* out) {
+  switch ((args->H + TPL) / TPL) {
+    case 1: return geometry<1>(args, out);
+    case 2: return geometry<2>(args, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int fused_ip_solve(const IpArgs* args, const float* x0,
                               const float* xref, const float* obs,
                               const float* mind, const float* w, float* U,
                               float* lam_lo, float* lam_hi, float* X,
-                              float* pviol, float* diag, float* K, float* d,
-                              float* dX, float* dU, float* ddX, float* ddU,
-                              float* s_lo, float* s_hi, float* ds_lo,
-                              float* ds_hi, float* dz_lo, float* dz_hi,
-                              float* rows, float* ab, int32_t* rung,
+                              float* pviol, float* diag, int32_t* rung,
                               void* stream) {
-  IpBufs b{x0,  xref, obs,  mind,  w,     U,     lam_lo, lam_hi, X,    pviol,
-           diag, K,   d,    dX,    dU,    ddX,   ddU,    s_lo,   s_hi, ds_lo,
-           ds_hi, dz_lo, dz_hi, rows, ab, rung};
-  const int threads = args->threads > 0 ? args->threads : 64;
-  const int blocks = (args->B + threads - 1) / threads;
-  fused_ip_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, b);
-  return (int)cudaGetLastError();
+  IpBufs b{x0, xref, obs, mind, w, U, lam_lo, lam_hi, X, pviol, diag, rung};
+  switch ((args->H + TPL) / TPL) {   // stages a thread: ceil((H + 1) / 32)
+    case 1: return launch<1>(args, b, stream);
+    case 2: return launch<2>(args, b, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

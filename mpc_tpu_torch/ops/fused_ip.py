@@ -23,8 +23,9 @@ One launch runs, for every lane::
 
 Two implementations of the same function:
 
-* the CUDA C++ kernel ``csrc/fused_ip.cu`` (one thread per lane), launched
-  by :func:`launch_ip` on CUDA tensors;
+* the CUDA C++ kernel ``csrc/fused_ip.cu`` (one warp per lane, a thread per
+  stage, the Newton state in registers and shared memory), launched by
+  :func:`launch_ip` on CUDA tensors;
 * :func:`solve_batch_fused_ip_plain`, the plain PyTorch version over a
   leading lane axis, with the stage-independent work evaluated for all
   stages at once.  The CPU runs it, and the kernel is checked against it on
@@ -36,7 +37,8 @@ CUDA tensor to the kernel; nothing falls back from one to the other.
 Envelope (:func:`eligible_ip`): KS model, method 'ip', forcespro or casadi
 rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1, 3, 2) obstacles, no
 boundary rows, cold or warm duals, any ``ip_sqp_iters x ip_iters`` budget,
-``ip_alphas=()`` or a ladder of at most ``MAX_ALPHAS`` rungs.
+``ip_alphas=()`` or a ladder of at most ``MAX_ALPHAS`` rungs, a horizon of
+at most ``MAX_HORIZON`` stages whose shared-memory footprint a block holds.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from mpc_tpu_torch.device import resolve_device
 from mpc_tpu_torch.ops import fused_gn as F
 from mpc_tpu_torch.ops import sqp as S
 from mpc_tpu_torch.ops.fused_gn import (
-    MAX_ALPHAS, NR, NROWVALS, NU, NX, THREADS, _assemble_quad, _cols,
+    MAX_ALPHAS, NR, NU, NX, _assemble_quad, _cols,
     _lin_step, _mat, _mv, _row_bounds, _row_lin, _row_values, _vec,
     make_consts)
 from mpc_tpu_torch.ops.ipqp import (
@@ -56,6 +58,21 @@ from mpc_tpu_torch.ops.ipqp import (
 
 _BIG = 1e30    # "no bound" of the fraction-to-boundary ratio; merit of a
                # non-finite rollout in the ladder
+TPL = 32       # threads per lane: one warp, a thread per stage
+MAX_SPT = 2    # stages a thread holds, at most (csrc/fused_ip.cu MAX_SPT)
+MAX_HORIZON = TPL * MAX_SPT - 1
+SMEM_PER_BLOCK = 232448   # bytes of shared memory an H100 block may use
+
+
+def lane_smem_bytes(H: int) -> int:
+    """Shared memory of one lane at horizon H: ``Layout`` in
+    csrc/fused_ip.cu (rows cache, quadratics (whose space a rollout's
+    scratch shares), (A, B), K, d, ddX, ddU, X, U, xref, obstacles, the
+    terminal P and p, the stationarity, the lane's constants)."""
+    S = H + 1
+    floats = (45 * S + 37 * S + 35 * H + 10 * H + 2 * H + 5 * S + 2 * S
+              + 5 * S + 2 * S + 5 * S + 7 * S + 25 + 5 + 1 + 18)
+    return 4 * floats
 
 
 def ineligible_reason_ip(cfg: S.SolverConfig, params: S.OcpParams):
@@ -77,6 +94,14 @@ def ineligible_reason_ip(cfg: S.SolverConfig, params: S.OcpParams):
     if len(cfg.ip_alphas) > MAX_ALPHAS:
         return (f"{len(cfg.ip_alphas)} ladder rungs, the kernel takes "
                 f"{MAX_ALPHAS}")
+    H = cfg.horizon
+    if H > MAX_HORIZON:
+        return (f"horizon {H}: the kernel's warp holds at most "
+                f"{TPL * MAX_SPT} stages a lane ({MAX_SPT} a thread), "
+                f"H <= {MAX_HORIZON}")
+    if lane_smem_bytes(H) > SMEM_PER_BLOCK:
+        return (f"horizon {H}: a lane needs {lane_smem_bytes(H)} bytes of "
+                f"shared memory, a block holds {SMEM_PER_BLOCK}")
     return None
 
 
@@ -458,7 +483,7 @@ class IpArgs(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int32) for n in (
         "B", "H", "ip_sqp_iters", "ip_iters", "n_alphas", "forcespro", "rk4",
-        "moving", "use_term", "warm", "threads")] + [
+        "moving", "use_term", "warm", "lanes_per_block")] + [
         (n, ctypes.c_float) for n in (
             "dt", "half_dt", "dt6", "inv_l", "reg", "d_ego", "a_cap",
             "inv_fr_scale", "u_lo0", "u_hi0", "u_lo1", "u_hi1", "d_lo",
@@ -467,7 +492,9 @@ class IpArgs(ctypes.Structure):
 
 
 def kernel_args_ip(cfg: S.SolverConfig, B: int, moving: bool,
-                   threads: int = THREADS) -> IpArgs:
+                   lanes_per_block: int = 0) -> IpArgs:
+    """The argument block; ``lanes_per_block`` 0 lets the kernel choose
+    (the most lanes resident on an SM)."""
     c = make_consts(cfg)
     dt = float(cfg.dt)
     fr = _fr_scale(c)
@@ -477,71 +504,88 @@ def kernel_args_ip(cfg: S.SolverConfig, B: int, moving: bool,
         forcespro=int(cfg.formulation == "forcespro"),
         rk4=int(cfg.integrator == "rk4"), moving=int(moving),
         use_term=int(cfg.use_terminal_cost), warm=int(cfg.ip_warm_duals),
-        threads=threads, dt=dt, half_dt=0.5 * dt, dt6=dt / 6.0,
-        inv_l=c["inv_l"], reg=float(cfg.reg), d_ego=c["d_ego"], a_cap=fr,
-        inv_fr_scale=1.0 / fr, u_lo0=c["u_lo0"], u_hi0=c["u_hi0"],
-        u_lo1=c["u_lo1"], u_hi1=c["u_hi1"], d_lo=c["d_lo"], d_hi=c["d_hi"],
-        v_lo=c["v_lo"], v_hi=c["v_hi"], rho=float(cfg.ip_ls_rho),
-        n_act=n_active(cfg))
+        lanes_per_block=lanes_per_block, dt=dt, half_dt=0.5 * dt,
+        dt6=dt / 6.0, inv_l=c["inv_l"], reg=float(cfg.reg),
+        d_ego=c["d_ego"], a_cap=fr, inv_fr_scale=1.0 / fr, u_lo0=c["u_lo0"],
+        u_hi0=c["u_hi0"], u_lo1=c["u_lo1"], u_hi1=c["u_hi1"],
+        d_lo=c["d_lo"], d_hi=c["d_hi"], v_lo=c["v_lo"], v_hi=c["v_hi"],
+        rho=float(cfg.ip_ls_rho), n_act=n_active(cfg))
     for i, v in enumerate(cfg.ip_alphas):
         a.alphas[i] = v
     return a
 
 
-# the kernel's buffers in the order of fused_ip_solve's pointer arguments
+# the kernel's buffers in the order of fused_ip_solve's pointer arguments,
+# all lanes leading (the package's public layout); the Newton state lives
+# in the kernel's registers and shared memory, so there is no scratch
 KERNEL_INPUTS = F.KERNEL_INPUTS                 # x0, xref, obs, mind, w
 KERNEL_STATE = ("U", "lam_lo", "lam_hi")        # updated in place
 KERNEL_OUTPUTS = ("X", "pviol", "diag")
-KERNEL_SCRATCH = ("K", "d", "dX", "dU", "ddX", "ddU", "s_lo", "s_hi",
-                  "ds_lo", "ds_hi", "dz_lo", "dz_hi", "rows", "ab")
 KERNEL_TRACE = ("rung",)     # optional: the rung each ladder step committed
 _OUT_ORDER = ("X", "U", "lam_lo", "lam_hi", "pviol", "diag")
 
 
+def _copied(t, shape):
+    """A contiguous float32 copy of ``t``, checked against ``shape``."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"the fused kernels take float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"shape {tuple(t.shape)}, want {shape}")
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def pack_ip(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
             trace_rungs: bool = False) -> dict:
-    """The kernel's buffers, lanes fastest: every input copied into that
-    layout (never a view of the caller's tensors, since the kernel writes
-    U, lam_lo and lam_hi in place), every output and scratch buffer
-    allocated; the rung trace (ip_sqp_iters, B) only when the ladder is on
-    and ``trace_rungs`` asks for it."""
+    """The kernel's buffers, lanes leading and contiguous (one lane's data
+    in consecutive addresses, which the lane's warp loads together): every
+    input copied (never a view of the caller's tensors, since the kernel
+    writes U, lam_lo and lam_hi in place), every output allocated; the rung
+    trace (ip_sqp_iters, B) only when the ladder is on and ``trace_rungs``
+    asks for it."""
     reason = ineligible_reason_ip(cfg, params)
     if reason is not None:
         raise NotImplementedError(reason)
     B, H = params.x0.shape[0], cfg.horizon
     dev, f32 = params.x0.device, torch.float32
+    moving = params.obs_centers.dim() == 4
+    w = params.weights
 
     def empty(*shape):
-        return torch.empty(shape + (B,), dtype=f32, device=dev)
+        return torch.empty((B,) + shape, dtype=f32, device=dev)
 
-    bufs = F.pack_problem(cfg, params)
-    bufs.update(
-        U=F._packed(state.U, (B, H, NU)),
-        lam_lo=F._packed(state.lam_lo, (B, H + 1, NR)),
-        lam_hi=F._packed(state.lam_hi, (B, H + 1, NR)),
-        X=empty(H + 1, NX), pviol=empty(H + 1, NR), diag=empty(4),
-        K=empty(H, NU * NX), d=empty(H, NU), dX=empty(H + 1, NX),
-        dU=empty(H, NU), ddX=empty(H + 1, NX), ddU=empty(H, NU),
-        rows=empty(H + 1, NROWVALS), ab=empty(H, NX * (NX + NU)))
-    for n in ("s_lo", "s_hi", "ds_lo", "ds_hi", "dz_lo", "dz_hi"):
-        bufs[n] = empty(H + 1, NR)
+    bufs = dict(
+        x0=_copied(params.x0, (B, NX)),
+        xref=_copied(params.x_ref, (B, H + 1, NX)),
+        obs=_copied(params.obs_centers.reshape(B, -1, 6) if moving
+                    else params.obs_centers.reshape(B, 6),
+                    (B, H + 1, 6) if moving else (B, 6)),
+        mind=_copied(params.min_dist.reshape(B), (B,)),
+        w=_copied(torch.cat([w.q, w.r, w.qN], -1), (B, 2 * NX + NU)),
+        U=_copied(state.U, (B, H, NU)),
+        lam_lo=_copied(state.lam_lo, (B, H + 1, NR)),
+        lam_hi=_copied(state.lam_hi, (B, H + 1, NR)),
+        X=empty(H + 1, NX), pviol=empty(H + 1, NR), diag=empty(4))
     if cfg.ip_alphas and trace_rungs:
         bufs["rung"] = torch.empty((cfg.ip_sqp_iters, B), dtype=torch.int32,
                                    device=dev)
     return bufs
 
 
-def launch_ip(cfg: S.SolverConfig, bufs: dict, threads: int = THREADS):
+def _moving(bufs: dict) -> bool:
+    return bufs["obs"].dim() == 3
+
+
+def launch_ip(cfg: S.SolverConfig, bufs: dict, lanes_per_block: int = 0):
     """Launch the kernel once on the current stream over packed ``bufs``.
 
     The kernel updates U, lam_lo and lam_hi in place, where the TPU kernel
     aliased inputs to outputs, and writes X, pviol and diag.
-    ``launch_ip.launches`` counts the launches.
+    ``lanes_per_block`` 0 lets the kernel choose.  ``launch_ip.launches``
+    counts the launches.
     """
-    order = (KERNEL_INPUTS + KERNEL_STATE + KERNEL_OUTPUTS + KERNEL_SCRATCH
-             + KERNEL_TRACE)
-    args = kernel_args_ip(cfg, bufs["x0"].shape[-1], bufs["obs"].dim() == 3,
-                          threads)
+    order = KERNEL_INPUTS + KERNEL_STATE + KERNEL_OUTPUTS + KERNEL_TRACE
+    args = kernel_args_ip(cfg, bufs["x0"].shape[0], _moving(bufs),
+                          lanes_per_block)
     err = F.call_kernel("fused_ip", args, bufs, order)
     launch_ip.launches += 1
     if err != 0:
@@ -551,18 +595,38 @@ def launch_ip(cfg: S.SolverConfig, bufs: dict, threads: int = THREADS):
 launch_ip.launches = 0
 
 
+def geometry(cfg: S.SolverConfig, B: int, moving: bool = False,
+             lanes_per_block: int = 0) -> dict:
+    """The launch geometry the kernel takes on the current GPU for B lanes:
+    lanes per block (given, or chosen from registers and shared memory),
+    shared bytes a lane and a block, blocks resident an SM, registers a
+    thread, the most lanes a block's shared memory holds."""
+    from mpc_tpu_torch.ops import _build
+    args = kernel_args_ip(cfg, B, moving, lanes_per_block)
+    out = (ctypes.c_int32 * 6)()
+    fn = _build.load("fused_ip").fused_ip_geometry
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(ctypes.byref(args), out)
+    if err != 0:
+        raise RuntimeError(f"fused_ip geometry failed: CUDA error {err}")
+    keys = ("lanes_per_block", "smem_bytes_per_lane", "smem_bytes_per_block",
+            "blocks_per_sm", "registers", "max_lanes_per_block")
+    return dict(zip(keys, list(out)))
+
+
 def unpack_ip(bufs: dict):
-    """(X, U, z_lo, z_hi, per-row viol, diag) in the package's public
-    lanes-leading layout (views of the kernel's buffers)."""
-    return tuple(F._aos(bufs[n]) for n in _OUT_ORDER)
+    """(X, U, z_lo, z_hi, per-row viol, diag): the kernel's buffers, which
+    are in the package's public lanes-leading layout."""
+    return tuple(bufs[n] for n in _OUT_ORDER)
 
 
 def launch_kernel_ip(cfg: S.SolverConfig, params: S.OcpParams,
-                     state: S.SqpState, threads: int = THREADS):
+                     state: S.SqpState, lanes_per_block: int = 0):
     """Run the CUDA kernel; same outputs as
     :func:`solve_batch_fused_ip_plain`."""
     bufs = pack_ip(cfg, params, state)
-    launch_ip(cfg, bufs, threads)
+    launch_ip(cfg, bufs, lanes_per_block)
     return unpack_ip(bufs)
 
 

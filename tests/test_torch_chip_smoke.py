@@ -206,3 +206,35 @@ def test_road_boundaries_hold_the_reference_inside():
     torch.testing.assert_close(h[..., -6:], torch.full((B, Hs + 1, 6), 4.0),
                                atol=0.1, rtol=0.0)
     assert bool((lo[..., -6:] == 1.2).all())
+
+
+PTXAS = """ptxas info    : Compiling entry function '_Z15fused_ip_kernelILi2EEv6IpArgs6IpBufs' for 'sm_90a'
+ptxas info    : Function properties for _Z15fused_ip_kernelILi2EEv6IpArgs6IpBufs
+    736 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 880 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z15fused_ip_kernelILi1EEv6IpArgs6IpBufs' for 'sm_90a'
+ptxas info    : Function properties for _Z15fused_ip_kernelILi1EEv6IpArgs6IpBufs
+    96 bytes stack frame, 76 bytes spill stores, 252 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 64 bytes smem, 880 bytes cmem[0]
+"""
+
+
+def test_build_line_reads_each_entry_function():
+    """``-Xptxas -v`` gives one block per entry function: registers, spills,
+    stack frame and static shared memory of each; the main path's entry of
+    the IP kernel is its instance for one stage a thread."""
+    entries = cs.ptxas_entries(PTXAS)
+    assert len(entries) == 2
+    main = cs.main_entry(entries)
+    assert main == {"registers": 168, "spill_stores": 76, "spill_loads": 252,
+                    "stack_frame": 96, "static_smem_bytes": 64}
+    only = {"k": main}
+    assert cs.main_entry(only) is main
+
+
+def test_ip_timing_sweeps_lanes_per_block():
+    """The IP kernel's own choice (0), then 1, 2, 4, 8 up to the most lanes
+    a block fits, and that most."""
+    assert cs.ip_lane_sweep(12) == (0, 1, 2, 4, 8, 12)
+    assert cs.ip_lane_sweep(8) == (0, 1, 2, 4, 8)
+    assert cs.ip_lane_sweep(3) == (0, 1, 2, 3)

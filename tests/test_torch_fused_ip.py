@@ -205,28 +205,29 @@ def test_ctypes_binding_matches_the_c_source():
     params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
     assert params[0] == "args" and params[-1] == "stream"
     assert tuple(params[1:-1]) == (TFI.KERNEL_INPUTS + TFI.KERNEL_STATE
-                                   + TFI.KERNEL_OUTPUTS + TFI.KERNEL_SCRATCH
-                                   + TFI.KERNEL_TRACE)
+                                   + TFI.KERNEL_OUTPUTS + TFI.KERNEL_TRACE)
     fn_name, argtypes = _build.SIGNATURES["fused_ip"]
     assert fn_name == "fused_ip_solve" and len(argtypes) == len(params)
 
 
 @pytest.mark.parametrize("ip_alphas", [(), (1.0, 0.5)])
 def test_pack_ip_copies_and_lays_lanes_fastest(ip_alphas):
-    """Lanes on the last axis, every input copied (also a state unpacked
-    from earlier buffers), the rung trace only with the ladder on and
-    asked for; unpack gives the public layout."""
+    """Lanes leading and contiguous (one lane's data consecutive, the
+    layout the kernel's warp per lane loads), every input copied (also a
+    state unpacked from earlier buffers), no scratch, the rung trace only
+    with the ladder on and asked for; unpack gives the public layout."""
     cfg = _tcfg(ip_alphas=ip_alphas, ip_sqp_iters=3)
     p = _tocp(B=3, moving=True)
     st = TS.init_state(cfg, batch=3)
     st = st._replace(U=torch.arange(24.0).reshape(3, 4, 2),
                      lam_hi=torch.rand(3, 5, TF.NR))
     bufs = TFI.pack_ip(cfg, p, st)
-    assert bufs["U"].shape == (4, 2, 3) and bufs["U"].is_contiguous()
-    assert bufs["obs"].shape == (5, 6, 3)
-    assert bufs["lam_hi"].shape == (5, TF.NR, 3)
-    assert bufs["ab"].shape == (4, 35, 3) and bufs["rows"].shape == (5, 44, 3)
-    assert "rung" not in bufs and "mu" not in bufs
+    assert bufs["U"].shape == (3, 4, 2) and bufs["U"].is_contiguous()
+    assert bufs["obs"].shape == (3, 5, 6)
+    assert bufs["lam_hi"].shape == (3, 5, TF.NR)
+    assert all(t.is_contiguous() for t in bufs.values())
+    assert set(bufs) == set(TFI.KERNEL_INPUTS + TFI.KERNEL_STATE
+                            + TFI.KERNEL_OUTPUTS)
     traced = TFI.pack_ip(cfg, p, st, trace_rungs=True)
     assert ("rung" in traced) == bool(ip_alphas)
     if ip_alphas:
@@ -244,6 +245,36 @@ def test_pack_ip_copies_and_lays_lanes_fastest(ip_alphas):
     assert not ptrs & {t.data_ptr() for t in again.values()}
     with pytest.raises(ValueError, match="CUDA"):
         TFI.launch_ip(cfg, bufs)
+
+
+def test_horizon_bound_on_either_side():
+    """The kernel holds 2 stages a thread of its warp, 64 a lane: H=63 is
+    in the envelope and H=64 is refused with a reason naming that bound.
+    The shared-memory footprint of a lane at H=63 fits a block; a block
+    that held less would refuse the horizon with a reason naming shared
+    memory."""
+    ok = TFI.ineligible_reason_ip(_tcfg(horizon=TFI.MAX_HORIZON),
+                                  _tocp(B=2, H=TFI.MAX_HORIZON))
+    assert ok is None and TFI.MAX_HORIZON == 63
+    reason = TFI.ineligible_reason_ip(_tcfg(horizon=64), _tocp(B=2, H=64))
+    assert reason is not None and "64 stages a lane" in reason
+    assert "H <= 63" in reason
+    with pytest.raises(NotImplementedError, match="H <= 63"):
+        TFI.pack_ip(_tcfg(horizon=64), _tocp(B=2, H=64),
+                    TS.init_state(_tcfg(horizon=64), batch=2))
+    # ~19 KB a lane at the bench horizon: 12 lanes a block
+    assert TFI.lane_smem_bytes(30) == 19228
+    assert TFI.SMEM_PER_BLOCK // TFI.lane_smem_bytes(30) == 12
+    small = TFI.lane_smem_bytes(8)
+    try:
+        TFI.SMEM_PER_BLOCK = small
+        assert TFI.ineligible_reason_ip(_tcfg(horizon=8),
+                                        _tocp(B=2, H=8)) is None
+        reason = TFI.ineligible_reason_ip(_tcfg(horizon=9),
+                                          _tocp(B=2, H=9))
+        assert f"a block holds {small}" in reason and "shared memory" in reason
+    finally:
+        TFI.SMEM_PER_BLOCK = 232448
 
 
 def test_plain_rung_trace_and_replay():

@@ -3,9 +3,12 @@ against their plain PyTorch versions on the CPU.
 
 Each ``ops/csrc/<name>.cu`` is compiled with the host C++ compiler against
 a small stand-in for ``cuda_runtime.h`` (the CUDA qualifiers defined away,
-``blockIdx``/``threadIdx`` as globals) with its ``<<<...>>>`` launch line
-replaced by a loop over the lanes, and its C entry point is called through
-ctypes on the packed CPU buffers.  The card's build (``nvcc``) and timing
+``blockIdx``/``threadIdx`` per thread) with its ``<<<...>>>`` launch line
+replaced by ``host_launch``, which runs each block's threads as
+``std::thread``s: ``__syncwarp``/``__syncthreads`` are C++20
+``std::barrier``s, ``__shfl_*_sync`` an exchange array between two barrier
+waits, and each block has its own buffer for ``extern __shared__``.  Its C
+entry point is called through ctypes on the packed CPU buffers.  The card's build (``nvcc``) and timing
 are ``chip_smoke.py``'s; this holds the source's arithmetic, the buffer
 layout and the ctypes binding to the plain version wherever a host
 compiler is present.
@@ -31,24 +34,94 @@ from mpc_tpu_torch.ops import sqp_vec as TSV
 from mpc_tpu_torch.utils import synthetic as tsyn
 
 SHIM = """#pragma once
+#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <math.h>
+#include <memory>
+#include <thread>
+#include <vector>
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __grid_constant__
+#define __launch_bounds__(...)
 typedef void* cudaStream_t;
 struct HostDim { unsigned x; };
-static HostDim blockIdx, threadIdx, blockDim;
+// A block's threads run as std::threads; a warp's threads meet at a
+// std::barrier, which also carries __shfl_*_sync's exchange.
+struct HostWarp {
+  explicit HostWarp(int n) : bar(n) {}
+  std::barrier<> bar;
+  uint32_t x[32];
+};
+static thread_local HostDim blockIdx, threadIdx, blockDim;
+static thread_local HostWarp* host_warp;
+static thread_local std::barrier<>* host_block;
+static thread_local void* host_smem;
+inline void __syncwarp(unsigned = 0xffffffffu) { host_warp->bar.arrive_and_wait(); }
+inline void __syncthreads() { host_block->arrive_and_wait(); }
+template <class T> T host_shfl(T v, int src) {
+  static_assert(sizeof(T) == 4, "32-bit shuffles only");
+  std::memcpy(&host_warp->x[threadIdx.x % 32], &v, 4);
+  host_warp->bar.arrive_and_wait();
+  T r;
+  std::memcpy(&r, &host_warp->x[src], 4);
+  host_warp->bar.arrive_and_wait();
+  return r;
+}
+template <class T> T __shfl_sync(unsigned, T v, int src) { return host_shfl(v, src); }
+template <class T> T __shfl_xor_sync(unsigned, T v, int m) {
+  return host_shfl(v, (int)(threadIdx.x % 32) ^ m);
+}
+template <class F>
+void host_launch(unsigned blocks, unsigned threads, size_t smem, F body) {
+  for (unsigned bi = 0; bi < blocks; ++bi) {
+    std::vector<double> buf(smem / sizeof(double) + 1);
+    std::vector<std::unique_ptr<HostWarp>> warps;
+    for (unsigned w = 0; w * 32 < threads; ++w)
+      warps.emplace_back(new HostWarp(threads - w * 32 < 32 ? threads - w * 32 : 32));
+    std::barrier<> block((std::ptrdiff_t)threads);
+    std::vector<std::thread> ts;
+    for (unsigned ti = 0; ti < threads; ++ti)
+      ts.emplace_back([&, ti] {
+        blockIdx.x = bi; threadIdx.x = ti; blockDim.x = threads;
+        host_warp = warps[ti / 32].get(); host_block = &block;
+        host_smem = buf.data();
+        body();
+        host_warp->bar.arrive_and_drop();
+        block.arrive_and_drop();
+      });
+    for (auto& t : ts) t.join();
+  }
+}
+enum { cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+       cudaFuncAttributePreferredSharedMemoryCarveout,
+       cudaDevAttrMaxSharedMemoryPerBlockOptin,
+       cudaDevAttrMaxSharedMemoryPerMultiprocessor };
+struct cudaFuncAttributes { int numRegs; };
 inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 232448; return 0; }
+template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
+template <class K> int cudaFuncGetAttributes(cudaFuncAttributes* f, K) {
+  f->numRegs = 0; return 0;
+}
+template <class K>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1; return 0;
+}
 """
-LAUNCH = re.compile(r"(\w+)<<<blocks, threads, 0, \(cudaStream_t\)stream>>>"
-                    r"\(\*args, b\);")
-LOOP = (r"for (int bi = 0; bi < blocks; ++bi) "
-        r"for (int ti = 0; ti < threads; ++ti) { blockIdx.x = bi; "
-        r"threadIdx.x = ti; blockDim.x = threads; \1(*args, b); }")
+# every kernel launch line, run on the host by host_launch
+LAUNCH = re.compile(r"([\w<>]+)<<<(\w+), (\w+), (\w+), \(cudaStream_t\)stream"
+                    r">>>\(([^;]*)\);")
+LOOP = r"host_launch(\2, \3, \4, [&] { \1(\5); });"
+# dynamic shared memory: the block's host buffer
+SMEM = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
+SMEM_HOST = r"\1* \2 = (\1*)host_smem;"
 H, B = 8, 5
 
 
@@ -65,9 +138,11 @@ def host_libs(tmp_path_factory):
     for name in _build.SIGNATURES:
         src, n = LAUNCH.subn(LOOP, (_build.CSRC / f"{name}.cu").read_text())
         assert n == 1, f"{name}.cu: expected one kernel launch line"
+        src = SMEM.sub(SMEM_HOST, src)
         (out / f"{name}.cpp").write_text(src)
         lib = out / f"lib{name}.so"
-        subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+        subprocess.run([cxx, "-O1", "-std=c++20", "-shared", "-fPIC",
+                        "-pthread",
                         "-ffp-contract=off", "-I", str(out), "-o", str(lib),
                         str(out / f"{name}.cpp")], check=True,
                        capture_output=True, timeout=300)
@@ -92,21 +167,23 @@ def host_gn(libs, cfg, ocp, st):
     return bufs, TF.to_solution(cfg, TF.unpack(bufs))
 
 
-def host_ip(libs, cfg, ocp, st):
+def host_ip(libs, cfg, ocp, st, lanes_per_block=2):
+    """The IP source on the host: a block of ``lanes_per_block`` warps (B=5
+    lanes leave the last block ragged)."""
     bufs = TFI.pack_ip(cfg, ocp, st, trace_rungs=True)
     run_host(libs, "fused_ip", TFI.kernel_args_ip(
-        cfg, B, ocp.obs_centers.dim() == 4, threads=2), bufs,
-        TFI.KERNEL_INPUTS + TFI.KERNEL_STATE + TFI.KERNEL_OUTPUTS
-        + TFI.KERNEL_SCRATCH + TFI.KERNEL_TRACE)
+        cfg, ocp.x0.shape[0], ocp.obs_centers.dim() == 4, lanes_per_block),
+        bufs, TFI.KERNEL_INPUTS + TFI.KERNEL_STATE + TFI.KERNEL_OUTPUTS
+        + TFI.KERNEL_TRACE)
     return bufs, TFI.to_solution_ip(cfg, TFI.unpack_ip(bufs), st.mu)
 
 
-def bench_ocp(mode="forcespro", moving=False, **kw):
-    lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, H, B, mode=mode,
+def bench_ocp(mode="forcespro", moving=False, horizon=H, **kw):
+    lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, horizon, B, mode=mode,
                                     device="cpu", **kw)
     ocp = cs.ocp_at(lcfg, lp, step=1 if mode == "casadi" else 0)
     if moving:
-        drift = torch.arange(H + 1.0)[:, None, None] * torch.tensor(
+        drift = torch.arange(horizon + 1.0)[:, None, None] * torch.tensor(
             [0.3, 0.05])
         ocp = ocp._replace(obs_centers=ocp.obs_centers[:, None] + drift)
     return lcfg.solver, ocp
@@ -181,6 +258,33 @@ def test_fused_ip_source_warm_start_and_in_place_state(host_libs):
         warm_cfg, ocp, cold.state), cold.state.mu)
     assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
     assert bool((ker.status >= 0).all())
+
+
+def test_fused_ip_source_ragged_lanes_and_strided_stages(host_libs):
+    """B=5 lanes at 2 and 4 lanes a block (the last block ragged), H=40:
+    41 stages over the warp's 32 threads, so threads 0..8 own two stages
+    each (the strided path of the kernel), with moving obstacles and the
+    ladder on."""
+    cfg, ocp = bench_ocp(horizon=40, moving=True, method="ip",
+                         ip_sqp_iters=2, ip_iters=3, ip_warm_duals=True)
+    st = TS.init_state(cfg, batch=B)
+    for lanes_per_block in (2, 4):
+        bufs, ker = host_ip(host_libs, cfg, ocp, st, lanes_per_block)
+        pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
+            cfg, ocp, st, follow=bufs.get("rung")), st.mu)
+        assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
+        torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
+                                   rtol=0.0, atol=1e-3)
+
+
+@pytest.mark.parametrize("horizon", [1, 8, 30, 31, 63])
+def test_fused_ip_shared_memory_footprint_matches_the_source(host_libs,
+                                                            horizon):
+    """``lane_smem_bytes``, which the eligibility reads, is the source's
+    own ``Layout`` of one lane's shared memory."""
+    fn = host_libs["fused_ip"].fused_ip_lane_floats
+    fn.restype = ctypes.c_int
+    assert 4 * fn(horizon) == TFI.lane_smem_bytes(horizon)
 
 
 def host_riccati(libs, quad, QH, qH, dyn, reg):
