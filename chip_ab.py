@@ -1,8 +1,9 @@
 """Time one bench loop of two checkouts of this repository in turns on one
 GPU: this checkout (``change``) and another one (``parent``), in the order
 parent, change, change, parent, each run in a process of its own through
-that checkout's ``chip_smoke.phase_loop`` (kernels built, 104 launches
-counted, solves/s with CUDA events, best of 3).
+that checkout's ``chip_smoke.phase_loop`` (104 launches counted, solves/s
+with CUDA events, best of 3).  Each checkout's kernels are built first, in
+a process of its own, so that no timed process compiles.
 
     python3 chip_ab.py PARENT_CHECKOUT [--row soft|hard]
 
@@ -26,6 +27,8 @@ import chip_smoke as cs
 dev = torch.device("cuda", 0)
 card = cs.phase_device()
 cs.phase_build()
+if {build_only!r}:
+    sys.exit(0)
 if len(inspect.signature(cs.phase_loop).parameters) == 2:
     cs.phase_loop(dev, card)
 elif {row!r} == "soft":
@@ -35,6 +38,20 @@ else:
 """
 
 
+def _run(name, root, row, build_only):
+    """One process in checkout ``root``; its standard output, or None (and
+    the error's tail printed) when it fails."""
+    out = subprocess.run(
+        [sys.executable, "-c", RUN.format(root=str(root), row=row,
+                                           build_only=build_only)],
+        cwd=root, capture_output=True, text=True, timeout=900)
+    if out.returncode != 0:
+        print(f"chip_ab: the {name} run failed:\n{out.stderr[-3000:]}",
+              file=sys.stderr)
+        return None
+    return out.stdout
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", type=Path)
@@ -42,16 +59,14 @@ def main() -> int:
     args = ap.parse_args()
     trees = {"parent": args.parent.resolve(),
              "change": Path(__file__).resolve().parent}
-    for name in ("parent", "change", "change", "parent"):
-        root = str(trees[name])
-        out = subprocess.run(
-            [sys.executable, "-c", RUN.format(root=root, row=args.row)],
-            cwd=root, capture_output=True, text=True, timeout=900)
-        if out.returncode != 0:
-            print(f"chip_ab: the {name} run failed:\n{out.stderr[-3000:]}",
-                  file=sys.stderr)
+    for name, root in trees.items():
+        if _run(name, root, args.row, build_only=True) is None:
             return 1
-        for line in out.stdout.splitlines():
+    for name in ("parent", "change", "change", "parent"):
+        stdout = _run(name, trees[name], args.row, build_only=False)
+        if stdout is None:
+            return 1
+        for line in stdout.splitlines():
             if '"phase": "loop"' in line:
                 d = json.loads(line)
                 print(json.dumps({

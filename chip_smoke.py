@@ -10,8 +10,9 @@ Phases, each printing one JSON line (``"phase": ...``):
 2. build    ``nvcc`` builds every kernel from ``mpc_tpu_torch/ops/csrc``
             (one process per source, all at once) into the git-ignored
             ``build/kernels``; registers, spills and static shared memory
-            from ``-Xptxas -v``, and fused_ip's dynamic shared memory and
-            lanes a block at the bench shape;
+            from ``-Xptxas -v`` per entry function, and the fused kernels'
+            dynamic shared memory and launch geometry (fused_gn: threads a
+            lane; fused_ip: lanes a block) at the bench shape;
 3. check    each kernel against its plain version on the card at the bench
             shape (KS, RK4, forcespro, H=30, B=2048 lanes of
             ``make_bench_loop``), then one small case each for
@@ -48,9 +49,10 @@ Phases, each printing one JSON line (``"phase": ...``):
             0..1;
 5. timing   each kernel per launch at the main path's shape (B=16384,
             H=30; AL warm 1x1 and cold 3x4, IP warm 1x4 and cold 5x10, the
-            sweep on the bench point's step-0 quadratics; fused_gn and the
-            sweep at 32/64/128 threads a block, fused_ip at 1, 2, 4, 8 and
-            the most lanes a block and at its own choice), the plain
+            sweep on the bench point's step-0 quadratics; fused_gn at 2, 4
+            and 8 threads a lane and at its own choice, the sweep at
+            32/64/128 threads a block, fused_ip at 1, 2, 4, 8 and the most
+            lanes a block and at its own choice), the plain
             version's time, and the bound: the larger of
             the bytes the call must move over 3.35 TB/s and its fp32
             operations (counted on the plain version) over 67 TFLOP/s; the
@@ -188,34 +190,42 @@ def ptxas_entries(text):
     return out
 
 
-def main_entry(entries):
-    """The entry function the main path launches: the only one, or for
-    fused_ip the instance for one stage a thread (H + 1 <= 32)."""
+def main_entry(entries, instance=1):
+    """The entry function the main path launches: the only one, or the
+    template instance ``instance`` (fused_ip: one stage a thread, H + 1 <=
+    32; fused_gn: the threads a lane it takes at the bench shape)."""
     if len(entries) == 1:
         return next(iter(entries.values()))
-    return next(v for k, v in entries.items() if "ILi1E" in k)
+    return next(v for k, v in entries.items() if f"ILi{instance}E" in k)
 
 
 def phase_build():
     """Build every kernel; per kernel the registers, spills and shared
-    memory a block of its main-path entry (static from ``-Xptxas -v``;
-    fused_ip's dynamic shared memory at the bench geometry), and every
-    entry function's figures."""
+    memory a block of its main-path entry (static from ``-Xptxas -v``; the
+    fused kernels' dynamic shared memory and geometry at the bench shape),
+    and every entry function's figures."""
     from mpc_tpu_torch.ops import _build
+    from mpc_tpu_torch.ops import fused_gn as F
     from mpc_tpu_torch.ops import fused_ip as FI
     t0 = time.perf_counter()
     logs = _build.build_all()
     seconds = time.perf_counter() - t0
+    lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **WARM)
+    geos = {"fused_gn": F.geometry(lcfg.solver, B_BENCH)}
+    lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **IP_WARM)
+    geos["fused_ip"] = FI.geometry(lcfg.solver, B_BENCH)
     info = {}
     for name, text in logs.items():
         _build.load(name)
         entries = ptxas_entries(text)
-        info[name] = dict(main_entry(entries), entries=entries)
-        info[name]["smem_bytes_per_block"] = info[name]["static_smem_bytes"]
-    lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **IP_WARM)
-    geo = FI.geometry(lcfg.solver, B_BENCH)
-    info["fused_ip"].update(smem_bytes_per_block=geo["smem_bytes_per_block"],
-                            geometry=geo)
+        geo = geos.get(name)
+        instance = geo["threads_per_lane"] if name == "fused_gn" else 1
+        info[name] = dict(main_entry(entries, instance), entries=entries)
+        info[name]["smem_bytes_per_block"] = (
+            geo["smem_bytes_per_block"] if geo
+            else info[name]["static_smem_bytes"])
+        if geo:
+            info[name]["geometry"] = geo
     emit({"phase": "build", "seconds": seconds, "kernels": info})
     return info
 
@@ -283,7 +293,7 @@ class Engine(NamedTuple):
     bands: dict                # Solution fields: (rtol, atol), every lane
     state_bands: dict          # state fields: (rtol, atol, lanes needed)
     kernel_io: tuple           # (inputs, in-place state, outputs) names
-    geometry: str              # the launch knob: "threads" (a block) or
+    geometry: str              # the launch knob: "threads_per_lane" or
                                # "lanes_per_block"
     sweep: Callable            # cfg -> the values of the knob to time
     default: int               # the knob's default (0: the kernel picks)
@@ -314,7 +324,7 @@ def engine(cfg) -> Engine:
         lambda c: f"{c.al_iters}x{c.sqp_iters}", BANDS,
         {f: (*b, MIN_LANE_AGREEMENT) for f, b in STATE_BANDS.items()},
         (F.KERNEL_INPUTS, F.KERNEL_STATE, F.KERNEL_OUTPUTS),
-        "threads", lambda c: (32, 64, 128), F.THREADS)
+        "threads_per_lane", lambda c: (0,) + F.THREADS_PER_LANE, 0)
 
 
 def ip_lane_sweep(most):
@@ -339,6 +349,10 @@ def compare(name, cfg, ocp, state, bufs=None, plain=None):
         bufs = eng.pack(cfg, ocp, state, trace_rungs=ladder)
         eng.launch(cfg, bufs)
     ker = eng.solution(cfg, eng.unpack(bufs), state)
+    if "status" in bufs:   # fused_gn writes the status itself
+        require(torch.equal(bufs["status"], ker.status),
+                f"{name}: the kernel's status is not the mapping of its "
+                "diagnostics")
     extra = {}
     if ladder:
         chosen, trace, own = bufs["rung"], [], []

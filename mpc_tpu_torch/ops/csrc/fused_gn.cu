@@ -1,56 +1,172 @@
 // fused_gn.cu — the whole batched AL-SQP solve in one launch, for Hopper.
 //
 // Replaces mpc_tpu/ops/fused_gn.py::_make_kernel (the Pallas TPU kernel,
-// launched by _solve_packed).  Computes, per lane: an initial rollout that
-// caches the constraint rows; al_iters x sqp_iters Gauss-Newton steps, each
-// with analytic stage quadratics, the RK4/Euler chain-rule Jacobian, a
-// Riccati sweep with a closed-form 2x2 Quu inverse, then either the
-// unguarded full step with NaN/inf-scrubbed gains or the merit ladder; the
-// multiplier and penalty update; and the diagnostics (adjoint stationarity,
-// scaled violation, cost, merit).  The plain PyTorch version of the same
-// function is fused_gn.py::solve_batch_fused_plain.
+// launched by _solve_packed).  Computes, per lane: an initial rollout;
+// al_iters x sqp_iters Gauss-Newton steps, each with analytic stage
+// quadratics, the RK4/Euler chain-rule Jacobian, a Riccati sweep with a
+// closed-form 2x2 Quu inverse, then either the unguarded full step with
+// NaN/inf-scrubbed gains or the merit ladder; the multiplier and penalty
+// update; and the diagnostics (adjoint stationarity, scaled violation,
+// cost, merit).  The plain PyTorch version of the same function is
+// fused_gn.py::solve_batch_fused_plain.
 //
-// What bounds it on an H100.  Each lane is a long sequential program: ~10^5
-// fp32 operations per GN iteration at H=30 (the 5x5 Riccati products
-// dominate) against ~16 KB of inputs and outputs per lane.  By the roofline
-// the warm 1x1 budget is bound by those bytes and the cold 3x4 budget by
-// its operations; in practice both are bound by latency: one lane cannot be
-// split across threads without synchronising at every stage, and at the
-// bench batch (16384 lanes) there are only 512 warps for 132 SMs, about
-// one per scheduler, so neither arithmetic nor load latency is hidden.
-// The per-stage working set (P, A, B, Q, K, ...) is ~150 floats, so the
-// compiler keeps the sweep near the 255-register cap and may spill.
-// PERF.md has the measured times beside the bound.
+// What bounds it on an H100.  By the roofline the warm 1x1 budget is bound
+// by its bytes (~16 KB a lane of inputs and outputs) and the cold 3x4
+// budget by its fp32 operations (~10^6 a lane at H=30); in practice both
+// are bound by latency.  About 70% of a solve's operations are separable
+// by stage (rows, AL terms, stage quadratics, the RK4 (A, B), the
+// multiplier update, the diagnostics' per-stage terms); the rest are
+// chains from stage to stage (the Riccati sweep, the closed-loop feedback
+// rollout u_k = clip(ub_k + d_k + K_k (x_k - xb_k)), which cannot be split
+// into per-stage increments, the open-loop initial rollout, the
+// diagnostics' adjoint), which one thread a lane runs in order.  One thread
+// a lane for everything (this kernel's first design) left one warp on each
+// scheduler at the bench batch, with nothing to hide its latency.
 //
-// What the design does about it.  One thread per lane: no cross-thread
-// synchronisation at all, every per-stage quantity lives in registers, and
-// the only memory traffic is the per-stage state, stored with the lane index
-// fastest ((stage, field, lane)) so the 32 threads of a warp load
-// neighbouring addresses.  Small blocks (64 threads by default) spread the
-// few warps over all SMs.  The line-search keeps two trial chains per lane
-// and swaps which one is "best" instead of copying the winner.  When the
-// caller passes a rung buffer, each ladder iteration writes the rung it
-// committed (0 for alpha = 0, r + 1 for alphas[r]), so a check can tell a
-// near-tie of merits from a wrong choice.
+// What the design does about it.
+// - A block holds 32 lanes and T warps (T threads a lane, a template
+//   parameter: 2, 4 or 8).  Thread (w, l) = (threadIdx.x / 32,
+//   threadIdx.x % 32) serves lane blockIdx.x * 32 + l.  Every per-stage
+//   load and store is (stage, field, lane) with the lane fastest, so a
+//   warp's accesses coalesce with no transpose.
+// - The chains run for lane l on thread l of warp 0: a whole warp busy, 32
+//   lanes at once.  __launch_bounds__ caps the registers at 128, so that
+//   16 warps fit an SM (at T = 4 the 512 blocks of the bench batch are all
+//   resident at once).
+// - A Gauss-Newton step is a ring: warps 1..T-1 produce the operands of
+//   stages H, H-1, ..., 0 (rows, AL terms, the stage quadratic and (A, B);
+//   43 floats, the structural zeros and identity rows of Q, R, M, A and B
+//   left out) into a ring of 6-7 stages in shared memory, and warp 0 runs
+//   the Riccati step on each as it arrives, so that the sweep overlaps the
+//   production.  Each slot has a full and an empty named barrier
+//   between its one producer warp and warp 0.  The sweep keeps P and p in
+//   shared memory at an odd stride: in registers, beside the step's
+//   operands and products, they spilled ~600 B at the 128 cap.  The
+//   diagnostics' adjoint is fed by the same ring.
+// - The multiplier update that closes an AL iteration runs in the
+//   producers of the next ring (the next AL iteration's first sweep, or the
+//   diagnostics): a stage's rows are computed once and its multipliers read
+//   once for both.
+// - The rollouts fetch the next stage's X, U, K and d into a staging ring
+//   in shared memory with cp.async while they compute this one; loaded
+//   into registers instead, the copies spilled.
+// - The rows are recomputed where the first design read a rows cache: a
+//   stage's rows are a pure function of (X_k, U_k) and the obstacles, and
+//   neither changed between the step that cached them and the step that
+//   read them, so the values are the same bits.  (Stage H, cached by the
+//   multiplier update with is_term = false and u = 0 and read with is_term
+//   = true, differs only in the friction row's d/da, which is 2 * 0 = +0
+//   either way and unread at stage H.)
+// - Sums keep their order: each stage's merit, cost and AL term go to
+//   shared memory, and thread l of warp 0 sums them for lane l in the first
+//   design's order (ladder merits over k = 0..H; the diagnostics' cost and
+//   merit from stage H down, with the adjoint).  The violation maximum
+//   (NaN-propagating nmax, exact in any order) comes from the producers'
+//   partials.  So no sum changed order against the one-thread design.
+// - Device-memory scratch: K and d (the sweep's, read by the rollout on
+//   the same thread) and the ladder's two trial chains Xc, Uc.  The kernel
+//   also writes the status (to_solution's mapping), so that a solve needs
+//   no launch after it.
+// - A thread past the last lane (the ragged last block) does no work and
+//   stores nothing but meets every barrier, named ones included.
+// - Threads a lane: given, or chosen with the occupancy API
+//   (fused_gn_geometry): the most whose blocks are all resident at once.
+// - No tensor cores: the products are 5x5 in float32, and TF32 would break
+//   the float32 bands.
 //
 // Semantics kept from the TPU kernel on purpose: clips, maxima and signs
-// propagate NaN (compares, not fminf/fmaxf), the unguarded step commits a
-// non-finite rollout into the warm start, rows cached by the initial rollout
-// and by the multiplier update are read back by the next sweep and by the
-// diagnostics.  Build without --use_fast_math: the parity bands assume IEEE
-// tanf, sqrtf, sinf, cosf and division.  The helpers it shares with
-// fused_ip.cu are in ks_rows.cuh.
+// propagate NaN (compares, not fminf/fmaxf), the unguarded step scrubs K
+// and d of NaN/inf but commits a non-finite rollout into the warm start, a
+// rung is taken on a strict "<" and recorded (0 for alpha = 0, r + 1 for
+// alphas[r]) when the caller passes a rung buffer.  Build without
+// --use_fast_math: the parity bands assume IEEE tanf, sqrtf, sinf, cosf and
+// division.  The helpers it shares with fused_ip.cu are in ks_rows.cuh.
 
 #include "ks_rows.cuh"
 
+#define LPB 32  // lanes a block: a warp's width
+// one stage's operands in a ring slot (field, lane)
+#define OP_Q 0    // Q00 Q01 Q11 Q04 Q14 Q44 Q22 Q23 Q33
+#define OP_R 9    // R00 R11
+#define OP_M 11   // M21 M31
+#define OP_QX 13  // qx (5)
+#define OP_QU 18  // qu (2)
+#define OP_A 20   // rows 0, 1, 4 of A (15)
+#define OP_B 35   // rows 0, 1, 4 of B (6)
+#define OP_BD 41  // B20, B31
+#define NOP 43
+
 struct FgnArgs {
   int32_t B, H, al_iters, sqp_iters, n_alphas;
-  int32_t forcespro, rk4, moving, use_term, threads;
+  int32_t forcespro, rk4, moving, use_term, threads_per_lane;
   float dt, half_dt, dt6, inv_l, reg, d_ego, a_cap, inv_fr_scale;
   float u_lo0, u_hi0, u_lo1, u_hi1, d_lo, d_hi, v_lo, v_hi;
-  float mu0, mu_factor, mu_max, viol_improve, lam_max, tol_feas;
+  float mu0, mu_factor, mu_max, viol_improve, lam_max, tol_feas, tol_stat;
+  float tol_infeas;
   float alphas[MAX_ALPHAS];
 };
+
+#define NSTG 3    // stages in flight in a rollout's staging ring
+#define NROLL 19  // floats a stage of it: X, U, K, d
+#define PSTR 31   // floats of the sweep's P and p a lane (30, padded odd)
+
+// Stages of the ring from the producers to the sweep: a multiple of the
+// T - 1 producer warps, so that a slot always has the same producer (6, 6
+// and 7 at T = 2, 4, 8).
+__host__ __device__ constexpr int ring_slots(int T) {
+  return (T - 1) * ((6 + T - 2) / (T - 1));
+}
+
+// Floats of one lane's shared memory: the producers' partials (T), the
+// ladder's slot, a merit (or cost) and an AL term a stage, a rollout's
+// staging ring, the ring of stage operands, and the sweep's P and p.
+__host__ __device__ __forceinline__ int lane_floats(int H, int T) {
+  return T + 1 + 2 * (H + 1) + NSTG * NROLL + ring_slots(T) * NOP + PSTR;
+}
+
+// Named barriers (bar.arrive / bar.sync with an id and a thread count):
+// a producer warp arrives, the consuming warp waits, and back.  The host
+// emulation of the kernels' tests stands in for them (HOST_KERNEL_SHIM).
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+#elif defined(HOST_KERNEL_SHIM)
+  host_named_barrier(id, n, false);
+#endif
+}
+__device__ __forceinline__ void bar_wait(int id, int n) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+#elif defined(HOST_KERNEL_SHIM)
+  host_named_barrier(id, n, true);
+#endif
+}
+
+// Asynchronous 4-byte copies from device into shared memory (cp.async),
+// by which a chain's thread fetches the next stage while it computes this
+// one; a plain copy in the host emulation.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void copy_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
 
 // --------------------------------------------------------------------------
 // augmented-Lagrangian row terms
@@ -69,41 +185,31 @@ __device__ __forceinline__ void al_one_sided(float h, float bound, float lam,
   gn = act ? mu : 0.f;
 }
 
-// Per row: psi, d psi / d h and the GN diagonal, summed over its sides.
-__device__ void row_terms(const FgnArgs& a, const Rows& r, bool is_term,
-                          float mind, const float lam_lo[NR],
-                          const float lam_hi[NR], const float mu[NR],
-                          float psi[NR], float gh[NR], float gn[NR]) {
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    bool has_lo, has_hi;
-    float lo, hi;
-    row_bounds(a, i, is_term, mind, has_lo, lo, has_hi, hi);
-    const float h = row_value(r, i);
-    float ps = 0.f, g = 0.f, n = 0.f, p1, g1, n1;
-    if (has_hi) {
-      al_one_sided(h, hi, lam_hi[i], mu[i], true, p1, g1, n1);
-      ps = ps + p1;
-      g = g + g1;
-      n = n + n1;
-    }
-    if (has_lo) {
-      al_one_sided(h, lo, lam_lo[i], mu[i], false, p1, g1, n1);
-      ps = ps + p1;
-      g = g + g1;
-      n = n + n1;
-    }
-    psi[i] = ps;
-    gh[i] = g;
-    gn[i] = n;
+// AL terms of row i at value h: psi, d psi / d h and the GN diagonal,
+// summed over its sides, with the row's multipliers (ll, lh, mu).
+__device__ __forceinline__ void row_term(const FgnArgs& a, int i, float h,
+                                         bool is_term, float mind, float ll,
+                                         float lh, float mu, float& psi,
+                                         float& gh, float& gn) {
+  bool has_lo, has_hi;
+  float lo, hi;
+  row_bounds(a, i, is_term, mind, has_lo, lo, has_hi, hi);
+  float ps = 0.f, g = 0.f, n = 0.f, p1, g1, n1;
+  if (has_hi) {
+    al_one_sided(h, hi, lh, mu, true, p1, g1, n1);
+    ps = ps + p1;
+    g = g + g1;
+    n = n + n1;
   }
-}
-
-__device__ __forceinline__ float sum_psi(const float psi[NR]) {
-  float s = psi[0];
-#pragma unroll
-  for (int i = 1; i < NR; ++i) s = s + psi[i];
-  return s;
+  if (has_lo) {
+    al_one_sided(h, lo, ll, mu, false, p1, g1, n1);
+    ps = ps + p1;
+    g = g + g1;
+    n = n + n1;
+  }
+  psi = ps;
+  gh = g;
+  gn = n;
 }
 
 // --------------------------------------------------------------------------
@@ -112,33 +218,55 @@ __device__ __forceinline__ float sum_psi(const float psi[NR]) {
 
 struct Bufs {
   const float *x0, *xref, *obs, *mind, *w;
-  float *U, *lam_lo, *lam_hi, *mu, *pviol, *X, *diag, *K, *d, *rows, *Xc,
-      *Uc;
+  float *U, *lam_lo, *lam_hi, *mu, *pviol, *X, *diag;
+  int32_t* status;  // (B): 1 converged, 0 feasible, -7 infeasible
+  float *K, *d, *Xc, *Uc;
   int32_t* rung;  // (al_iters * sqp_iters, B) or null
 };
 
-// Per-lane solve state and accessors.
+// One thread's share of a lane's solve: the stages it owns, and for warp 0
+// the lane's chains.
+template <int T>
 struct Solve {
   const FgnArgs& a;
   const Bufs& b;
   Lane L;
-  float wq[NX], wr[NU], wqN[NX], x0[NX], mind;
+  const int w, l;
+  const bool live;  // false: past the last lane; meets the barriers only
+  float* const part;   // (T, LPB) the producers' violation partials
+  int* const slot;     // (LPB) the ladder's trial / best slot
+  float* const sm_m;   // (H + 1, LPB) stage merits, or the stage costs
+  float* const sm_p;   // (H + 1, LPB) the stages' AL terms
+  float* const stg;    // (NSTG, NROLL, LPB) warp 0's staging ring
+  float* const ring;   // (R, NOP, LPB) the ring of stage operands
+  float* const pm;     // (LPB, PSTR) the sweep's P and p, lane by lane
+  static constexpr int R = ring_slots(T);
+  float mind;
 
-  __device__ Solve(const FgnArgs& a_, const Bufs& b_, int lane)
-      : a(a_), b(b_) {
+  __device__ Solve(const FgnArgs& a_, const Bufs& b_, int lane, bool live_,
+                   int w_, int l_, float* smem)
+      : a(a_), b(b_), w(w_), l(l_), live(live_), part(smem),
+        slot(reinterpret_cast<int*>(smem + T * LPB)),
+        sm_m(smem + (T + 1) * LPB),
+        sm_p(smem + (T + 1 + a_.H + 1) * LPB),
+        stg(smem + (T + 1 + 2 * (a_.H + 1)) * LPB),
+        ring(smem + (T + 1 + 2 * (a_.H + 1) + NSTG * NROLL) * LPB),
+        pm(smem + (T + 1 + 2 * (a_.H + 1) + NSTG * NROLL + R * NOP) * LPB +
+           l_ * PSTR) {
     L.B = a.B;
     L.lane = lane;
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      wq[i] = b.w[L.at(0, i, 1)];
-      wqN[i] = b.w[L.at(0, NX + NU + i, 1)];
-      x0[i] = b.x0[L.at(0, i, 1)];
-    }
-#pragma unroll
-    for (int i = 0; i < NU; ++i) wr[i] = b.w[L.at(0, NX + i, 1)];
     mind = b.mind[L.at(0, 0, 1)];
   }
 
+  // per-lane weights, read where used (they stay in L1, not registers)
+  __device__ __forceinline__ void weights(bool is_term, float wx[NX],
+                                          float wr[NU]) const {
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+      wx[i] = b.w[L.at(0, (is_term ? NX + NU : 0) + i, 1)];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) wr[i] = b.w[L.at(0, NX + i, 1)];
+  }
   __device__ void obs_at(int k, float o[6]) const {
 #pragma unroll
     for (int i = 0; i < 6; ++i)
@@ -154,230 +282,280 @@ struct Solve {
 #pragma unroll
     for (int i = 0; i < n; ++i) p[L.at(k, i, n)] = v[i];
   }
-  __device__ void refs(int k, float xref[NX], float ll[NR], float lh[NR],
-                       float mu[NR]) const {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) xref[i] = b.xref[L.at(k, i, NX)];
+  // Multiplier / penalty update of row i of stage k at value h (stage H:
+  // u-box rows 10 and 11 left unchanged): stores lam_lo, lam_hi, mu and
+  // the row's violation, and returns the new multipliers in (ll, lh, mu).
+  __device__ __forceinline__ void update_row(int k, int i, float h,
+                                             float& ll, float& lh,
+                                             float& mu) const {
+    const bool is_last = k == a.H;
+    bool has_lo, has_hi;
+    float lo, hi;
+    row_bounds(a, i, false, mind, has_lo, lo, has_hi, hi);
+    const size_t at = L.at(k, i, NR);
+    float nh = lh, nl = ll, v_hi = 0.f, v_lo = 0.f;
+    if (has_hi) {
+      nh = clipf(relu(lh + mu * (h - hi)), 0.f, a.lam_max);
+      v_hi = nmax(h - hi, 0.f);
+    }
+    if (has_lo) {
+      nl = clipf(relu(ll + mu * (lo - h)), 0.f, a.lam_max);
+      v_lo = nmax(lo - h, 0.f);
+    }
+    float viol = nmax(v_hi, v_lo);
+    if ((i == 10 || i == 11) && is_last) {
+      nh = lh;
+      nl = ll;
+      viol = 0.f;
+    }
+    const bool stalled = viol > a.viol_improve * b.pviol[at];
+    const bool active = viol > a.tol_feas;
+    const float m_new =
+        clipf(stalled && active ? mu * a.mu_factor : mu, a.mu0, a.mu_max);
+    b.lam_lo[at] = nl;
+    b.lam_hi[at] = nh;
+    b.mu[at] = m_new;
+    b.pviol[at] = viol;
+    ll = nl;
+    lh = nh;
+    mu = m_new;
+  }
+
+  // AL terms of every row of stage k at rows r, the multipliers read row
+  // by row (so that no array of them stays live), after their update when
+  // UPDATE; psi summed over the rows in order into ``psum``.
+  template <bool UPDATE>
+  __device__ void terms(const Rows& r, int k, bool is_term, float& psum,
+                        float gh[NR], float gn[NR]) const {
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
-      ll[i] = b.lam_lo[L.at(k, i, NR)];
-      lh[i] = b.lam_hi[L.at(k, i, NR)];
-      mu[i] = b.mu[L.at(k, i, NR)];
+      const float h = row_value(r, i);
+      const size_t at = L.at(k, i, NR);
+      float ll = b.lam_lo[at], lh = b.lam_hi[at], mu = b.mu[at], psi;
+      if (UPDATE) update_row(k, i, h, ll, lh, mu);
+      row_term(a, i, h, is_term, mind, ll, lh, mu, psi, gh[i], gn[i]);
+      psum = i == 0 ? psi : psum + psi;
     }
   }
-
-  // Rows of stage k at (x, u), fresh or from the cache.
-  __device__ void rows_at(int k, const float x[NX], const float u[NU],
-                          bool cached, bool is_term, Rows& r) const {
-    if (cached) {
-      load_rows(L, b.rows, k, r);
+  // (x, u) of stage k of a chain; u = 0 at the terminal stage
+  __device__ __forceinline__ void xu(const float* Xs, const float* Us, int k,
+                                     float x[NX], float u[NU]) const {
+    load(Xs, k, NX, x);
+    if (k < a.H) {
+      load(Us, k, NU, u);
     } else {
-      float o[6];
-      obs_at(k, o);
-      compute_rows(a, x, u, o, is_term, k == 0, r);
+      u[0] = u[1] = 0.f;
     }
   }
-
-  // cost + AL psi of one stage of a trial chain
-  __device__ float stage_merit(int k, const float x[NX], const float u[NU],
-                               bool is_term) const {
-    float xref[NX], ll[NR], lh[NR], mu[NR], psi[NR], gh[NR], gn[NR];
-    refs(k, xref, ll, lh, mu);
-    Rows r;
-    rows_at(k, x, u, false, is_term, r);
-    row_terms(a, r, is_term, mind, ll, lh, mu, psi, gh, gn);
-    const float p = sum_psi(psi);
-    float c;
-    if (is_term)
-      c = a.use_term ? term_cost(x, xref, wqN) : 0.f;
-    else
-      c = stage_cost(x, u, xref, wq, wr);
-    return c + p;
+  __device__ void fresh_rows(int k, const float x[NX], const float u[NU],
+                             bool is_term, Rows& r) const {
+    float o[6];
+    obs_at(k, o);
+    compute_rows(a, x, u, o, is_term, k == 0, r);
   }
 
-  __device__ void initial_rollout() const {
-    float x[NX], u[NU], xn[NX];
+  // ---- a stage's operands (field f of slot s of the ring)
+  __device__ __forceinline__ float& rg(int s, int f) const {
+    return ring[(s * NOP + f) * LPB + l];
+  }
+  __device__ void put_quad(int s, const float Q[NX][NX],
+                           const float R[NU][NU], const float M[NX][NU],
+                           const float qx[NX], const float qu[NU]) const {
+    const float qv[9] = {Q[0][0], Q[0][1], Q[1][1], Q[0][4], Q[1][4],
+                         Q[4][4], Q[2][2], Q[2][3], Q[3][3]};
 #pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = x0[i];
-    Rows r;
-    for (int k = 0; k < a.H; ++k) {
-      store(b.X, k, NX, x);
-      load(b.U, k, NU, u);
-      rows_at(k, x, u, false, false, r);
-      store_rows(L, b.rows, k, r);
-      step_fn(a, x, u, xn);
+    for (int i = 0; i < 9; ++i) rg(s, OP_Q + i) = qv[i];
+    rg(s, OP_R) = R[0][0];
+    rg(s, OP_R + 1) = R[1][1];
+    rg(s, OP_M) = M[2][1];
+    rg(s, OP_M + 1) = M[3][1];
 #pragma unroll
-      for (int i = 0; i < NX; ++i) x[i] = xn[i];
+    for (int i = 0; i < NX; ++i) rg(s, OP_QX + i) = qx[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) rg(s, OP_QU + i) = qu[i];
+  }
+  __device__ void put_ab(int s, const float A[NX][NX],
+                         const float Bm[NX][NU]) const {
+    const int rows[3] = {0, 1, 4};
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+      for (int j = 0; j < NX; ++j) rg(s, OP_A + r * NX + j) = A[rows[r]][j];
+#pragma unroll
+      for (int j = 0; j < NU; ++j) rg(s, OP_B + r * NU + j) = Bm[rows[r]][j];
     }
-    store(b.X, a.H, NX, x);
-    const float zu[NU] = {0.f, 0.f};
-    rows_at(a.H, x, zu, false, true, r);
-    store_rows(L, b.rows, a.H, r);
+    rg(s, OP_BD) = Bm[2][0];
+    rg(s, OP_BD + 1) = Bm[3][1];
+  }
+  // field f of stage k in the staging ring, and a stage's fetch into it
+  __device__ __forceinline__ float& st(int k, int f) const {
+    return stg[((k % NSTG) * NROLL + f) * LPB + l];
+  }
+  __device__ __forceinline__ void fetch(int k, int f, const float* src,
+                                        int i, int n) const {
+    copy_async(&st(k, f), src + L.at(k, i, n));
+  }
+  // X, U, K and d of stage k < H (the feedback rollout's)
+  __device__ void fetch_roll(int k) const {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) fetch(k, i, b.X, i, NX);
+#pragma unroll
+    for (int i = 0; i < NU; ++i) fetch(k, NX + i, b.U, i, NU);
+#pragma unroll
+    for (int i = 0; i < NU * NX; ++i) fetch(k, NX + NU + i, b.K, i, NU * NX);
+#pragma unroll
+    for (int i = 0; i < NU; ++i)
+      fetch(k, NX + NU + NU * NX + i, b.d, i, NU);
+    copy_commit();
   }
 
-  // Riccati backward sweep at the current iterate -> K, d (scrubbed of
-  // NaN/inf when ``scrub``: the recursion itself uses the raw gains).
-  __device__ void backward_sweep(bool cached, bool scrub) const {
-    const int H = a.H;
-    float P[NX][NX], p[NX];
-    {
-      float xT[NX], xref[NX], ll[NR], lh[NR], mu[NR], psi[NR], gh[NR],
-          gn[NR], R[NU][NU], M[NX][NU], qu[NU];
-      const float zu[NU] = {0.f, 0.f};
-      load(b.X, H, NX, xT);
-      refs(H, xref, ll, lh, mu);
-      Rows r;
-      rows_at(H, xT, zu, cached, true, r);
-      row_terms(a, r, true, mind, ll, lh, mu, psi, gh, gn);
-      assemble_quad(r, gh, gn, xT, zu, xref, wqN, wr, true, a.use_term != 0,
-                    P, R, M, p, qu);
+  // Q and qx of a stage, field i read by g(i) (the full symmetric Q, zeros
+  // where assemble_quad leaves them)
+  template <class G>
+  __device__ void get_qx(G g, float Q[NX][NX], float qx[NX]) const {
+    float qv[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) qv[i] = g(OP_Q + i);
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+#pragma unroll
+      for (int j = 0; j < NX; ++j) Q[i][j] = 0.f;
+    Q[0][0] = qv[0];
+    Q[0][1] = Q[1][0] = qv[1];
+    Q[1][1] = qv[2];
+    Q[0][4] = Q[4][0] = qv[3];
+    Q[1][4] = Q[4][1] = qv[4];
+    Q[4][4] = qv[5];
+    Q[2][2] = qv[6];
+    Q[2][3] = Q[3][2] = qv[7];
+    Q[3][3] = qv[8];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) qx[i] = g(OP_QX + i);
+  }
+  // qu, A and B of a stage k < H (rows 2 and 3 of A are the identity's and
+  // of B a single constant each, as lin_step leaves them)
+  template <class G>
+  __device__ void get_ab(G g, float qu[NU], float A[NX][NX],
+                         float Bm[NX][NU]) const {
+#pragma unroll
+    for (int i = 0; i < NU; ++i) qu[i] = g(OP_QU + i);
+    const int rows[3] = {0, 1, 4};
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+      for (int j = 0; j < NX; ++j) A[rows[r]][j] = g(OP_A + r * NX + j);
+#pragma unroll
+      for (int j = 0; j < NU; ++j) Bm[rows[r]][j] = g(OP_B + r * NU + j);
     }
-    for (int k = H - 1; k >= 0; --k) {
-      float x[NX], u[NU], xref[NX], ll[NR], lh[NR], mu[NR];
-      load(b.X, k, NX, x);
-      load(b.U, k, NU, u);
-      refs(k, xref, ll, lh, mu);
-      float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU];
-      {
-        float psi[NR], gh[NR], gn[NR];
-        Rows r;
-        rows_at(k, x, u, cached, false, r);
-        row_terms(a, r, false, mind, ll, lh, mu, psi, gh, gn);
-        assemble_quad(r, gh, gn, x, u, xref, wq, wr, false, true, Q, R, M,
-                      qx, qu);
-      }
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      A[2][j] = j == 2 ? 1.f : 0.f;
+      A[3][j] = j == 3 ? 1.f : 0.f;
+    }
+    Bm[2][0] = g(OP_BD);
+    Bm[2][1] = 0.f;
+    Bm[3][0] = 0.f;
+    Bm[3][1] = g(OP_BD + 1);
+  }
+
+  // ---- separable work: stage by stage on the producers or the owners
+
+  // The stage quadratic and (A, B) of stage k of the iterate (X, U) into
+  // ring slot s, after the stage's multiplier update when UPDATE.
+  // With DIAG also the stage's cost and AL term into shared memory,
+  // and its largest scaled violation folded into v.  (The update reads the
+  // rows at stage H as non-terminal ones, which differ from the terminal
+  // ones only in the friction row's d/da, unread at stage H.)
+  template <bool DIAG, bool UPDATE>
+  __device__ void stage_ops(int k, int s, float& v) const {
+    const bool is_term = k == a.H;
+    float x[NX], u[NU], xref[NX], wx[NX], wr[NU];
+    xu(b.X, b.U, k, x, u);
+    load(b.xref, k, NX, xref);
+    weights(is_term, wx, wr);
+    Rows r;
+    fresh_rows(k, x, u, is_term && !UPDATE, r);
+    float psum, gh[NR], gn[NR];
+    terms<UPDATE>(r, k, is_term, psum, gh, gn);
+    float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU];
+    assemble_quad(r, gh, gn, x, u, xref, wx, wr, is_term,
+                  is_term ? a.use_term != 0 : true, Q, R, M, qx, qu);
+    put_quad(s, Q, R, M, qx, qu);
+    if (DIAG) {
+      float c;
+      if (is_term)
+        c = a.use_term ? term_cost(x, xref, wx) : 0.f;
+      else
+        c = stage_cost(x, u, xref, wx, wr);
+      sm_m[k * LPB + l] = c;
+      sm_p[k * LPB + l] = psum;
+      v = scaled_viol(r, is_term, v);
+    }
+    if (!is_term) {
       float A[NX][NX], Bm[NX][NU];
       lin_step(a, x, u, A, Bm);
-
-      float Kk[NU][NX], dk[NU];
-      riccati_step(a.reg, P, p, Q, R, M, qx, qu, A, Bm, Kk, dk);
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          const float kv = Kk[i][j];
-          b.K[L.at(k, i * NX + j, NU * NX)] = (scrub && !finite_f32(kv)) ? 0.f : kv;
-        }
-        b.d[L.at(k, i, NU)] = (scrub && !finite_f32(dk[i])) ? 0.f : dk[i];
-      }
+      put_ab(s, A, Bm);
     }
   }
 
-  // Feedback rollout u = clip(ub + alpha d + K (x - xb)) from x0 against
-  // the current iterate (X, U).  Writes the chain to (Xo, Uo), which may
-  // be X, U themselves (the unguarded step, alpha unused: ub + d + K dx).
-  // Returns the merit when ``merit`` is set.
-  __device__ float feedback_rollout(float alpha, bool unguarded, float* Xo,
-                                    float* Uo, bool merit) const {
-    float x[NX], xn[NX], xb[NX], ub[NU], u[NU], Kk[NU * NX], dk[NU];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = x0[i];
-    float acc = 0.f;
-    for (int k = 0; k < a.H; ++k) {
-      load(b.X, k, NX, xb);
-      load(b.U, k, NU, ub);
-      load(b.K, k, NU * NX, Kk);
-      load(b.d, k, NU, dk);
-      float dx[NX];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) dx[i] = x[i] - xb[i];
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        float fb = 0.f;
-#pragma unroll
-        for (int j = 0; j < NX; ++j) fb += Kk[i * NX + j] * dx[j];
-        u[i] = (unguarded ? ub[i] + dk[i] : ub[i] + alpha * dk[i]) + fb;
+  // The ring: warps 1..T-1 produce the stage operands of k = H, H-1, ...,
+  // 0 (stage H - j by warp 1 + j % (T - 1), into slot j % R), and warp 0
+  // runs ``use(k, g)`` on each as it arrives (g(f): field f).  Slot s has
+  // two named barriers between its producer and warp 0: full (1 + s) and
+  // empty (1 + R + s).  Threads past the last lane meet the barriers only.
+  template <bool DIAG, bool UPDATE, class Use>
+  __device__ void ring_phase(Use use) const {
+    constexpr int P = T - 1, PAIR = 2 * LPB;
+    if (w == 0) {
+      for (int j = 0; j <= a.H; ++j) {
+        const int s = j % R;
+        bar_wait(1 + s, PAIR);
+        if (live) use(a.H - j, [&](int f) { return rg(s, f); });
+        if (j + R <= a.H) bar_arrive(1 + R + s, PAIR);
       }
-      u[0] = clipf(u[0], a.u_lo0, a.u_hi0);
-      u[1] = clipf(u[1], a.u_lo1, a.u_hi1);
-      if (merit) acc = acc + stage_merit(k, x, u, false);
-      step_fn(a, x, u, xn);
-      store(Xo, k, NX, x);
-      store(Uo, k, NU, u);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) x[i] = xn[i];
-    }
-    if (merit) {
-      const float zu[NU] = {0.f, 0.f};
-      acc = acc + stage_merit(a.H, x, zu, true);
-    }
-    store(Xo, a.H, NX, x);
-    return acc;
-  }
-
-  // it: the GN iteration's index over the whole solve
-  __device__ void ladder(int it) const {
-    const size_t xs = (size_t)(a.H + 1) * NX * a.B;
-    const size_t us = (size_t)a.H * NU * a.B;
-    int best = 0, best_rung = 0;
-    float best_m = feedback_rollout(0.f, false, b.Xc, b.Uc, true);
-    for (int r = 0; r < a.n_alphas; ++r) {
-      const int trial = 1 - best;
-      const float m = feedback_rollout(a.alphas[r], false, b.Xc + trial * xs,
-                                       b.Uc + trial * us, true);
-      if (m < best_m) {
-        best_m = m;
-        best = trial;
-        best_rung = r + 1;
+    } else {
+      float v = 0.f;
+      for (int j = w - 1; j <= a.H; j += P) {
+        const int s = j % R;
+        if (j >= R) bar_wait(1 + R + s, PAIR);
+        if (live) stage_ops<DIAG, UPDATE>(a.H - j, s, v);
+        bar_arrive(1 + s, PAIR);
       }
-    }
-    if (b.rung) b.rung[(size_t)it * a.B + L.lane] = best_rung;
-    float v[NX];
-    for (int k = 0; k <= a.H; ++k) {
-      load(b.Xc + best * xs, k, NX, v);
-      store(b.X, k, NX, v);
-    }
-    for (int k = 0; k < a.H; ++k) {
-      load(b.Uc + best * us, k, NU, v);
-      store(b.U, k, NU, v);
+      if (DIAG) part[w * LPB + l] = v;
     }
   }
 
-  // Multiplier / penalty update at all stages; caches the rows (stage H:
-  // inputs masked to 0, u-box rows 10 and 11 left unchanged).
-  __device__ void multiplier_update() const {
-    const int H = a.H;
-    for (int k = 0; k <= H; ++k) {
-      const bool is_last = k == H;
-      float x[NX], u[NU], xref[NX], ll[NR], lh[NR], mu[NR], pv[NR];
-      load(b.X, k, NX, x);
-      load(b.U, k < H ? k : H - 1, NU, u);
-      if (is_last) u[0] = u[1] = 0.f;
-      refs(k, xref, ll, lh, mu);
-      load(b.pviol, k, NR, pv);
+  // cost + AL psi of every stage of the chain (Xs, Us) into shared memory
+  __device__ void stage_merits(const float* Xs, const float* Us) const {
+    if (!live) return;
+    for (int k = w; k <= a.H; k += T) {
+      const bool is_term = k == a.H;
+      float x[NX], u[NU], xref[NX], p, gh[NR], gn[NR], wx[NX], wr[NU];
+      xu(Xs, Us, k, x, u);
+      load(b.xref, k, NX, xref);
+      weights(is_term, wx, wr);
       Rows r;
-      rows_at(k, x, u, false, false, r);
-      store_rows(L, b.rows, k, r);
-#pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        bool has_lo, has_hi;
-        float lo, hi;
-        row_bounds(a, i, false, mind, has_lo, lo, has_hi, hi);
-        const float h = row_value(r, i);
-        float nh = lh[i], nl = ll[i], v_hi = 0.f, v_lo = 0.f;
-        if (has_hi) {
-          nh = clipf(relu(lh[i] + mu[i] * (h - hi)), 0.f, a.lam_max);
-          v_hi = nmax(h - hi, 0.f);
-        }
-        if (has_lo) {
-          nl = clipf(relu(ll[i] + mu[i] * (lo - h)), 0.f, a.lam_max);
-          v_lo = nmax(lo - h, 0.f);
-        }
-        float viol = nmax(v_hi, v_lo);
-        if ((i == 10 || i == 11) && is_last) {
-          nh = lh[i];
-          nl = ll[i];
-          viol = 0.f;
-        }
-        const bool stalled = viol > a.viol_improve * pv[i];
-        const bool active = viol > a.tol_feas;
-        const float m_new =
-            clipf(stalled && active ? mu[i] * a.mu_factor : mu[i], a.mu0,
-                  a.mu_max);
-        b.lam_lo[L.at(k, i, NR)] = nl;
-        b.lam_hi[L.at(k, i, NR)] = nh;
-        b.mu[L.at(k, i, NR)] = m_new;
-        b.pviol[L.at(k, i, NR)] = viol;
+      fresh_rows(k, x, u, is_term, r);
+      terms<false>(r, k, is_term, p, gh, gn);
+      float c;
+      if (is_term)
+        c = a.use_term ? term_cost(x, xref, wx) : 0.f;
+      else
+        c = stage_cost(x, u, xref, wx, wr);
+      sm_m[k * LPB + l] = c + p;
+    }
+  }
+
+  // the ladder: copy the best chain into (X, U) at the owned stages
+  __device__ void commit(const float* Xs, const float* Us) const {
+    if (!live) return;
+    for (int k = w; k <= a.H; k += T) {
+      float v[NX];
+      load(Xs, k, NX, v);
+      store(b.X, k, NX, v);
+      if (k < a.H) {
+        load(Us, k, NU, v);
+        store(b.U, k, NU, v);
       }
     }
   }
@@ -396,40 +574,191 @@ struct Solve {
     return v;
   }
 
-  // stat (adjoint stationarity), viol, cost, merit from the cached rows.
-  __device__ void diagnostics() const {
-    const int H = a.H;
-    float lam[NX], stat = 0.f, viol, cost, merit;
-    {
-      float xT[NX], xref[NX], ll[NR], lh[NR], mu[NR], psi[NR], gh[NR],
-          gn[NR], Q[NX][NX], R[NU][NU], M[NX][NU], qu[NU];
-      const float zu[NU] = {0.f, 0.f};
-      load(b.X, H, NX, xT);
-      refs(H, xref, ll, lh, mu);
-      Rows r;
-      rows_at(H, xT, zu, true, true, r);
-      row_terms(a, r, true, mind, ll, lh, mu, psi, gh, gn);
-      assemble_quad(r, gh, gn, xT, zu, xref, wqN, wr, true, a.use_term != 0,
-                    Q, R, M, lam, qu);
-      const float psi_T = sum_psi(psi);
-      const float cost_T = a.use_term ? term_cost(xT, xref, wqN) : 0.f;
-      viol = nmax(scaled_viol(r, true, 0.f), 0.f);
-      cost = cost_T;
-      merit = cost_T + psi_T;
+  // ---- chains: thread l of warp 0 for lane l
+
+  // Each chain fetches stage k + 1 (or k - 1) into the staging ring while
+  // it computes stage k: wait for all but the newest group of copies.
+  __device__ __forceinline__ void next(bool more) const {
+    if (more)
+      copy_wait<1>();
+    else
+      copy_wait<0>();
+  }
+
+  // open-loop rollout of U from x0 into X
+  __device__ void initial_rollout() const {
+    const auto fetch_u = [&](int k) {
+#pragma unroll
+      for (int i = 0; i < NU; ++i) fetch(k, i, b.U, i, NU);
+      copy_commit();
+    };
+    float x[NX], u[NU], xn[NX];
+    load(b.x0, 0, NX, x);
+    if (a.H > 0) fetch_u(0);
+    for (int k = 0; k < a.H; ++k) {
+      if (k + 1 < a.H) fetch_u(k + 1);
+      next(k + 1 < a.H);
+      store(b.X, k, NX, x);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) u[i] = st(k, i);
+      step_fn(a, x, u, xn);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) x[i] = xn[i];
     }
-    for (int k = H - 1; k >= 0; --k) {
-      float x[NX], u[NU], xref[NX], ll[NR], lh[NR], mu[NR], psi[NR], gh[NR],
-          gn[NR], Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU];
-      load(b.X, k, NX, x);
-      load(b.U, k, NU, u);
-      refs(k, xref, ll, lh, mu);
-      Rows r;
-      rows_at(k, x, u, true, false, r);
-      row_terms(a, r, false, mind, ll, lh, mu, psi, gh, gn);
-      assemble_quad(r, gh, gn, x, u, xref, wq, wr, false, true, Q, R, M, qx,
-                    qu);
-      float A[NX][NX], Bm[NX][NU];
-      lin_step(a, x, u, A, Bm);
+    store(b.X, a.H, NX, x);
+  }
+
+  // The Riccati backward sweep over the ring -> K, d (scrubbed of NaN/inf
+  // when ``scrub``: the recursion itself uses the raw gains).  ``update``:
+  // the producers first apply the multiplier update that closed the last
+  // AL iteration.
+  __device__ void backward_sweep(bool scrub, bool update) const {
+    // P and p in shared memory, not registers: the step's own operands
+    // and products then fit 128 registers
+    float(*P)[NX] = reinterpret_cast<float(*)[NX]>(pm);
+    float* p = pm + NX * NX;
+    const auto use = [&](int k, auto g) {
+      if (k == a.H) {
+        get_qx(g, P, p);
+        return;
+      }
+      float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU], A[NX][NX],
+          Bm[NX][NU];
+      get_qx(g, Q, qx);
+      get_ab(g, qu, A, Bm);
+      R[0][0] = g(OP_R);
+      R[1][1] = g(OP_R + 1);
+      R[0][1] = R[1][0] = 0.f;
+#pragma unroll
+      for (int i = 0; i < NX; ++i) M[i][0] = M[i][1] = 0.f;
+      M[2][1] = g(OP_M);
+      M[3][1] = g(OP_M + 1);
+      float Kk[NU][NX], dk[NU];
+      riccati_step(a.reg, P, p, Q, R, M, qx, qu, A, Bm, Kk, dk);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+#pragma unroll
+        for (int j = 0; j < NX; ++j) {
+          const float kv = Kk[i][j];
+          b.K[L.at(k, i * NX + j, NU * NX)] =
+              (scrub && !finite_f32(kv)) ? 0.f : kv;
+        }
+        b.d[L.at(k, i, NU)] = (scrub && !finite_f32(dk[i])) ? 0.f : dk[i];
+      }
+    };
+    if (update)
+      ring_phase<false, true>(use);
+    else
+      ring_phase<false, false>(use);
+  }
+
+  // Feedback rollout u = clip(ub + alpha d + K (x - xb)) from x0 against
+  // the current iterate (X, U), into (Xo, Uo), which may be X, U
+  // themselves (the unguarded step, alpha unused: ub + d + K dx).
+  __device__ void feedback_rollout(float alpha, bool unguarded, float* Xo,
+                                   float* Uo) const {
+    float x[NX], xn[NX], xb[NX], ub[NU], u[NU], Kk[NU * NX], dk[NU];
+    load(b.x0, 0, NX, x);
+    if (a.H > 0) fetch_roll(0);
+    for (int k = 0; k < a.H; ++k) {
+      if (k + 1 < a.H) fetch_roll(k + 1);
+      next(k + 1 < a.H);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) xb[i] = st(k, i);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) ub[i] = st(k, NX + i);
+#pragma unroll
+      for (int i = 0; i < NU * NX; ++i) Kk[i] = st(k, NX + NU + i);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) dk[i] = st(k, NX + NU + NU * NX + i);
+      float dx[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) dx[i] = x[i] - xb[i];
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        float fb = 0.f;
+#pragma unroll
+        for (int j = 0; j < NX; ++j) fb += Kk[i * NX + j] * dx[j];
+        u[i] = (unguarded ? ub[i] + dk[i] : ub[i] + alpha * dk[i]) + fb;
+      }
+      u[0] = clipf(u[0], a.u_lo0, a.u_hi0);
+      u[1] = clipf(u[1], a.u_lo1, a.u_hi1);
+      step_fn(a, x, u, xn);
+      store(Xo, k, NX, x);
+      store(Uo, k, NU, u);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) x[i] = xn[i];
+    }
+    store(Xo, a.H, NX, x);
+  }
+
+  // the merit of a chain: its stage merits summed over k = 0..H in order
+  __device__ float chain_merit() const {
+    float acc = 0.f;
+    for (int k = 0; k <= a.H; ++k) acc = acc + sm_m[k * LPB + l];
+    return acc;
+  }
+
+  // The line-search ladder of GN iteration ``it`` (over the whole solve):
+  // a trial chain per rung rolled out by warp 0, its stage merits on the
+  // owners, its sum on warp 0; the best chain committed by the owners.
+  __device__ void ladder(int it) const {
+    const size_t xs = (size_t)(a.H + 1) * NX * a.B;
+    const size_t us = (size_t)a.H * NU * a.B;
+    const bool chain = live && w == 0;
+    int best = 0, best_rung = 0;
+    float best_m = 0.f;
+    for (int r = -1; r < a.n_alphas; ++r) {
+      // r = -1: alpha = 0 into slot 0; then alphas[r] into the other slot
+      if (chain) {
+        const int trial = r < 0 ? 0 : 1 - best;
+        feedback_rollout(r < 0 ? 0.f : a.alphas[r], false, b.Xc + trial * xs,
+                         b.Uc + trial * us);
+        slot[l] = trial;
+      }
+      __syncthreads();
+      const int trial = slot[l];
+      stage_merits(b.Xc + trial * xs, b.Uc + trial * us);
+      __syncthreads();
+      if (chain) {
+        const float m = chain_merit();
+        if (r < 0) {
+          best_m = m;
+        } else if (m < best_m) {
+          best_m = m;
+          best = trial;
+          best_rung = r + 1;
+        }
+        slot[l] = best;
+      }
+      __syncthreads();
+    }
+    if (chain && b.rung) b.rung[(size_t)it * a.B + L.lane] = best_rung;
+    const int pick = slot[l];
+    commit(b.Xc + pick * xs, b.Uc + pick * us);
+  }
+
+  // The diagnostics, run by every thread: the producers apply the last
+  // AL iteration's multiplier update and pass the stage terms through the
+  // ring (the adjoint's qx, qu, A, B; each stage's cost and AL term in
+  // shared memory) to warp 0, which runs the adjoint and sums the cost and
+  // merit from stage H down; then the violation from the producers'
+  // partials.
+  __device__ void diagnostics() const {
+    float lam[NX], cost = 0.f, merit = 0.f, stat = 0.f;
+    const auto use = [&](int k, auto g) {
+      const float c = sm_m[k * LPB + l];
+      if (k == a.H) {
+        float Q[NX][NX];
+        get_qx(g, Q, lam);
+        cost = c;
+        merit = c + sm_p[k * LPB + l];
+        return;
+      }
+      float qx[NX], qu[NU], A[NX][NX], Bm[NX][NU];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) qx[i] = g(OP_QX + i);
+      get_ab(g, qu, A, Bm);
       float g_u[NU], lam_new[NX];
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
@@ -448,53 +777,162 @@ struct Solve {
 #pragma unroll
       for (int i = 0; i < NX; ++i) lam[i] = lam_new[i];
       stat = nmax(stat, nmax(fabsf(g_u[0]), fabsf(g_u[1])));
-      viol = scaled_viol(r, false, viol);
-      const float c = stage_cost(x, u, xref, wq, wr);
       cost = cost + c;
-      merit = merit + c + sum_psi(psi);
-    }
+      merit = merit + c + sm_p[k * LPB + l];
+    };
+    ring_phase<true, true>(use);
+    __syncthreads();
+    if (!live || w != 0) return;
+    float viol = part[LPB + l];
+    for (int t = 2; t < T; ++t) viol = nmax(viol, part[t * LPB + l]);
     b.diag[L.at(0, 0, 4)] = stat;
     b.diag[L.at(0, 1, 4)] = viol;
     b.diag[L.at(0, 2, 4)] = cost;
     b.diag[L.at(0, 3, 4)] = merit;
+    // fused_gn.to_solution's mapping (viol is >= 0 or NaN here, so its
+    // clamp at 0 changes nothing)
+    const bool converged = stat < a.tol_stat && viol < a.tol_feas;
+    b.status[L.lane] = converged ? 1 : (viol < a.tol_infeas ? 0 : -7);
   }
 };
 
-// __grid_constant__: the Solve object keeps references to the parameters,
-// which then stay in the constant bank instead of a local copy.
-__global__ void fused_gn_kernel(const __grid_constant__ FgnArgs a,
-                                const __grid_constant__ Bufs b) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.B) return;
-  Solve s(a, b, lane);
-  s.initial_rollout();
+// 32 lanes and T warps a block; at most 128 registers a thread, so that 16
+// warps fit an SM.  __grid_constant__: the Solve object keeps references
+// to the parameters, which then stay in the constant bank instead of a
+// local copy.
+template <int T>
+__global__ void __launch_bounds__(LPB * T, 16 / T)
+fused_gn_kernel(const __grid_constant__ FgnArgs a,
+                const __grid_constant__ Bufs b) {
+  extern __shared__ float smem_dyn[];
+  const int w = threadIdx.x / LPB, l = threadIdx.x % LPB;
+  const int lane = blockIdx.x * LPB + l;
+  const bool live = lane < a.B;
+  const Solve<T> s(a, b, live ? lane : a.B - 1, live, w, l, smem_dyn);
+  const bool chain = live && w == 0;
+  if (chain) s.initial_rollout();
+  __syncthreads();
+  const bool unguarded = a.n_alphas == 0;
+  // The multiplier update that closes an AL iteration runs in the
+  // producers of the next ring, the next AL iteration's first sweep or the
+  // diagnostics, at the same rows (al_iters, sqp_iters >= 1).
   for (int ai = 0; ai < a.al_iters; ++ai) {
     for (int si = 0; si < a.sqp_iters; ++si) {
-      // the first GN iteration of each AL iteration reads the rows cached
-      // by the initial rollout (ai = 0) or the multiplier update (ai > 0)
-      const bool unguarded = a.n_alphas == 0;
-      s.backward_sweep(si == 0, unguarded);
-      if (unguarded)
-        s.feedback_rollout(1.f, true, b.X, b.U, false);
-      else
+      s.backward_sweep(unguarded, ai > 0 && si == 0);
+      if (chain && unguarded) {
+        // K and d, stored by this thread, are read by its cp.async copies
+        __threadfence_block();
+        s.feedback_rollout(1.f, true, b.X, b.U);
+      }
+      __syncthreads();
+      if (!unguarded) {
         s.ladder(ai * a.sqp_iters + si);
+        __syncthreads();
+      }
     }
-    s.multiplier_update();
   }
   s.diagnostics();
+}
+
+// The geometry of a launch (fused_gn_geometry fills out[] with it): threads
+// a lane given, or the most of 2, 4, 8 whose blocks are all resident at
+// once (occupancy API), else 2; lanes a block; shared bytes a lane and a
+// block; blocks resident an SM; registers a thread.
+// The attribute and occupancy calls are made once per device and shared
+// memory size, and kept.
+template <int T>
+static int occupancy(const FgnArgs* args, int32_t out[6]) {
+  static int dev_c = -1, smem_c = -1, nb = 0, regs = 0;
+  auto kernel = fused_gn_kernel<T>;
+  const int lane_bytes = lane_floats(args->H, T) * (int)sizeof(float);
+  const int smem = LPB * lane_bytes;
+  int dev = 0, err;
+  if ((err = cudaGetDevice(&dev))) return err;
+  if (dev != dev_c || smem != smem_c) {
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
+      return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel,
+                                                             LPB * T, smem)))
+      return err;
+    cudaFuncAttributes fa;
+    if ((err = cudaFuncGetAttributes(&fa, kernel))) return err;
+    regs = fa.numRegs;
+    dev_c = dev;
+    smem_c = smem;
+  }
+  out[0] = T;
+  out[1] = LPB;
+  out[2] = lane_bytes;
+  out[3] = smem;
+  out[4] = nb;
+  out[5] = regs;
+  return 0;
+}
+
+static int occupancy_at(const FgnArgs* args, int T, int32_t out[6]) {
+  switch (T) {
+    case 2: return occupancy<2>(args, out);
+    case 4: return occupancy<4>(args, out);
+    case 8: return occupancy<8>(args, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+static int geometry(const FgnArgs* args, int32_t out[6]) {
+  if (args->threads_per_lane > 0)
+    return occupancy_at(args, args->threads_per_lane, out);
+  static int dev_c = -1, sms = 0;
+  int dev = 0, err;
+  if ((err = cudaGetDevice(&dev))) return err;
+  if (dev != dev_c) {
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)))
+      return err;
+    dev_c = dev;
+  }
+  const int blocks = (args->B + LPB - 1) / LPB;
+  for (int T = 8; T >= 2; T /= 2) {
+    if ((err = occupancy_at(args, T, out))) return err;
+    if ((long)out[4] * sms >= blocks || T == 2) return 0;
+  }
+  return 0;
+}
+
+// Floats of one lane's shared memory at horizon H and T threads a lane
+// (the Python side's eligibility mirrors it).
+extern "C" int fused_gn_lane_floats(int H, int T) { return lane_floats(H, T); }
+
+extern "C" int fused_gn_geometry(const FgnArgs* args, int32_t* out) {
+  return geometry(args, out);
+}
+
+template <int T>
+static int launch(const FgnArgs* args, const Bufs& b, size_t smem,
+                  void* stream) {
+  const int blocks = (args->B + LPB - 1) / LPB;
+  const int threads = LPB * T;
+  fused_gn_kernel<T><<<blocks, threads, smem, (cudaStream_t)stream>>>(*args, b);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int fused_gn_solve(const FgnArgs* args, const float* x0,
                               const float* xref, const float* obs,
                               const float* mind, const float* w, float* U,
                               float* lam_lo, float* lam_hi, float* mu,
-                              float* pviol, float* X, float* diag, float* K,
-                              float* d, float* rows, float* Xc, float* Uc,
-                              int32_t* rung, void* stream) {
+                              float* pviol, float* X, float* diag,
+                              int32_t* status, float* K, float* d, float* Xc,
+                              float* Uc, int32_t* rung, void* stream) {
   Bufs b{x0, xref, obs, mind, w, U,  lam_lo, lam_hi, mu,
-         pviol, X, diag, K, d, rows, Xc, Uc, rung};
-  const int threads = args->threads > 0 ? args->threads : 64;
-  const int blocks = (args->B + threads - 1) / threads;
-  fused_gn_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, b);
-  return (int)cudaGetLastError();
+         pviol, X, diag, status, K, d, Xc, Uc, rung};
+  int32_t g[6];
+  int err = geometry(args, g);
+  if (err) return err;
+  if (g[4] < 1) return (int)cudaErrorInvalidValue;
+  switch (g[0]) {
+    case 2: return launch<2>(args, b, (size_t)g[3], stream);
+    case 4: return launch<4>(args, b, (size_t)g[3], stream);
+    case 8: return launch<8>(args, b, (size_t)g[3], stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -17,8 +17,10 @@ One launch runs, for every lane::
 
 Two implementations of the same function:
 
-* the CUDA C++ kernel ``csrc/fused_gn.cu`` (one thread per lane), launched
-  by :func:`launch_kernel` on CUDA tensors;
+* the CUDA C++ kernel ``csrc/fused_gn.cu`` (32 lanes and T warps a block:
+  warps 1..T-1 produce each stage's operands into a ring in shared memory,
+  warp 0 runs the stage-to-stage chains for 32 lanes at once), launched by
+  :func:`launch_kernel` on CUDA tensors;
 * :func:`solve_batch_fused_plain`, the plain PyTorch version: the same
   analytic rows, quadratics, sweep, step branches, multiplier update and
   adjoint diagnostics over a leading lane axis, with the stage-independent
@@ -31,11 +33,14 @@ tensor to the kernel; nothing falls back from one to the other.
 Envelope (:func:`eligible`): KS model, method 'al', forcespro or casadi
 rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1, 3, 2) obstacles, no
 boundary rows, any iteration budget, ``alphas=()`` or a ladder of at most
-``MAX_ALPHAS`` rungs.
+``MAX_ALPHAS`` rungs, a horizon whose block of 32 lanes fits a block's
+shared memory (``MAX_HORIZON``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -46,9 +51,44 @@ from mpc_tpu_torch.ops import sqp as S
 NX = 5
 NU = 2
 NR = 14            # 1 friction + 9 circles + 4 box rows
-NROWVALS = 44      # cached row values + gradients per stage
 MAX_ALPHAS = 16    # ladder rungs the kernel's argument block holds
-THREADS = 64       # threads per block: one lane per thread
+NOP = 43           # floats of one stage's operands in the kernel's ring
+LANES_PER_BLOCK = 32          # csrc/fused_gn.cu LPB: a warp's width
+THREADS_PER_LANE = (2, 4, 8)  # the kernel's instances (0: it chooses)
+SMEM_PER_BLOCK = 232448       # bytes of shared memory an H100 block may use
+
+
+NSTG, NROLL = 3, 19           # a rollout's staging ring: stages, floats
+PSTR = 31                     # the sweep's P and p a lane, padded odd
+
+
+def ring_slots(threads_per_lane: int) -> int:
+    """Stages of the kernel's ring of stage operands (``ring_slots``)."""
+    producers = threads_per_lane - 1
+    return producers * ((6 + producers - 1) // producers)
+
+
+def lane_smem_bytes(H: int, threads_per_lane: int) -> int:
+    """Shared memory of one lane at horizon H: ``lane_floats`` in
+    csrc/fused_gn.cu (the owners' violation partials, the ladder's slot,
+    a merit and an AL term a stage, a rollout's staging ring, the ring of
+    stage operands, the sweep's P and p)."""
+    return 4 * (threads_per_lane + 1 + 2 * (H + 1) + NSTG * NROLL
+                + ring_slots(threads_per_lane) * NOP + PSTR)
+
+
+def _max_horizon() -> int:
+    """The longest horizon whose block (32 lanes, at any threads a lane)
+    fits a block's shared memory; a thread loops over its stages, so the
+    stages a thread are no bound of their own."""
+    H = 0
+    while all(LANES_PER_BLOCK * lane_smem_bytes(H + 1, t) <= SMEM_PER_BLOCK
+              for t in THREADS_PER_LANE):
+        H += 1
+    return H
+
+
+MAX_HORIZON = _max_horizon()
 
 
 def make_consts(cfg: S.SolverConfig) -> dict:
@@ -84,6 +124,13 @@ def ineligible_reason(cfg: S.SolverConfig, params: S.OcpParams):
         return f"x_ref has {params.x_ref.shape[-1]} state columns, want {NX}"
     if len(cfg.alphas) > MAX_ALPHAS:
         return f"{len(cfg.alphas)} ladder rungs, the kernel takes {MAX_ALPHAS}"
+    H = cfg.horizon
+    T = max(THREADS_PER_LANE, key=lambda t: lane_smem_bytes(H, t))
+    if LANES_PER_BLOCK * lane_smem_bytes(H, T) > SMEM_PER_BLOCK:
+        return (f"horizon {H}: a block of {LANES_PER_BLOCK} lanes needs "
+                f"{LANES_PER_BLOCK * lane_smem_bytes(H, T)} bytes of shared "
+                f"memory ({lane_smem_bytes(H, T)} a lane at {T} threads a "
+                f"lane), a block holds {SMEM_PER_BLOCK}: H <= {MAX_HORIZON}")
     return None
 
 
@@ -750,16 +797,22 @@ class FgnArgs(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int32) for n in (
         "B", "H", "al_iters", "sqp_iters", "n_alphas", "forcespro", "rk4",
-        "moving", "use_term", "threads")] + [(n, ctypes.c_float) for n in (
+        "moving", "use_term", "threads_per_lane")] + [(n, ctypes.c_float) for n in (
             "dt", "half_dt", "dt6", "inv_l", "reg", "d_ego", "a_cap",
             "inv_fr_scale", "u_lo0", "u_hi0", "u_lo1", "u_hi1", "d_lo",
             "d_hi", "v_lo", "v_hi", "mu0", "mu_factor", "mu_max",
-            "viol_improve", "lam_max", "tol_feas")] + [
+            "viol_improve", "lam_max", "tol_feas", "tol_stat",
+            "tol_infeas")] + [
         ("alphas", ctypes.c_float * MAX_ALPHAS)]
 
 
 def kernel_args(cfg: S.SolverConfig, B: int, moving: bool,
-                threads: int = THREADS) -> FgnArgs:
+                threads_per_lane: int = 0) -> FgnArgs:
+    """The argument block; ``threads_per_lane`` 0 lets the kernel choose
+    (the most threads a lane whose blocks are all resident at once)."""
+    if threads_per_lane and threads_per_lane not in THREADS_PER_LANE:
+        raise ValueError(f"threads_per_lane {threads_per_lane}: the kernel "
+                         f"has {THREADS_PER_LANE} (0: it chooses)")
     c = make_consts(cfg)
     dt = float(cfg.dt)
     fr = c["a_max"] ** 2 if c["formulation"] == "forcespro" else c["a_max"]
@@ -768,17 +821,23 @@ def kernel_args(cfg: S.SolverConfig, B: int, moving: bool,
         n_alphas=len(cfg.alphas), forcespro=int(cfg.formulation ==
                                                 "forcespro"),
         rk4=int(cfg.integrator == "rk4"), moving=int(moving),
-        use_term=int(cfg.use_terminal_cost), threads=threads,
+        use_term=int(cfg.use_terminal_cost),
+        threads_per_lane=threads_per_lane,
         dt=dt, half_dt=0.5 * dt, dt6=dt / 6.0, inv_l=c["inv_l"],
         reg=float(cfg.reg), d_ego=c["d_ego"], a_cap=fr, inv_fr_scale=1.0 / fr,
         u_lo0=c["u_lo0"], u_hi0=c["u_hi0"], u_lo1=c["u_lo1"],
         u_hi1=c["u_hi1"], d_lo=c["d_lo"], d_hi=c["d_hi"], v_lo=c["v_lo"],
         v_hi=c["v_hi"], mu0=cfg.mu0, mu_factor=cfg.mu_factor,
         mu_max=cfg.mu_max, viol_improve=cfg.viol_improve,
-        lam_max=cfg.lam_max, tol_feas=cfg.tol_feas)
+        lam_max=cfg.lam_max, tol_feas=cfg.tol_feas, tol_stat=cfg.tol_stat,
+        tol_infeas=cfg.tol_infeas)
     for i, v in enumerate(cfg.alphas):
         a.alphas[i] = v
     return a
+
+
+# the argument block of a launch, built once per configuration and shape
+_launch_args = functools.lru_cache(maxsize=64)(kernel_args)
 
 
 def _soa(t):
@@ -799,8 +858,8 @@ def _aos(t):
 # the kernel's buffers in the order of fused_gn_solve's pointer arguments
 KERNEL_INPUTS = ("x0", "xref", "obs", "mind", "w")
 KERNEL_STATE = ("U", "lam_lo", "lam_hi", "mu", "pviol")   # updated in place
-KERNEL_OUTPUTS = ("X", "diag")
-KERNEL_SCRATCH = ("K", "d", "rows", "Xc", "Uc")
+KERNEL_OUTPUTS = ("X", "diag", "status")
+KERNEL_SCRATCH = ("K", "d", "Xc", "Uc")
 KERNEL_TRACE = ("rung",)     # optional: the rung each ladder step committed
 _OUT_ORDER = ("X", "U", "lam_lo", "lam_hi", "mu", "pviol", "diag")
 
@@ -815,46 +874,75 @@ def _packed(t, shape):
     return _soa(t)
 
 
-def pack_problem(cfg: S.SolverConfig, params: S.OcpParams) -> dict:
-    """The per-solve inputs both fused kernels read (KERNEL_INPUTS), copied
-    lanes fastest."""
-    B, H = params.x0.shape[0], cfg.horizon
-    moving = params.obs_centers.dim() == 4
-    w = params.weights
-    return dict(
-        x0=_packed(params.x0, (B, NX)),
-        xref=_packed(params.x_ref, (B, H + 1, NX)),
-        obs=_packed(params.obs_centers.reshape(B, -1, 6) if moving
-                    else params.obs_centers.reshape(B, 6),
-                    (B, H + 1, 6) if moving else (B, 6)),
-        mind=_packed(params.min_dist.reshape(B), (B,)),
-        w=_packed(torch.cat([w.q, w.r, w.qN], -1), (B, 2 * NX + NU)))
+def _lanes_fastest(parts) -> dict:
+    """Every (name, tensor or list of tensors, shape (B, *mid)) checked
+    against float32 and its shape and copied, lanes fastest, into one
+    buffer by a single ``torch.cat`` of their transposed views (a list is
+    joined along its last axis); returns name -> a contiguous (*mid, B)
+    view of that buffer."""
+    cols, sizes = [], []
+    for name, ts, shape in parts:
+        ts = ts if isinstance(ts, list) else [ts]
+        if any(t.dtype != torch.float32 for t in ts):
+            raise TypeError(f"the fused kernels take float32, got "
+                            f"{[t.dtype for t in ts]}")
+        flat = [t.reshape(t.shape[0], -1) if t.dim() else t for t in ts]
+        n = math.prod(shape[1:])
+        if ((len(ts) == 1 and tuple(ts[0].shape) != shape)
+                or any(f.dim() != 2 or f.shape[0] != shape[0] for f in flat)
+                or sum(f.shape[1] for f in flat) != n):
+            raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in ts]}"
+                             f", want {shape}")
+        cols += [f.t() for f in flat]
+        sizes.append(n)
+    big = torch.cat(cols, 0)
+    out, o = {}, 0
+    for (name, _, shape), n in zip(parts, sizes):
+        out[name] = big[o:o + n].view(*shape[1:], shape[0])
+        o += n
+    return out
 
 
 def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
          trace_rungs: bool = False) -> dict:
     """The kernel's buffers, lanes fastest: every input copied into that
-    layout (so the caller's tensors are never written), every output and
-    scratch buffer allocated.  The line-search trial chains are allocated
-    only when the ladder is on, and the rung trace (al_iters * sqp_iters,
-    B) only when it is on and ``trace_rungs`` asks for it."""
+    layout (so the caller's tensors are never written), all but U by one
+    ``torch.cat``, every output and scratch buffer allocated.  The line-search
+    trial chains are allocated only when the ladder is on, and the rung
+    trace (al_iters * sqp_iters, B) only when it is on and ``trace_rungs``
+    asks for it."""
     reason = ineligible_reason(cfg, params)
     if reason is not None:
         raise NotImplementedError(reason)
     B, H = params.x0.shape[0], cfg.horizon
     dev, f32 = params.x0.device, torch.float32
-    bufs = pack_problem(cfg, params)
+    moving = params.obs_centers.dim() == 4
+    w = params.weights
+    # the penalties the solve starts from (_prepared_mu): for mu0 > 0 the
+    # floor alone, which leaves no penalty <= 0
+    mu = (state.mu.clamp_min(cfg.mu0) if cfg.mu0 > 0
+          else _prepared_mu(cfg, state.mu))
+    bufs = _lanes_fastest([
+        ("x0", params.x0, (B, NX)),
+        ("xref", params.x_ref, (B, H + 1, NX)),
+        ("obs", params.obs_centers.reshape(B, -1, 6) if moving
+         else params.obs_centers.reshape(B, 6),
+         (B, H + 1, 6) if moving else (B, 6)),
+        ("mind", params.min_dist.reshape(B), (B,)),
+        ("w", [w.q, w.r, w.qN], (B, 2 * NX + NU)),
+        ("lam_lo", state.lam_lo, (B, H + 1, NR)),
+        ("lam_hi", state.lam_hi, (B, H + 1, NR)),
+        ("mu", mu, (B, H + 1, NR)),
+        ("pviol", state.prev_viol, (B, H + 1, NR))])
     bufs.update(
+        # a buffer of its own: a caller keeps views of the solution's U
+        # (the applied input), which must not hold the whole copy alive
         U=_packed(state.U, (B, H, NU)),
-        lam_lo=_packed(state.lam_lo, (B, H + 1, NR)),
-        lam_hi=_packed(state.lam_hi, (B, H + 1, NR)),
-        mu=_packed(_prepared_mu(cfg, state.mu), (B, H + 1, NR)),
-        pviol=_packed(state.prev_viol, (B, H + 1, NR)),
         X=torch.empty((H + 1, NX, B), dtype=f32, device=dev),
         diag=torch.empty((4, B), dtype=f32, device=dev),
+        status=torch.empty((B,), dtype=torch.int32, device=dev),
         K=torch.empty((H, NU * NX, B), dtype=f32, device=dev),
-        d=torch.empty((H, NU, B), dtype=f32, device=dev),
-        rows=torch.empty((H + 1, NROWVALS, B), dtype=f32, device=dev))
+        d=torch.empty((H, NU, B), dtype=f32, device=dev))
     if cfg.alphas:
         bufs["Xc"] = torch.empty((2, H + 1, NX, B), dtype=f32, device=dev)
         bufs["Uc"] = torch.empty((2, H, NU, B), dtype=f32, device=dev)
@@ -882,17 +970,18 @@ def call_kernel(name: str, args: ctypes.Structure, bufs: dict, order):
         return fn(ctypes.byref(args), *ptrs, stream)
 
 
-def launch(cfg: S.SolverConfig, bufs: dict, threads: int = THREADS):
+def launch(cfg: S.SolverConfig, bufs: dict, threads_per_lane: int = 0):
     """Launch the kernel once on the current stream over packed ``bufs``.
 
     The kernel updates the warm-start buffers (U, lam_lo, lam_hi, mu,
     pviol) in place, where the TPU kernel aliased inputs to outputs, and
-    writes X and diag.  ``launch.launches`` counts the launches.
+    writes X and diag.  ``threads_per_lane`` 0 lets the kernel choose.
+    ``launch.launches`` counts the launches.
     """
     order = (KERNEL_INPUTS + KERNEL_STATE + KERNEL_OUTPUTS + KERNEL_SCRATCH
              + KERNEL_TRACE)
-    args = kernel_args(cfg, bufs["x0"].shape[-1], bufs["obs"].dim() == 3,
-                       threads)
+    args = _launch_args(cfg, bufs["x0"].shape[-1], bufs["obs"].dim() == 3,
+                        threads_per_lane)
     err = call_kernel("fused_gn", args, bufs, order)
     launch.launches += 1
     if err != 0:
@@ -902,6 +991,26 @@ def launch(cfg: S.SolverConfig, bufs: dict, threads: int = THREADS):
 launch.launches = 0
 
 
+def geometry(cfg: S.SolverConfig, B: int, moving: bool = False,
+             threads_per_lane: int = 0) -> dict:
+    """The launch geometry the kernel takes on the current GPU for B lanes:
+    threads a lane (given, or chosen with the occupancy API), lanes a
+    block, shared bytes a lane and a block, blocks resident an SM,
+    registers a thread."""
+    from mpc_tpu_torch.ops import _build
+    args = kernel_args(cfg, B, moving, threads_per_lane)
+    out = (ctypes.c_int32 * 6)()
+    fn = _build.load("fused_gn").fused_gn_geometry
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(ctypes.byref(args), out)
+    if err != 0:
+        raise RuntimeError(f"fused_gn geometry failed: CUDA error {err}")
+    keys = ("threads_per_lane", "lanes_per_block", "smem_bytes_per_lane",
+            "smem_bytes_per_block", "blocks_per_sm", "registers")
+    return dict(zip(keys, list(out)))
+
+
 def unpack(bufs: dict):
     """(X, U, lam_lo, lam_hi, mu, prev_viol, diag) in the package's public
     lanes-leading layout (views of the kernel's buffers)."""
@@ -909,10 +1018,10 @@ def unpack(bufs: dict):
 
 
 def launch_kernel(cfg: S.SolverConfig, params: S.OcpParams,
-                  state: S.SqpState, threads: int = THREADS):
+                  state: S.SqpState, threads_per_lane: int = 0):
     """Run the CUDA kernel; same outputs as :func:`solve_batch_fused_plain`."""
     bufs = pack(cfg, params, state)
-    launch(cfg, bufs, threads)
+    launch(cfg, bufs, threads_per_lane)
     return unpack(bufs)
 
 
@@ -943,27 +1052,39 @@ def solve_batch_fused(cfg: S.SolverConfig, params: S.OcpParams,
     params = _to(S.normalize_params(cfg, params), dev)
     state = _to(state, dev)
     if dev.type == "cuda":
-        out = launch_kernel(cfg, params, state)
-    elif dev.type == "cpu":
-        out = solve_batch_fused_plain(cfg, params, state)
-    else:
-        raise ValueError(f"unsupported device {dev}")
-    return to_solution(cfg, out)
+        bufs = pack(cfg, params, state)
+        launch(cfg, bufs)
+        return kernel_solution(bufs)
+    if dev.type == "cpu":
+        return to_solution(cfg, solve_batch_fused_plain(cfg, params, state))
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _solution(out, status, viol) -> S.Solution:
+    X, U, lam_lo, lam_hi, mu, prev_viol, diag = out
+    stat, _, cost, merit = diag.unbind(-1)
+    new_state = S.SqpState(U=U, lam_lo=lam_lo, lam_hi=lam_hi, mu=mu,
+                           prev_viol=prev_viol)
+    return S.Solution(X=X, U=U, state=new_state, status=status,
+                      kkt_stat=stat, viol=viol, cost=cost, merit=merit)
 
 
 def to_solution(cfg: S.SolverConfig, out) -> S.Solution:
     """The kernel's (or the plain version's) outputs as a Solution, with
     the status mapping of the JAX package: 1 converged, 0 feasible, -7
     infeasible."""
-    X, U, lam_lo, lam_hi, mu, prev_viol, diag = out
-    stat, viol, cost, merit = diag.unbind(-1)
-    viol = torch.clamp(viol, min=0.0)
+    stat, viol = out[-1][..., 0], torch.clamp(out[-1][..., 1], min=0.0)
     converged = (stat < cfg.tol_stat) & (viol < cfg.tol_feas)
     feasible = viol < cfg.tol_infeas
     one = torch.ones_like(stat, dtype=torch.int32)
     status = torch.where(converged, one,
                          torch.where(feasible, 0 * one, -7 * one))
-    new_state = S.SqpState(U=U, lam_lo=lam_lo, lam_hi=lam_hi, mu=mu,
-                           prev_viol=prev_viol)
-    return S.Solution(X=X, U=U, state=new_state, status=status,
-                      kkt_stat=stat, viol=viol, cost=cost, merit=merit)
+    return _solution(out, status, viol)
+
+
+def kernel_solution(bufs: dict) -> S.Solution:
+    """The kernel's buffers as a Solution, with the status the kernel
+    wrote: :func:`to_solution`'s mapping of the same diagnostics, whose
+    violation is >= 0 or NaN there, so that no device work is left."""
+    out = unpack(bufs)
+    return _solution(out, bufs["status"], out[-1][..., 1])

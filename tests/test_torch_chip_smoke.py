@@ -238,3 +238,32 @@ def test_ip_timing_sweeps_lanes_per_block():
     assert cs.ip_lane_sweep(12) == (0, 1, 2, 4, 8, 12)
     assert cs.ip_lane_sweep(8) == (0, 1, 2, 4, 8)
     assert cs.ip_lane_sweep(3) == (0, 1, 2, 3)
+
+
+PTXAS_GN = "".join(
+    f"ptxas info    : Compiling entry function "
+    f"'_Z15fused_gn_kernelILi{t}EEv7FgnArgs4Bufs' for 'sm_90a'\n"
+    f"ptxas info    : Function properties for "
+    f"_Z15fused_gn_kernelILi{t}EEv7FgnArgs4Bufs\n"
+    f"    {t}00 bytes stack frame, {t} bytes spill stores, {t} bytes spill "
+    f"loads\nptxas info    : Used 128 registers, used 13 barriers, "
+    f"880 bytes cmem[0]\n" for t in (8, 4, 2))
+
+
+def test_al_build_line_reads_the_instance_the_bench_takes():
+    """The AL kernel has one entry function a threads-a-lane instance; the
+    build line's figures are those of the instance the geometry takes at
+    the bench shape."""
+    entries = cs.ptxas_entries(PTXAS_GN)
+    assert len(entries) == 3
+    for t in (2, 4, 8):
+        assert cs.main_entry(entries, t)["spill_stores"] == t
+
+
+def test_al_timing_sweeps_threads_per_lane():
+    """The AL kernel is timed at its own choice (0) and at each instance,
+    its default the kernel's own choice."""
+    lcfg, _ = tsyn.make_bench_loop(cs.T_BENCH, H, 2, device="cpu", **cs.WARM)
+    eng = cs.engine(lcfg.solver)
+    assert eng.geometry == "threads_per_lane" and eng.default == 0
+    assert eng.sweep(lcfg.solver) == (0, 2, 4, 8) == (0,) + TF.THREADS_PER_LANE

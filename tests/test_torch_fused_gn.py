@@ -158,6 +158,27 @@ def test_cuda_requested_without_gpu_raises():
         TF.solve_batch_fused(cfg, _tocp(), st, device="cuda")
 
 
+def test_horizon_bound_on_either_side():
+    """A block holds 32 lanes; its shared memory grows by two floats a
+    stage and lane (a merit and an AL term), so the longest horizon is the
+    one whose block fits 232,448 bytes at the widest geometry: that H is in
+    the envelope and H + 1 is refused with a reason naming the bound.  A
+    thread loops over its stages, so the stages a thread bound nothing."""
+    H = TF.MAX_HORIZON
+    assert TF.ineligible_reason(_tcfg(horizon=H), _tocp(H=H)) is None
+    assert max(TF.LANES_PER_BLOCK * TF.lane_smem_bytes(H, t)
+               for t in TF.THREADS_PER_LANE) <= TF.SMEM_PER_BLOCK
+    reason = TF.ineligible_reason(_tcfg(horizon=H + 1), _tocp(H=H + 1))
+    assert reason is not None and f"H <= {H}" in reason
+    assert "shared memory" in reason and str(TF.SMEM_PER_BLOCK) in reason
+    with pytest.raises(NotImplementedError, match=f"H <= {H}"):
+        TF.pack(_tcfg(horizon=H + 1), _tocp(H=H + 1),
+                TS.init_state(_tcfg(horizon=H + 1), batch=2))
+    # the bench horizon: ~53 KB a block at 4 threads a lane, four blocks
+    # (16 warps) an SM
+    assert TF.LANES_PER_BLOCK * TF.lane_smem_bytes(30, 4) < 232448 // 4
+
+
 def test_launch_kernel_refuses_cpu_tensors():
     cfg = _tcfg()
     with pytest.raises(ValueError, match="CUDA"):
@@ -166,7 +187,7 @@ def test_launch_kernel_refuses_cpu_tensors():
 
 def test_kernel_argument_block_layout():
     """The ctypes mirror has the C struct's 4-byte fields, in order."""
-    assert ctypes.sizeof(TF.FgnArgs) == 4 * (10 + 22 + TF.MAX_ALPHAS)
+    assert ctypes.sizeof(TF.FgnArgs) == 4 * (10 + 24 + TF.MAX_ALPHAS)
     a = TF.kernel_args(_tcfg(alphas=(1.0, 0.5), formulation="casadi"),
                        B=7, moving=True)
     assert (a.B, a.H, a.n_alphas, a.forcespro, a.moving) == (7, 4, 2, 0, 1)

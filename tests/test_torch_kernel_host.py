@@ -34,8 +34,11 @@ from mpc_tpu_torch.ops import sqp_vec as TSV
 from mpc_tpu_torch.utils import synthetic as tsyn
 
 SHIM = """#pragma once
+#define HOST_KERNEL_SHIM
 #include <barrier>
 #include <cmath>
+#include <condition_variable>
+#include <mutex>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
@@ -58,12 +61,34 @@ struct HostWarp {
   std::barrier<> bar;
   uint32_t x[32];
 };
+// bar.arrive / bar.sync with an id and a thread count: a generation
+// counter per id and block.
+struct HostNamed {
+  std::mutex m;
+  std::condition_variable cv;
+  int count = 0;
+  unsigned gen = 0;
+};
 static thread_local HostDim blockIdx, threadIdx, blockDim;
+static thread_local HostNamed* host_named;
+inline void host_named_barrier(int id, int n, bool wait) {
+  HostNamed& b = host_named[id];
+  std::unique_lock<std::mutex> lk(b.m);
+  const unsigned g = b.gen;
+  if (++b.count == n) {
+    b.count = 0;
+    ++b.gen;
+    b.cv.notify_all();
+  } else if (wait) {
+    b.cv.wait(lk, [&] { return b.gen != g; });
+  }
+}
 static thread_local HostWarp* host_warp;
 static thread_local std::barrier<>* host_block;
 static thread_local void* host_smem;
 inline void __syncwarp(unsigned = 0xffffffffu) { host_warp->bar.arrive_and_wait(); }
 inline void __syncthreads() { host_block->arrive_and_wait(); }
+inline void __threadfence_block() {}
 template <class T> T host_shfl(T v, int src) {
   static_assert(sizeof(T) == 4, "32-bit shuffles only");
   std::memcpy(&host_warp->x[threadIdx.x % 32], &v, 4);
@@ -85,12 +110,13 @@ void host_launch(unsigned blocks, unsigned threads, size_t smem, F body) {
     for (unsigned w = 0; w * 32 < threads; ++w)
       warps.emplace_back(new HostWarp(threads - w * 32 < 32 ? threads - w * 32 : 32));
     std::barrier<> block((std::ptrdiff_t)threads);
+    std::unique_ptr<HostNamed[]> named(new HostNamed[16]);
     std::vector<std::thread> ts;
     for (unsigned ti = 0; ti < threads; ++ti)
       ts.emplace_back([&, ti] {
         blockIdx.x = bi; threadIdx.x = ti; blockDim.x = threads;
         host_warp = warps[ti / 32].get(); host_block = &block;
-        host_smem = buf.data();
+        host_smem = buf.data(); host_named = named.get();
         body();
         host_warp->bar.arrive_and_drop();
         block.arrive_and_drop();
@@ -101,11 +127,15 @@ void host_launch(unsigned blocks, unsigned threads, size_t smem, F body) {
 enum { cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize,
        cudaFuncAttributePreferredSharedMemoryCarveout,
        cudaDevAttrMaxSharedMemoryPerBlockOptin,
-       cudaDevAttrMaxSharedMemoryPerMultiprocessor };
+       cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+       cudaDevAttrMultiProcessorCount };
 struct cudaFuncAttributes { int numRegs; };
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
-inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 232448; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMultiProcessorCount ? 132 : 232448;
+  return 0;
+}
 template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
 template <class K> int cudaFuncGetAttributes(cudaFuncAttributes* f, K) {
   f->numRegs = 0; return 0;
@@ -158,13 +188,18 @@ def run_host(libs, name, args, bufs, order):
     assert fn(ctypes.byref(args), *ptrs, ctypes.c_void_p(0)) == 0
 
 
-def host_gn(libs, cfg, ocp, st):
+def host_gn(libs, cfg, ocp, st, threads_per_lane=2):
+    """The AL source on the host: 32 lanes and ``threads_per_lane`` warps a
+    block (B=5 lanes leave the block ragged)."""
     bufs = TF.pack(cfg, ocp, st, trace_rungs=True)
-    run_host(libs, "fused_gn", TF.kernel_args(cfg, B, ocp.obs_centers.dim()
-                                              == 4, threads=2), bufs,
-             TF.KERNEL_INPUTS + TF.KERNEL_STATE + TF.KERNEL_OUTPUTS
-             + TF.KERNEL_SCRATCH + TF.KERNEL_TRACE)
-    return bufs, TF.to_solution(cfg, TF.unpack(bufs))
+    run_host(libs, "fused_gn", TF.kernel_args(
+        cfg, ocp.x0.shape[0], ocp.obs_centers.dim() == 4, threads_per_lane),
+        bufs, TF.KERNEL_INPUTS + TF.KERNEL_STATE + TF.KERNEL_OUTPUTS
+        + TF.KERNEL_SCRATCH + TF.KERNEL_TRACE)
+    sol = TF.to_solution(cfg, TF.unpack(bufs))
+    # the status the kernel writes is to_solution's, from its diagnostics
+    assert torch.equal(bufs["status"], sol.status)
+    return bufs, sol
 
 
 def host_ip(libs, cfg, ocp, st, lanes_per_block=2):
@@ -215,6 +250,51 @@ def test_fused_gn_source_matches_the_plain_version(host_libs, case):
     pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
         cfg, ocp, st, follow=bufs.get("rung")))
     assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
+
+
+def test_fused_gn_source_with_binding_rows(host_libs):
+    """The obstacle 2.5 m beside the reference's last stage: its circle
+    rows bind, so the multipliers, the penalties' growth on stalled rows
+    and the violations that the updates between AL iterations compute
+    shape the solve."""
+    cfg, ocp = bench_ocp(al_iters=3, sqp_iters=2, alphas=())
+    ahead = ocp.x_ref[:, H, None, :2] + torch.tensor(
+        [[0.0, 2.5], [1.5, 2.5], [-1.5, 2.5]])
+    ocp = ocp._replace(obs_centers=ahead.contiguous())
+    st = TS.init_state(cfg, batch=B)
+    _, ker = host_gn(host_libs, cfg, ocp, st, 4)
+    pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(cfg, ocp, st))
+    assert bool((pln.state.mu > cfg.mu0).any())      # a penalty grew
+    assert bool((pln.state.lam_lo > 0).any())        # a multiplier is on
+    assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
+    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
+                               rtol=0.0, atol=1e-3)
+
+
+def test_fused_gn_source_ragged_lanes_and_strided_stages(host_libs):
+    """B=5 lanes in a block of 32 (the other 27 threads of every warp past
+    the last lane) at 4 and 8 threads a lane, H=40: 41 stages, so each
+    thread owns 5 to 11 of them, with moving obstacles and the ladder on."""
+    cfg, ocp = bench_ocp(horizon=40, moving=True, al_iters=2, sqp_iters=2)
+    st = TS.init_state(cfg, batch=B)
+    for threads_per_lane in (4, 8):
+        bufs, ker = host_gn(host_libs, cfg, ocp, st, threads_per_lane)
+        pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
+            cfg, ocp, st, follow=bufs.get("rung")))
+        assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
+
+
+@pytest.mark.parametrize("horizon,threads_per_lane",
+                         [(1, 2), (30, 4), (30, 8), (40, 8),
+                          (TF.MAX_HORIZON, 8)])
+def test_fused_gn_shared_memory_footprint_matches_the_source(
+        host_libs, horizon, threads_per_lane):
+    """``lane_smem_bytes``, which the eligibility reads, is the source's
+    own ``lane_floats`` of one lane's shared memory."""
+    fn = host_libs["fused_gn"].fused_gn_lane_floats
+    fn.restype = ctypes.c_int
+    assert 4 * fn(horizon, threads_per_lane) == TF.lane_smem_bytes(
+        horizon, threads_per_lane)
 
 
 IP_CASES = {
