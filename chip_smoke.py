@@ -37,6 +37,16 @@ Phases, each printing one JSON line (``"phase": ...``):
             - the xla engine (``sqp_vec.solve_batch_vec``) with the kernel
               sweep against the same solve with the plain sweep, at
               B=2048: al 1x1 unguarded and a 2x2 ladder.
+            - the road-boundary rows' instances of both fused kernels, one
+              corridor row each (hard-corridor: fused_ip at H=14;
+              soft-corridor: fused_gn at H=30): the row's warm-up budget on
+              its loop's cold start, its own budget on the solve its loop
+              makes at step 50 (rows bind; the loop run on the card at
+              B=2048), its own budget at a ragged B=250 on a bending road
+              whose rows bind, and the plain version against itself in
+              float64 at step 38, where the gates cannot hold; each check
+              reports its active boundary rows; linearize_boundaries on the
+              card against the CPU.
             With the ladder on, the kernel records the rung each iteration
             committed and the plain version replays those choices: every
             choice must be the best rung, up to a relative merit regret of
@@ -45,14 +55,17 @@ Phases, each printing one JSON line (``"phase": ...``):
 4. loop_vs_plain  the first steps of a closed loop on the card against the
             same loop on the CPU (plain version), the tests' closed-loop
             bands: the soft and hard rows, the soft xla row plain and with
-            the RTI backoffs, and the hard row with the status gate on stage
-            0..1;
+            the RTI backoffs, the hard row with the status gate on stage
+            0..1, and both corridor rows (U within the plain loop's own
+            spread when that is larger);
 5. timing   each kernel per launch at the main path's shape (B=16384,
             H=30; AL warm 1x1 and cold 3x4, IP warm 1x4 and cold 5x10, the
             sweep on the bench point's step-0 quadratics; fused_gn at 2, 4
             and 8 threads a lane and at its own choice, the sweep at
             32/64/128 threads a block, fused_ip at 1, 2, 4, 8 and the most
-            lanes a block and at its own choice), the plain
+            lanes a block and at its own choice; the corridor rows' own
+            and warm-up budgets, with the time of linearize_boundaries
+            before each launch), the plain
             version's time, and the bound: the larger of
             the bytes the call must move over 3.35 TB/s and its fp32
             operations (counted on the plain version) over 67 TFLOP/s; the
@@ -61,12 +74,17 @@ Phases, each printing one JSON line (``"phase": ...``):
 6. loop     ``closed_loop_batch_vec`` at B=16384, H=30, T=100 with 4
             cold-start solves, for the soft row (al 1x1, ``alphas=()``), the
             hard row (ip 1x4, warm duals, ``ip_alphas=()``) and the xla row
-            (the soft row on ``engine='xla'``): launches of every kernel
-            counted in that run, then solves/s with CUDA events, best of 3
-            after it (one run where a loop takes more than 20 s), and the
-            peak device memory;
-7. profile  one more loop of each row under ``torch.profiler``: device time
-            of the kernel and of the eager glue around it, by kernel name;
+            (the soft row on ``engine='xla'``), then hard-corridor and
+            soft-corridor inside a straight road with edges at y = +-4 m:
+            launches of every kernel counted in that run, then solves/s
+            with CUDA events, best of 3 after it (one run where a loop takes
+            more than 20 s), the peak device memory, and in a corridor row
+            the lane-steps where a boundary row is active;
+7. profile  one more loop of each row under ``torch.profiler`` (the xla
+            row: steps 0..4, the corridor rows: steps 38..47, after an
+            unprofiled cold start): device time of the kernel and of the
+            eager glue around it, by kernel name, and of
+            linearize_boundaries in the corridor rows;
 
 then the card's name and power limit, the kernels line, and as the last
 line ``{"ok": true, "device": {...}}``.  A phase that fails raises: the
@@ -101,6 +119,34 @@ IP_COLD = dict(method="ip", ip_sqp_iters=5, ip_iters=10, ip_alphas=())
 IP_WARM = dict(method="ip", ip_sqp_iters=1, ip_iters=4, ip_warm_duals=True,
                ip_alphas=())
 XLA_WARM = dict(engine="xla", **WARM)
+# The corridor rows: the overtake workload inside a straight two-edge road,
+# the left edge at y = +CORRIDOR_Y and the right at -CORRIDOR_Y, each a
+# CORRIDOR_POINTS-point polyline spanning the whole track.  hard-corridor is
+# the deployment of configs/config_CA_ZAM_Over-1_1_forcespro.yaml
+# (boundary_constraints, predict_horizon 15: H = 14, ip 2x6, warm duals,
+# the default ladder); soft-corridor the AL solve at its default 3x4
+# budget and ladder at H = 30.  Both take their warm-up budget (IP 5x10,
+# AL 3x4) in the cold starts.
+CORRIDOR_Y = 4.0
+CORRIDOR_POINTS = 128
+HARD_CORRIDOR = dict(method="ip", ip_sqp_iters=2, ip_iters=6,
+                     ip_warm_duals=True, boundary_rows=True, horizon=14,
+                     corridor=True)
+SOFT_CORRIDOR = dict(method="al", al_iters=3, sqp_iters=4,
+                     boundary_rows=True, corridor=True)
+# Where the corridor rows' checks and timing take their inputs: the solve
+# each loop makes at LOOP_CHECK_STEP (the car still against the left edge,
+# leaving it), and, for the warm-up budget, the loop's own cold start at
+# step 0 (the edges 2.85 m off: no row binds there).  Where the car runs
+# along the edge (steps ~35-47) the plain version's own float32 and float64
+# solves part on the status of many lanes (the stationarity straddles its
+# threshold; the IP duals of the three circles' rows against one edge are
+# degenerate), so no two float32 implementations meet the gates there;
+# GATE_STEP is where the check line measures that.
+LOOP_CHECK_STEP = 50
+GATE_STEP = 38
+ROAD_STEP = 32       # a step whose window bends (the swerve's rise)
+ACTIVE_BAND = 0.05   # a boundary row within this of r_ego is active
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12                       # H100 SXM, fp32 non-tensor
 # (rtol, atol) of tests/test_fused_gn.py:42-55
@@ -190,13 +236,16 @@ def ptxas_entries(text):
     return out
 
 
-def main_entry(entries, instance=1):
+def main_entry(entries, instance=1, boundary=False):
     """The entry function the main path launches: the only one, or the
     template instance ``instance`` (fused_ip: one stage a thread, H + 1 <=
-    32; fused_gn: the threads a lane it takes at the bench shape)."""
+    32; fused_gn: the threads a lane it takes at the bench shape), with or
+    without the road-boundary rows (the template's ``bool``, ``Lb1E`` in
+    the mangled name)."""
     if len(entries) == 1:
         return next(iter(entries.values()))
-    return next(v for k, v in entries.items() if f"ILi{instance}E" in k)
+    return next(v for k, v in entries.items()
+                if f"ILi{instance}E" in k and ("Lb1E" in k) == boundary)
 
 
 def phase_build():
@@ -214,6 +263,10 @@ def phase_build():
     geos = {"fused_gn": F.geometry(lcfg.solver, B_BENCH)}
     lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **IP_WARM)
     geos["fused_ip"] = FI.geometry(lcfg.solver, B_BENCH)
+    lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **SOFT_CORRIDOR)
+    bgeos = {"fused_gn": F.geometry(lcfg.solver, B_BENCH)}
+    lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **HARD_CORRIDOR)
+    bgeos["fused_ip"] = FI.geometry(lcfg.solver, B_BENCH)
     info = {}
     for name, text in logs.items():
         _build.load(name)
@@ -226,16 +279,40 @@ def phase_build():
             else info[name]["static_smem_bytes"])
         if geo:
             info[name]["geometry"] = geo
+        if name in bgeos:   # the boundary rows' instance at its row's shape
+            bgeo = bgeos[name]
+            instance = bgeo["threads_per_lane"] if name == "fused_gn" else 1
+            info[name]["boundary_instance"] = dict(
+                main_entry(entries, instance, boundary=True),
+                smem_bytes_per_block=bgeo["smem_bytes_per_block"],
+                geometry=bgeo)
     emit({"phase": "build", "seconds": seconds, "kernels": info})
     return info
 
 
-def bench_loop(**kw):
+def bench_loop(horizon=H, corridor=False, **kw):
     """``make_bench_loop`` on the bench's track (T=100 steps long): a
     shorter track puts the obstacle within a horizon of the start, where
-    the loop turns chaotic."""
+    the loop turns chaotic; with ``corridor`` inside the straight corridor
+    (:func:`with_corridor`)."""
     from mpc_tpu_torch.utils import synthetic
-    return synthetic.make_bench_loop(T_BENCH, H, **kw)
+    lcfg, lp = synthetic.make_bench_loop(T_BENCH, horizon, **kw)
+    return lcfg, with_corridor(lp) if corridor else lp
+
+
+def with_corridor(lp, y=CORRIDOR_Y, n=CORRIDOR_POINTS):
+    """``lp`` inside a straight corridor spanning its whole track, given to
+    every lane: the left edge at y directed -x, the right at -y directed
+    +x, each an n-point polyline, signs +1 (inside positive)."""
+    px = lp.track.path[..., 0]
+    xs = torch.linspace(float(px.max()) + 50.0, float(px.min()) - 50.0, n,
+                        dtype=px.dtype, device=px.device)
+    left = torch.stack([xs, torch.full_like(xs, y)], -1)
+    right = torch.stack([xs.flip(0), torch.full_like(xs, -y)], -1)
+    B = lp.x_init.shape[0]
+    return lp._replace(
+        boundaries=torch.stack([left, right]).expand(B, 2, n, 2).contiguous(),
+        boundary_signs=torch.ones((B, 2), dtype=px.dtype, device=px.device))
 
 
 def ocp_at(lcfg, lp, step=0):
@@ -391,6 +468,9 @@ def compare(name, cfg, ocp, state, bufs=None, plain=None):
         need[f] = lanes
     agree["status"] = float((ker.status == pln.status).double().mean())
     need["status"] = MIN_LANE_AGREEMENT
+    if cfg.boundary_rows:   # a check where no boundary row binds proves little
+        extra["active_boundary_rows"] = active_boundary_rows(
+            cfg, ker.X, ocp.boundaries, ocp.boundary_signs)
     line = {"phase": "check", "kernel": eng.name, "case": name,
             "lanes": int(ocp.x0.shape[0]), "budget": eng.budget(cfg),
             "alphas": list(cfg.ip_alphas if cfg.method == "ip"
@@ -515,6 +595,111 @@ def phase_check_ip(dev):
     return results
 
 
+def loop_inputs(dev, lcfg, lp, steps):
+    """{step: (ocp, state)}: the inputs the closed loop of ``lcfg`` hands
+    its solve at each of ``steps``, the loop run on the card."""
+    from mpc_tpu_torch.planner import closed_loop as cl
+    solve = functools.partial(cl.select_engine(
+        lcfg.solver, lp.boundaries is not None), device=dev)
+    state = cl._batch_cold_start(lcfg, lp, solve)
+    n = lp.x_init.shape[0]
+    carry = (0, lp.x_init, state,
+             torch.zeros((n,), dtype=torch.int64, device=dev))
+    window, step_obs, make_ocp = cl._batch_helpers(lcfg, lp)
+    out = {}
+    for k in range(max(steps) + 1):
+        if k in steps:
+            _, x, st, bases = carry
+            out[k] = (make_ocp(x, window(k, x, bases)[0], step_obs(k)), st)
+        carry, _ = cl._batched_step(lcfg, lp, solve, carry, None)
+    return out
+
+
+def gate_calibration(name, cfg, ocp, state):
+    """The plain version's own float32 and float64 solves at one input:
+    the share of lanes on which they agree in status and within each
+    band (no gate: it says where the gates can hold)."""
+    eng = engine(cfg)
+    p32 = eng.solution(cfg, eng.plain(cfg, ocp, state), state)
+    ocp64, st64 = as_float64(ocp, state)
+    p64 = eng.solution(cfg, eng.plain(cfg, ocp64, st64), st64)
+    torch.cuda.synchronize()
+    agree = {f: float(lanes_close(getattr(p32, f).double(), getattr(p64, f),
+                                  *band).double().mean())
+             for f, band in eng.bands.items()}
+    agree["status"] = float((p32.status == p64.status).double().mean())
+    emit({"phase": "check", "kernel": eng.name, "case": name,
+          "plain_float32_vs_float64_lane_agreement": agree,
+          "active_boundary_rows": active_boundary_rows(
+              cfg, p32.X, ocp.boundaries, ocp.boundary_signs)})
+
+
+def phase_check_corridor(dev, row, kw, half_width):
+    """A corridor row's boundary-row instance against its plain version:
+    at B=2048 its warm-up budget on the loop's own cold start (step 0) and
+    its own budget on the solve its loop makes at LOOP_CHECK_STEP; at a
+    ragged B=250 its own budget on the bending road of
+    :func:`on_curved_road`, ``half_width`` m either side.  The last two
+    must bind.  Then the plain version against itself in float64 on the
+    loop's solve at GATE_STEP, where the car runs along the edge."""
+    from mpc_tpu_torch.ops import sqp as S
+    from mpc_tpu_torch.planner import closed_loop as cl
+    results = {}
+    lcfg, lp = bench_loop(n_lanes=B_CHECK, device=dev, **kw)
+    eng = engine(lcfg.solver)
+    wcfg, cfg = cl._warmup_cfg(lcfg), lcfg.solver
+    name = f"{row}_step0_warmup_{eng.budget(wcfg)}"
+    _, results[name] = compare(name, wcfg, ocp_at(lcfg, lp),
+                               S.init_state(cfg, device=dev, batch=B_CHECK))
+    ins = loop_inputs(dev, lcfg, lp, (GATE_STEP, LOOP_CHECK_STEP))
+    name = f"{row}_step{LOOP_CHECK_STEP}_{eng.budget(cfg)}"
+    ker, results[name] = compare(name, cfg, *ins[LOOP_CHECK_STEP])
+    binding = [active_boundary_rows(cfg, ker.X, ins[LOOP_CHECK_STEP][0]
+                                    .boundaries, lp.boundary_signs)]
+    lcfg, lp = bench_loop(n_lanes=B_SMALL, device=dev, **kw)
+    name = f"{row}_road{half_width}_{eng.budget(cfg)}"
+    ocp = on_curved_road(lcfg, lp, half_width)
+    ker, results[name] = compare(name, cfg, ocp,
+                                 S.init_state(cfg, device=dev, batch=B_SMALL))
+    binding.append(active_boundary_rows(cfg, ker.X, ocp.boundaries,
+                                        ocp.boundary_signs))
+    require(min(binding) > 0, f"{row}: a check where no boundary row binds")
+    gate_calibration(f"{row}_step{GATE_STEP}_plain_self", cfg,
+                     *ins[GATE_STEP])
+    return results
+
+
+def phase_check_linearize(dev):
+    """``linearize_boundaries`` on the card against the same call on the
+    CPU, at the rollout of U = 0 (a cold start's warm start): the corridor
+    at the bench shape (B=16384, H=30) and the bending road (B=250)."""
+    from mpc_tpu_torch.ops import fused_gn as F
+    from mpc_tpu_torch.ops import sqp as S
+    results = {}
+    for name, B, road in (("corridor", B_BENCH, False),
+                          ("road", B_SMALL, True)):
+        lcfg, lp = bench_loop(n_lanes=B, device=dev, **SOFT_CORRIDOR)
+        cfg = lcfg.solver
+        ocp = (on_curved_road(lcfg, lp, 1.7) if road
+               else ocp_on_step(lcfg, lp, GATE_STEP))
+        st = S.init_state(cfg, device=dev, batch=B)
+        X0 = S._rollout(cfg, ocp.x0, st.U)
+        card = F.linearize_boundaries(cfg, X0, ocp.boundaries,
+                                      ocp.boundary_signs)
+        cpu = F.linearize_boundaries(cfg, X0.cpu(), ocp.boundaries.cpu(),
+                                     ocp.boundary_signs.cpu())
+        err = max_abs(card.cpu(), cpu)
+        results[name] = err
+        emit({"phase": "check", "kernel": "linearize_boundaries",
+              "case": name, "lanes": B, "horizon": H,
+              "max_abs_err_vs_cpu": err,
+              "active_boundary_rows": active_boundary_rows(
+                  cfg, X0, ocp.boundaries, ocp.boundary_signs)})
+        require(err < 1e-3, f"linearize_boundaries {name}: card and CPU "
+                            f"differ by {err}")
+    return results
+
+
 def random_lqr(rng, B, Hs, device="cpu"):
     """B random well-conditioned LQR problems of Hs stages with a nonzero
     defect r: the distribution of tests/test_riccati.py's generator (SPD
@@ -555,6 +740,50 @@ def with_road_boundaries(ocp, half_width=4.0):
     signs = torch.tensor([-1.0, 1.0], dtype=xy.dtype, device=xy.device)
     return ocp._replace(boundaries=bnd.contiguous(),
                         boundary_signs=signs.expand(xy.shape[0], 2).clone())
+
+
+def ocp_on_step(lcfg, lp, step, seed=0):
+    """The OCP of bench-loop step ``step`` with each lane's start moved onto
+    the window's first reference state plus the jitter of
+    ``make_bench_loop``'s starts (a numpy generator seeded with
+    ``seed``)."""
+    ocp = ocp_at(lcfg, lp, step)
+    B = ocp.x0.shape[0]
+    jitter = np.random.default_rng(seed).standard_normal((B, 5)) * [
+        0.5, 0.15, 0.0, 0.5, 0.01]
+    return ocp._replace(x0=ocp.x_ref[:, 0] + torch.as_tensor(
+        jitter, dtype=ocp.x0.dtype, device=ocp.x0.device))
+
+
+def on_curved_road(lcfg, lp, half_width, step=ROAD_STEP):
+    """:func:`ocp_on_step` at a step whose reference window lies in the
+    overtake's swerve, inside a road ``half_width`` m either side of the
+    window (:func:`with_road_boundaries`): the road bends, and a half-width
+    a little above r_ego = 1.2 m makes its rows bind."""
+    return with_road_boundaries(ocp_on_step(lcfg, lp, step), half_width)
+
+
+def boundary_margins(cfg, X, boundaries, signs):
+    """(..., S, 6): each road-boundary row's signed distance less its bound
+    r_ego at the states X (B, S, 5): the rows' models taken at X itself
+    (``linearize_boundaries``, in chunks of lanes), which are exact there."""
+    from mpc_tpu_torch.models import constraints as C
+    from mpc_tpu_torch.ops import fused_gn as F
+    m = F.linearize_boundaries(cfg, X, boundaries, signs).unflatten(-1,
+                                                                    (6, 3))
+    r_ego, spacing = C.approx_circle_radius(cfg.ego_length, cfg.ego_width)
+    ks = torch.tensor([0.0, spacing / 4.0, -spacing / 4.0], dtype=X.dtype,
+                      device=X.device).repeat_interleave(2)   # idx = 2 i + j
+    cx = X[..., 0:1] + ks * torch.cos(X[..., 4:5])
+    cy = X[..., 1:2] + ks * torch.sin(X[..., 4:5])
+    return m[..., 0] * cx + m[..., 1] * cy + m[..., 2] - r_ego
+
+
+def active_boundary_rows(cfg, X, boundaries, signs, band=ACTIVE_BAND):
+    """Lane-stages of X (B, S, 5) where a road-boundary row lies within
+    ``band`` m of its bound r_ego or beyond it."""
+    return int((boundary_margins(cfg, X, boundaries, signs) < band).any(
+        -1).sum())
 
 
 def gn_problem(cfg, ocp, state):
@@ -728,20 +957,42 @@ def phase_check_sqp_vec(dev):
 def phase_loop_vs_plain(dev, row, **budget):
     """The first steps of a bench loop on the card vs the plain loop on the
     CPU (bands of tests/test_torch_closed_loop.py)."""
-    from mpc_tpu_torch.planner import closed_loop as cl
     B, T = 64, 10
     lcfg, lp = bench_loop(n_lanes=B, device="cpu", **budget)
-    lcfg = dataclasses.replace(lcfg, n_steps=T)
+    loop_vs_plain(dev, row, dataclasses.replace(lcfg, n_steps=T), lp,
+                  budget)
+
+
+def loop_vs_plain(dev, row, lcfg, lp, config):
+    """The loop ``lcfg`` of the lanes ``lp`` (on the CPU) on the card and on
+    the CPU (plain version), held to the bands of
+    tests/test_torch_closed_loop.py: X 5e-2, U 5e-3, the same feasibility.
+    With boundary rows U is held to 5e-3 or to the plain loop's own spread,
+    whichever is larger: how far the same plain loop moves in float64,
+    since the corridor rows' ladders and degenerate duals make their loops
+    part by rounding alone (tests/test_torch_boundary_rows.py)."""
+    from mpc_tpu_torch.planner import closed_loop as cl
     ref = cl.closed_loop_batch_vec(lcfg, lp, device="cpu")
     got = cl.closed_loop_batch_vec(lcfg, lp, device=dev)
     err_x = max_abs(got.X.cpu(), ref.X)
     err_u = max_abs(got.U.cpu(), ref.U)
     same_feas = bool(torch.equal(got.status.cpu() >= 0, ref.status >= 0))
-    emit({"phase": "loop_vs_plain", "row": row, "lanes": B, "steps": T,
-          "config": budget, "max_abs_err": {"X": err_x, "U": err_u},
-          "feasible_steps": int((got.status >= 0).sum()),
-          "feasibility_equal": same_feas})
-    require(err_x < 5e-2 and err_u < 5e-3 and same_feas,
+    line = {"phase": "loop_vs_plain", "row": row,
+            "lanes": int(lp.x_init.shape[0]), "steps": lcfg.n_steps,
+            "config": {k: v for k, v in config.items() if k != "corridor"},
+            "max_abs_err": {"X": err_x, "U": err_u},
+            "feasible_steps": int((got.status >= 0).sum()),
+            "feasibility_equal": same_feas}
+    band_u = 5e-3
+    if lcfg.solver.boundary_rows:
+        line["active_boundary_lane_steps"] = active_boundary_rows(
+            lcfg.solver, got.X.cpu(), lp.boundaries, lp.boundary_signs)
+        lp64 = lp.map(lambda t: t.double() if t.is_floating_point() else t)
+        f64 = cl.closed_loop_batch_vec(lcfg, lp64, device="cpu")
+        line["plain_spread_U"] = max_abs(f64.U, ref.U)
+        band_u = max(band_u, line["plain_spread_U"])
+    emit(line)
+    require(err_x < 5e-2 and err_u <= band_u and same_feas,
             f"{row} closed loop on the card differs from the plain loop")
 
 
@@ -769,26 +1020,41 @@ class _OpCount(TorchDispatchMode):
         return out
 
 
-def ops_per_lane(cfg):
+def ops_per_lane(cfg, ocp=None):
     """fp32 operations of one lane's solve under ``cfg``, counted on the
-    plain version at one lane on the CPU.  The plain version recomputes
-    rows and Jacobians that the kernel reads from its caches, so the count
-    is a little high."""
+    plain version at one lane on the CPU: lane 0 of ``ocp``, or of the
+    bench loop's step-0 OCP.  The plain version recomputes rows and
+    Jacobians that the kernel reads from its caches, so the count is a
+    little high.  The boundary rows' models (``boundary_models``, host-side
+    glue before the launch) are taken outside the count."""
+    from mpc_tpu_torch.ops import fused_gn as F
     from mpc_tpu_torch.ops import sqp as S
-    lcfg, lp = bench_loop(n_lanes=1, device="cpu")
-    ocp = ocp_at(lcfg, lp)
-    with _OpCount() as c:
-        engine(cfg).plain(cfg, ocp, S.init_state(cfg, batch=1))
+    if ocp is None:
+        lcfg, lp = bench_loop(n_lanes=1, device="cpu", horizon=cfg.horizon)
+        ocp = ocp_at(lcfg, lp)
+    ocp = type(ocp)(*(None if t is None else t.map(lambda w: w[:1].cpu())
+                      if hasattr(t, "map") else t[:1].cpu() for t in ocp))
+    st = S.init_state(cfg, batch=1)
+    bnd = F.boundary_models(cfg, ocp, st)
+    real = F.boundary_models
+    F.boundary_models = lambda *a: bnd
+    try:
+        with _OpCount() as c:
+            engine(cfg).plain(cfg, ocp, st)
+    finally:
+        F.boundary_models = real
     return c.n
 
 
 def kernel_bytes(cfg, bufs):
-    """Bytes the solve must move: each input read once, each output
-    written once (the warm-start state is both)."""
+    """Bytes the solve must move: each input read once (the boundary rows'
+    models among them), each output written once (the warm-start state is
+    both)."""
     inputs, state, outputs = engine(cfg).kernel_io
 
     def nbytes(names):
-        return sum(bufs[n].numel() * bufs[n].element_size() for n in names)
+        return sum(bufs[n].numel() * bufs[n].element_size() for n in names
+                   if n in bufs)
     return nbytes(inputs) + 2 * nbytes(state) + nbytes(outputs)
 
 
@@ -812,7 +1078,8 @@ def time_kernel_ms(cfg, ocp, state, reps, geometry):
     eng = engine(cfg)
     times = []
     for i in range(reps + 1):
-        bufs = eng.pack(cfg, ocp, state, trace_rungs=False)
+        # with the ladder on, the rungs are recorded for the check's replay
+        bufs = eng.pack(cfg, ocp, state, trace_rungs=eng.ladder(cfg))
         ms, _ = cuda_ms(lambda: eng.launch(cfg, bufs, geometry))
         if i:
             times.append(ms)
@@ -827,10 +1094,17 @@ def time_plain_ms(cfg, ocp, state, reps):
     return min(ms for ms, _ in runs), runs[-1][1]
 
 
-def phase_timing(dev, cold_kw, warm_kw, warm_reps=20, cold_reps=5):
+def phase_timing(dev, cold_kw, warm_kw, warm_reps=20, cold_reps=5,
+                 row=None):
     """Per-launch times of one kernel at the bench shape: the warm budget
     from the cold-start state and the cold budget from ``init_state``, at
-    the default launch geometry and at each value of the engine's sweep."""
+    the default launch geometry and at each value of the engine's sweep.
+    For a corridor ``row`` (boundary rows): its own budget (warm) on the
+    solve its loop makes at LOOP_CHECK_STEP, where rows bind, and its
+    warm-up budget (cold) on the loop's cold start, at the default
+    geometry only, with the time of the boundary rows' models
+    (``boundary_models``, the glue before each launch)."""
+    from mpc_tpu_torch.ops import fused_gn as F
     from mpc_tpu_torch.ops import sqp as S
     lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **cold_kw)
     ocp = ocp_at(lcfg, lp)
@@ -838,33 +1112,51 @@ def phase_timing(dev, cold_kw, warm_kw, warm_reps=20, cold_reps=5):
     warm_cfg = dataclasses.replace(cold_cfg, **warm_kw)
     eng = engine(cold_cfg)
     st0 = S.init_state(cold_cfg, device=dev, batch=B_BENCH)
-    bufs = eng.pack(cold_cfg, ocp, st0, trace_rungs=False)
-    eng.launch(cold_cfg, bufs)
-    warm_state = eng.solution(cold_cfg, eng.unpack(bufs), st0).state
+    if row:
+        wocp, warm_state = loop_inputs(dev, dataclasses.replace(
+            lcfg, solver=warm_cfg), lp, (LOOP_CHECK_STEP,))[LOOP_CHECK_STEP]
+    else:
+        bufs = eng.pack(cold_cfg, ocp, st0, trace_rungs=False)
+        eng.launch(cold_cfg, bufs)
+        wocp = ocp
+        warm_state = eng.solution(cold_cfg, eng.unpack(bufs), st0).state
     out = {}
-    for case, cfg, state, reps in (
-            (f"warm_{eng.budget(warm_cfg)}", warm_cfg, warm_state, warm_reps),
-            (f"cold_{eng.budget(cold_cfg)}", cold_cfg, st0, cold_reps)):
+    for case, cfg, ocp, state, reps in (
+            (f"warm_{eng.budget(warm_cfg)}", warm_cfg, wocp, warm_state,
+             warm_reps),
+            (f"cold_{eng.budget(cold_cfg)}", cold_cfg, ocp, st0, cold_reps)):
         ms, bufs = time_kernel_ms(cfg, ocp, state, reps, eng.default)
         by_geometry = {g: time_kernel_ms(cfg, ocp, state, reps, g)[0]
-                       for g in eng.sweep(cfg)}
+                       for g in (() if row else eng.sweep(cfg))}
         plain_ms, plain = time_plain_ms(cfg, ocp, state,
                                         3 if case.startswith("warm") else 1)
-        _, errs = compare(f"timed_{case}", cfg, ocp, state, bufs, plain)
+        _, errs = compare(f"timed_{row + '_' if row else ''}{case}", cfg, ocp,
+                          state, bufs, plain)
         nbytes = kernel_bytes(cfg, bufs)
-        ops = ops_per_lane(cfg) * B_BENCH
+        ops = ops_per_lane(cfg, ocp if row else None) * B_BENCH
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
         out[case] = {
             "ms": ms, eng.geometry: eng.default,
-            f"ms_by_{eng.geometry}": {str(g): v
-                                      for g, v in by_geometry.items()},
             "plain_ms": plain_ms, "bytes": nbytes, "fp32_ops": ops,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "max_abs_err": errs}
-        emit({"phase": "timing", "kernel": eng.name, "case": case,
-              "lanes": B_BENCH, "horizon": H, **out[case]})
+        if by_geometry:
+            out[case][f"ms_by_{eng.geometry}"] = {
+                str(g): v for g, v in by_geometry.items()}
+        if row:   # the glue before each launch, and its peak memory
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            times = sorted(cuda_ms(lambda: F.boundary_models(
+                cfg, ocp, state))[0] for _ in range(5))
+            out[case]["boundary_models_ms"] = times[2]
+            out[case]["boundary_models_peak_bytes"] = (
+                torch.cuda.max_memory_allocated() - base)
+        emit({"phase": "timing", "kernel": eng.name,
+              **({"row": row} if row else {}), "case": case,
+              "lanes": B_BENCH, "horizon": cfg.horizon, **out[case]})
     return out
 
 
@@ -958,14 +1250,33 @@ def row_kernel(lcfg):
                        + lcfg.n_steps * scfg.al_iters * scfg.sqp_iters)
 
 
+def infeasible_vs_plain(dev, row, lcfg, lp, status, most=64):
+    """The first steps of (at most ``most``) lanes with an infeasible step
+    in the card's loop, up to their last first infeasible step, on the card
+    against the plain loop on the CPU: a corridor row's infeasible steps
+    are a finding, held to the plain version."""
+    bad = (status < 0).cpu()
+    lanes = bad.any(1).nonzero()[:, 0][:most]
+    steps = int(bad[lanes].int().argmax(1).max()) + 1
+    sub = lp.map(lambda t: t.cpu()[lanes] if t.dim() else t.cpu())
+    loop_vs_plain(dev, f"{row}-infeasible-lanes",
+                  dataclasses.replace(lcfg, n_steps=steps), sub,
+                  {"lanes": lanes.tolist()})
+
+
 def phase_loop(dev, card, row, budget, **kw):
-    """One bench row: ``closed_loop_batch_vec`` at B=16384, H=30, T=100,
-    the launches of every kernel counted in a first run (the row's kernel
-    alone, as often as the row needs it) and its peak device memory, then
-    solves/s with CUDA events, best of 3 (one run when the counted run took
-    longer than ONE_TIMED_RUN_S)."""
+    """One bench row: ``closed_loop_batch_vec`` at B=16384, T=100 (H=30, or
+    the row's), the launches of every kernel counted in a first run (the
+    row's kernel alone, as often as the row needs it) and its peak device
+    memory, then solves/s with CUDA events, best of 3 (one run when the
+    counted run took longer than ONE_TIMED_RUN_S).  Every step must be
+    feasible, except in a corridor row, whose infeasible steps are counted
+    and held against the plain version (:func:`infeasible_vs_plain`); a
+    corridor row also counts the lane-steps where a boundary row is
+    active."""
     from mpc_tpu_torch.planner import closed_loop as cl
     lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **kw)
+    corridor = kw.get("corridor", False)
     kernel, want = row_kernel(lcfg)
 
     def run():
@@ -987,12 +1298,21 @@ def phase_loop(dev, card, row, budget, **kw):
     total = B_BENCH * T_BENCH
     require(tuple(res.X.shape) == (B_BENCH, T_BENCH, 5), "loop X shape")
     require(bool(torch.isfinite(checksum)), "loop checksum is not finite")
-    require(int(feasible) == total,
+    require(corridor or int(feasible) == total,
             f"{row}: feasible steps {int(feasible)} of {total}")
     require(launches[kernel] == want,
             f"{row}: {kernel} launches {launches[kernel]}, want {want}")
     others = {k: n for k, n in launches.items() if k != kernel and n}
     require(not others, f"{row}: other kernels launched: {others}")
+    extra = {}
+    if corridor:
+        extra["active_boundary_lane_steps"] = active_boundary_rows(
+            lcfg.solver, res.X, lp.boundaries, lp.boundary_signs)
+        extra["max_lateral_y"] = float(res.X[..., 1].max())
+        require(extra["active_boundary_lane_steps"] > 0,
+                f"{row}: no boundary row is active in the loop")
+        if int(feasible) < total:
+            infeasible_vs_plain(dev, row, lcfg, lp, res.status)
     del res
 
     best = float("inf")
@@ -1002,13 +1322,14 @@ def phase_loop(dev, card, row, budget, **kw):
         require(int(feasible) == total, "feasible steps changed between runs")
         best = min(best, ms / 1e3)
     name, limit = [s.strip() for s in card.split(",", 1)]
+    Hs = lcfg.solver.horizon
     line = {"phase": "loop", "row": row, "impl": "torch-cuda",
-            "metric": "nmpc_solves_per_s_per_chip_h30",
+            "metric": f"nmpc_solves_per_s_per_chip_h{Hs}",
             "value": total / best, "unit": "solves/s/chip",
             "step_latency_ms": best / T_BENCH * 1e3, "loop_s": best,
             "timed_runs": timed_runs, "counted_run_s": counted_s,
             "feasible_steps": int(feasible), "total_solves": total,
-            "batch": B_BENCH, "horizon": H, "steps": T_BENCH,
+            "batch": B_BENCH, "horizon": Hs, "steps": T_BENCH, **extra,
             "budget": budget, "engine": lcfg.solver.engine,
             "cold_start_solves": lcfg.cold_start_solves,
             "kernel": kernel, "kernel_launches": launches[kernel],
@@ -1019,26 +1340,32 @@ def phase_loop(dev, card, row, budget, **kw):
     return line, lcfg, lp
 
 
-def phase_profile(dev, row, lcfg, lp, window=None):
+def phase_profile(dev, row, lcfg, lp, window=None, start=0):
     """Device time of one bench loop by kernel, from torch.profiler (the
     profiler's own host overhead widens the gaps between kernels, so the
     idle share comes from the unprofiled loop time).  ``window`` steps
-    profiles only that many steps after an unprofiled cold start, and only
-    the device's activity: a steady window, for a row of too many eager
-    launches to trace whole."""
-    from torch.profiler import ProfilerActivity, profile
+    profiles only that many steps from step ``start``, after an unprofiled
+    cold start and steps: a steady window, for a row of too many eager
+    launches to trace whole; only the device's activity, except with
+    boundary rows, whose rows' models (``linearize_boundaries``) are a
+    named range on the host."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from mpc_tpu_torch.ops import fused_gn as F
     from mpc_tpu_torch.planner import closed_loop as cl
     kernel, _ = row_kernel(lcfg)
     if window is None:
         def body():
             cl.closed_loop_batch_vec(lcfg, lp, device=dev)
     else:
-        solve = functools.partial(cl.select_engine(lcfg.solver), device=dev)
+        solve = functools.partial(cl.select_engine(
+            lcfg.solver, lp.boundaries is not None), device=dev)
         state = cl._batch_cold_start(lcfg, lp, solve)
         n = lp.x_init.shape[0]
         carry = (0, lp.x_init, state,
                  torch.zeros((n,), dtype=torch.int64, device=dev))
+        for _ in range(start):
+            carry, _ = cl._batched_step(lcfg, lp, solve, carry, None)
 
         def body():
             c = carry
@@ -1047,26 +1374,52 @@ def phase_profile(dev, row, lcfg, lp, window=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     activities = [ProfilerActivity.CUDA]
-    if window is None:
+    if window is None or lcfg.solver.boundary_rows:
         activities.append(ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
-        body()
-        torch.cuda.synchronize()
+    # the boundary rows' models (glue before each launch) as a named range
+    real = F.linearize_boundaries
+
+    def named(*a):
+        with record_function("linearize_boundaries"):
+            return real(*a)
+    F.linearize_boundaries = named
+    try:
+        with profile(activities=activities) as prof:
+            body()
+            torch.cuda.synchronize()
+    finally:
+        F.linearize_boundaries = real
     profiled_s = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
-    by_name = {}
+    by_name, span_ms = {}, 0.0
     for e in prof.events():
-        if e.device_type == cuda:
-            n, ms = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+        if e.device_type != cuda:
+            continue
+        if e.name == "linearize_boundaries":   # the range on the device
+            span_ms += e.time_range.elapsed_us() / 1e3
+            continue
+        n, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     require(by_name, "the profiler saw no device kernels")
     busy = sum(ms for _, ms in by_name.values())
     # "fused_ip_kernel<1>(IpArgs, IpBufs)" and the like
     fused = [v for k, v in by_name.items() if f"{kernel}_kernel" in k]
     copies = [v for k, v in by_name.items() if "opy" in k]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    line = {"phase": "profile", "row": row,
-            "window_steps": window if window else "whole loop",
+    glue = {}
+    if lcfg.solver.boundary_rows:
+        # the kernels launched inside the range (its host-side entry), and
+        # the range's span on the device timeline
+        rng = [e for e in prof.key_averages() if e.key ==
+               "linearize_boundaries"
+               and e.device_type == torch.autograd.DeviceType.CPU]
+        glue = {"linearize_boundaries_calls": sum(e.count for e in rng),
+                "linearize_boundaries_kernels_ms": sum(
+                    e.device_time_total for e in rng) / 1e3,
+                "linearize_boundaries_span_ms": span_ms}
+    line = {"phase": "profile", "row": row, **glue,
+            "window_steps": (f"{start}..{start + window - 1}" if window
+                             else "whole loop"),
             "profiled_wall_ms": profiled_s * 1e3, "device_busy_ms": busy,
             "kernel": kernel, "kernel_ms": sum(ms for _, ms in fused),
             "kernel_launches_seen": sum(n for n, _ in fused),
@@ -1079,9 +1432,39 @@ def phase_profile(dev, row, lcfg, lp, window=None):
     return line
 
 
-def kernel_line(eng, loop, timing, warm, cold, checks, build):
+def boundary_instance_line(eng, loop, timing, warm, cold, checks, build):
+    """The boundary-row instance of one fused kernel in its corridor row:
+    the launches of the row's loop, the largest errors of its checks, the
+    times of its own budget (warm) and warm-up budget (cold) with their
+    bounds and the glue of the rows' models, its registers, spills and
+    shared memory."""
+    errs = list(checks.values()) + [t["max_abs_err"]
+                                    for t in timing.values()]
+    info = build[eng.name]["boundary_instance"]
+    return {
+        "row": loop["row"], "launches": loop["kernel_launches"],
+        "feasible_steps": loop["feasible_steps"],
+        "total_solves": loop["total_solves"],
+        "active_boundary_lane_steps": loop["active_boundary_lane_steps"],
+        "max_abs_err": max(e["U"] for e in errs),
+        "max_abs_err_X": max(e["X"] for e in errs),
+        "ms": timing[warm]["ms"], "plain_ms": timing[warm]["plain_ms"],
+        "bound_ms": timing[warm]["bound_ms"],
+        "bound_by": timing[warm]["bound_by"], "library_ms": None,
+        "boundary_models_ms": timing[warm]["boundary_models_ms"],
+        cold: timing[cold],
+        "registers": info["registers"],
+        "spill_stores": info["spill_stores"],
+        "spill_loads": info["spill_loads"],
+        "smem_bytes_per_block": info["smem_bytes_per_block"],
+        "geometry": info["geometry"]}
+
+
+def kernel_line(eng, loop, timing, warm, cold, checks, build,
+                boundary=None):
     """The kernels-line entry of one fused kernel: the warm bench budget's
-    times, the main path's launches, the largest errors of every check."""
+    times, the main path's launches, the largest errors of every check;
+    ``boundary``: its boundary-row instance's entry."""
     errs = list(checks.values()) + [t["max_abs_err"]
                                     for t in timing.values()]
     info = build[eng.name]
@@ -1103,6 +1486,7 @@ def kernel_line(eng, loop, timing, warm, cold, checks, build):
         "spill_loads": info["spill_loads"],
         "smem_bytes_per_block": info["smem_bytes_per_block"],
         **({"geometry": info["geometry"]} if "geometry" in info else {}),
+        **({"boundary_instance": boundary} if boundary else {}),
         "ok": True}
 
 
@@ -1160,17 +1544,30 @@ def main() -> int:
     checks_ip = timed("check_fused_ip", phase_check_ip, dev)
     checks_ric = timed("check_riccati", phase_check_riccati, dev)
     checks_vec = timed("check_xla", phase_check_sqp_vec, dev)
+    checks_sc = timed("check_soft_corridor", phase_check_corridor, dev,
+                      "soft-corridor", SOFT_CORRIDOR, 1.7)
+    checks_hc = timed("check_hard_corridor", phase_check_corridor, dev,
+                      "hard-corridor", HARD_CORRIDOR, 1.9)
+    timed("check_linearize", phase_check_linearize, dev)
     for row, kw in (("soft", WARM), ("hard", IP_WARM),
                     ("soft-xla", XLA_WARM),
                     ("soft-xla-backoff", dict(rti_margin=0.1,
                                               rti_amax_scale=0.9,
                                               **XLA_WARM)),
-                    ("hard-gate1", dict(gate_stages=1, **IP_WARM))):
+                    ("hard-gate1", dict(gate_stages=1, **IP_WARM)),
+                    ("hard-corridor", HARD_CORRIDOR),
+                    ("soft-corridor", SOFT_CORRIDOR)):
         timed(f"loop_vs_plain_{row}", phase_loop_vs_plain, dev, row, **kw)
     timing = timed("timing_fused_gn", phase_timing, dev, COLD, WARM)
     timing_ip = timed("timing_fused_ip", phase_timing, dev, IP_COLD,
                       IP_WARM)
     timing_ric = timed("timing_riccati", phase_timing_riccati, dev)
+    timing_sc = timed("timing_soft_corridor", phase_timing, dev,
+                      SOFT_CORRIDOR, {}, 10, 3, row="soft-corridor")
+    timing_hc = timed("timing_hard_corridor", phase_timing, dev,
+                      dict(HARD_CORRIDOR, ip_sqp_iters=5, ip_iters=10),
+                      dict(ip_sqp_iters=2, ip_iters=6), 10, 3,
+                      row="hard-corridor")
     loop, lcfg, lp = timed(
         "loop_soft", phase_loop, dev, card, "soft",
         "al 1x1, alphas=() (unguarded RTI step)", method="al", **WARM)
@@ -1185,12 +1582,27 @@ def main() -> int:
         "loop_xla", phase_loop, dev, card, "xla",
         "al 1x1, alphas=() (unguarded RTI step), engine='xla'", **XLA_WARM)
     timed("profile_xla", phase_profile, dev, "xla", lcfg, lp, window=5)
+    loop_hc, lcfg, lp = timed(
+        "loop_hard_corridor", phase_loop, dev, card, "hard-corridor",
+        "ip 2x6, warm duals, default ip_alphas, boundary rows, H=14 "
+        "(config_CA_ZAM_Over-1_1_forcespro.yaml)", **HARD_CORRIDOR)
+    timed("profile_hard_corridor", phase_profile, dev, "hard-corridor",
+          lcfg, lp, window=10, start=GATE_STEP)
+    loop_sc, lcfg, lp = timed(
+        "loop_soft_corridor", phase_loop, dev, card, "soft-corridor",
+        "al 3x4, default alphas, boundary rows", **SOFT_CORRIDOR)
+    timed("profile_soft_corridor", phase_profile, dev, "soft-corridor",
+          lcfg, lp, window=10, start=GATE_STEP)
 
     kernels = [
         kernel_line(soft, loop, timing, "warm_1x1", "cold_3x4", checks,
-                    build),
+                    build, boundary_instance_line(
+                        soft, loop_sc, timing_sc, "warm_3x4", "cold_3x4",
+                        checks_sc, build)),
         kernel_line(hard, loop_ip, timing_ip, "warm_1x4", "cold_5x10",
-                    checks_ip, build),
+                    checks_ip, build, boundary_instance_line(
+                        hard, loop_hc, timing_hc, "warm_2x6", "cold_5x10",
+                        checks_hc, build)),
         riccati_kernel_line(loop_xla, timing_ric, checks_ric, checks_vec,
                             build)]
     print(card, flush=True)

@@ -24,8 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 # C signatures: name -> (function, argtypes)
 SIGNATURES = {
-    "fused_gn": ("fused_gn_solve", [_P] * 20),
-    "fused_ip": ("fused_ip_solve", [_P] * 14),
+    "fused_gn": ("fused_gn_solve", [_P] * 21),
+    "fused_ip": ("fused_ip_solve", [_P] * 15),
     "riccati": ("riccati_sweep", [_P] * 15),
 }
 

@@ -73,6 +73,14 @@
 //   (fused_gn_geometry): the most whose blocks are all resident at once.
 // - No tensor cores: the products are 5x5 in float32, and TF32 would break
 //   the float32 bands.
+// - Road-boundary rows (BND, a template parameter: the instances without
+//   them compile as before): 6 more rows a stage, whose models (18 floats
+//   a stage, fused_gn.py::linearize_boundaries) the producers read from
+//   device memory where they build a stage's rows.  Their gradients touch
+//   only Q00, Q01, Q11, Q04, Q14, Q44 and qx0, qx1, qx4, which the ring's
+//   43-float operand already carries, so the ring, the sweep and the
+//   shared memory a lane are the same in both instances; the multipliers,
+//   penalties and violations take 20 rows a stage in place of 14.
 //
 // Semantics kept from the TPU kernel on purpose: clips, maxima and signs
 // propagate NaN (compares, not fminf/fmaxf), the unguarded step scrubs K
@@ -104,6 +112,8 @@ struct FgnArgs {
   float mu0, mu_factor, mu_max, viol_improve, lam_max, tol_feas, tol_stat;
   float tol_infeas;
   float alphas[MAX_ALPHAS];
+  int32_t boundary;  // 1: the instance with the road-boundary rows
+  float r_ego;       // their bound: r_ego <= h
 };
 
 #define NSTG 3    // stages in flight in a rollout's staging ring
@@ -187,13 +197,14 @@ __device__ __forceinline__ void al_one_sided(float h, float bound, float lam,
 
 // AL terms of row i at value h: psi, d psi / d h and the GN diagonal,
 // summed over its sides, with the row's multipliers (ll, lh, mu).
+template <bool BND>
 __device__ __forceinline__ void row_term(const FgnArgs& a, int i, float h,
                                          bool is_term, float mind, float ll,
                                          float lh, float mu, float& psi,
                                          float& gh, float& gn) {
   bool has_lo, has_hi;
   float lo, hi;
-  row_bounds(a, i, is_term, mind, has_lo, lo, has_hi, hi);
+  row_bounds_of<BND>(a, i, is_term, mind, has_lo, lo, has_hi, hi);
   float ps = 0.f, g = 0.f, n = 0.f, p1, g1, n1;
   if (has_hi) {
     al_one_sided(h, hi, lh, mu, true, p1, g1, n1);
@@ -222,11 +233,12 @@ struct Bufs {
   int32_t* status;  // (B): 1 converged, 0 feasible, -7 infeasible
   float *K, *d, *Xc, *Uc;
   int32_t* rung;  // (al_iters * sqp_iters, B) or null
+  const float* bnd;  // (H + 1, NBND, B) boundary rows' models or null
 };
 
 // One thread's share of a lane's solve: the stages it owns, and for warp 0
-// the lane's chains.
-template <int T>
+// the lane's chains.  BND: with the 6 road-boundary rows a stage.
+template <int T, bool BND>
 struct Solve {
   const FgnArgs& a;
   const Bufs& b;
@@ -241,6 +253,8 @@ struct Solve {
   float* const ring;   // (R, NOP, LPB) the ring of stage operands
   float* const pm;     // (LPB, PSTR) the sweep's P and p, lane by lane
   static constexpr int R = ring_slots(T);
+  static constexpr int NRB = nrows<BND>();  // rows a stage
+  using RowsT = RowsOf<BND>;
   float mind;
 
   __device__ Solve(const FgnArgs& a_, const Bufs& b_, int lane, bool live_,
@@ -291,8 +305,8 @@ struct Solve {
     const bool is_last = k == a.H;
     bool has_lo, has_hi;
     float lo, hi;
-    row_bounds(a, i, false, mind, has_lo, lo, has_hi, hi);
-    const size_t at = L.at(k, i, NR);
+    row_bounds_of<BND>(a, i, false, mind, has_lo, lo, has_hi, hi);
+    const size_t at = L.at(k, i, NRB);
     float nh = lh, nl = ll, v_hi = 0.f, v_lo = 0.f;
     if (has_hi) {
       nh = clipf(relu(lh + mu * (h - hi)), 0.f, a.lam_max);
@@ -325,15 +339,15 @@ struct Solve {
   // by row (so that no array of them stays live), after their update when
   // UPDATE; psi summed over the rows in order into ``psum``.
   template <bool UPDATE>
-  __device__ void terms(const Rows& r, int k, bool is_term, float& psum,
-                        float gh[NR], float gn[NR]) const {
+  __device__ void terms(const RowsT& r, int k, bool is_term, float& psum,
+                        float gh[NRB], float gn[NRB]) const {
 #pragma unroll
-    for (int i = 0; i < NR; ++i) {
+    for (int i = 0; i < NRB; ++i) {
       const float h = row_value(r, i);
-      const size_t at = L.at(k, i, NR);
+      const size_t at = L.at(k, i, NRB);
       float ll = b.lam_lo[at], lh = b.lam_hi[at], mu = b.mu[at], psi;
       if (UPDATE) update_row(k, i, h, ll, lh, mu);
-      row_term(a, i, h, is_term, mind, ll, lh, mu, psi, gh[i], gn[i]);
+      row_term<BND>(a, i, h, is_term, mind, ll, lh, mu, psi, gh[i], gn[i]);
       psum = i == 0 ? psi : psum + psi;
     }
   }
@@ -348,10 +362,15 @@ struct Solve {
     }
   }
   __device__ void fresh_rows(int k, const float x[NX], const float u[NU],
-                             bool is_term, Rows& r) const {
+                             bool is_term, RowsT& r) const {
     float o[6];
     obs_at(k, o);
     compute_rows(a, x, u, o, is_term, k == 0, r);
+    if constexpr (BND) {
+      float m[NBND];
+      load(b.bnd, k, NBND, m);
+      boundary_rows(a, x, m, r);
+    }
   }
 
   // ---- a stage's operands (field f of slot s of the ring)
@@ -473,9 +492,9 @@ struct Solve {
     xu(b.X, b.U, k, x, u);
     load(b.xref, k, NX, xref);
     weights(is_term, wx, wr);
-    Rows r;
+    RowsT r;
     fresh_rows(k, x, u, is_term && !UPDATE, r);
-    float psum, gh[NR], gn[NR];
+    float psum, gh[NRB], gn[NRB];
     terms<UPDATE>(r, k, is_term, psum, gh, gn);
     float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU];
     assemble_quad(r, gh, gn, x, u, xref, wx, wr, is_term,
@@ -530,11 +549,11 @@ struct Solve {
     if (!live) return;
     for (int k = w; k <= a.H; k += T) {
       const bool is_term = k == a.H;
-      float x[NX], u[NU], xref[NX], p, gh[NR], gn[NR], wx[NX], wr[NU];
+      float x[NX], u[NU], xref[NX], p, gh[NRB], gn[NRB], wx[NX], wr[NU];
       xu(Xs, Us, k, x, u);
       load(b.xref, k, NX, xref);
       weights(is_term, wx, wr);
-      Rows r;
+      RowsT r;
       fresh_rows(k, x, u, is_term, r);
       terms<false>(r, k, is_term, p, gh, gn);
       float c;
@@ -560,12 +579,12 @@ struct Solve {
     }
   }
 
-  __device__ float scaled_viol(const Rows& r, bool is_term, float v) const {
+  __device__ float scaled_viol(const RowsT& r, bool is_term, float v) const {
 #pragma unroll
-    for (int i = 0; i < NR; ++i) {
+    for (int i = 0; i < NRB; ++i) {
       bool has_lo, has_hi;
       float lo, hi;
-      row_bounds(a, i, is_term, mind, has_lo, lo, has_hi, hi);
+      row_bounds_of<BND>(a, i, is_term, mind, has_lo, lo, has_hi, hi);
       const float s = i == 0 ? a.inv_fr_scale : 1.f;
       const float h = row_value(r, i);
       if (has_hi) v = nmax(v, (h - hi) * s);
@@ -800,7 +819,7 @@ struct Solve {
 // warps fit an SM.  __grid_constant__: the Solve object keeps references
 // to the parameters, which then stay in the constant bank instead of a
 // local copy.
-template <int T>
+template <int T, bool BND>
 __global__ void __launch_bounds__(LPB * T, 16 / T)
 fused_gn_kernel(const __grid_constant__ FgnArgs a,
                 const __grid_constant__ Bufs b) {
@@ -808,7 +827,7 @@ fused_gn_kernel(const __grid_constant__ FgnArgs a,
   const int w = threadIdx.x / LPB, l = threadIdx.x % LPB;
   const int lane = blockIdx.x * LPB + l;
   const bool live = lane < a.B;
-  const Solve<T> s(a, b, live ? lane : a.B - 1, live, w, l, smem_dyn);
+  const Solve<T, BND> s(a, b, live ? lane : a.B - 1, live, w, l, smem_dyn);
   const bool chain = live && w == 0;
   if (chain) s.initial_rollout();
   __syncthreads();
@@ -837,13 +856,14 @@ fused_gn_kernel(const __grid_constant__ FgnArgs a,
 // The geometry of a launch (fused_gn_geometry fills out[] with it): threads
 // a lane given, or the most of 2, 4, 8 whose blocks are all resident at
 // once (occupancy API), else 2; lanes a block; shared bytes a lane and a
-// block; blocks resident an SM; registers a thread.
+// block; blocks resident an SM; registers a thread; of the instance with
+// or without the boundary rows (args->boundary).
 // The attribute and occupancy calls are made once per device and shared
 // memory size, and kept.
-template <int T>
+template <int T, bool BND>
 static int occupancy(const FgnArgs* args, int32_t out[6]) {
   static int dev_c = -1, smem_c = -1, nb = 0, regs = 0;
-  auto kernel = fused_gn_kernel<T>;
+  auto kernel = fused_gn_kernel<T, BND>;
   const int lane_bytes = lane_floats(args->H, T) * (int)sizeof(float);
   const int smem = LPB * lane_bytes;
   int dev = 0, err;
@@ -870,13 +890,19 @@ static int occupancy(const FgnArgs* args, int32_t out[6]) {
   return 0;
 }
 
+template <bool BND>
 static int occupancy_at(const FgnArgs* args, int T, int32_t out[6]) {
   switch (T) {
-    case 2: return occupancy<2>(args, out);
-    case 4: return occupancy<4>(args, out);
-    case 8: return occupancy<8>(args, out);
+    case 2: return occupancy<2, BND>(args, out);
+    case 4: return occupancy<4, BND>(args, out);
+    case 8: return occupancy<8, BND>(args, out);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+static int occupancy_at(const FgnArgs* args, int T, int32_t out[6]) {
+  return args->boundary ? occupancy_at<true>(args, T, out)
+                        : occupancy_at<false>(args, T, out);
 }
 
 static int geometry(const FgnArgs* args, int32_t out[6]) {
@@ -912,7 +938,9 @@ static int launch(const FgnArgs* args, const Bufs& b, size_t smem,
                   void* stream) {
   const int blocks = (args->B + LPB - 1) / LPB;
   const int threads = LPB * T;
-  fused_gn_kernel<T><<<blocks, threads, smem, (cudaStream_t)stream>>>(*args, b);
+  auto kernel = args->boundary ? fused_gn_kernel<T, true>
+                               : fused_gn_kernel<T, false>;
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(*args, b);
   return (int)cudaGetLastError();
 }
 
@@ -922,9 +950,11 @@ extern "C" int fused_gn_solve(const FgnArgs* args, const float* x0,
                               float* lam_lo, float* lam_hi, float* mu,
                               float* pviol, float* X, float* diag,
                               int32_t* status, float* K, float* d, float* Xc,
-                              float* Uc, int32_t* rung, void* stream) {
+                              float* Uc, int32_t* rung, const float* bnd,
+                              void* stream) {
+  if (args->boundary && !bnd) return (int)cudaErrorInvalidValue;
   Bufs b{x0, xref, obs, mind, w, U,  lam_lo, lam_hi, mu,
-         pviol, X, diag, status, K, d, Xc, Uc, rung};
+         pviol, X, diag, status, K, d, Xc, Uc, rung, bnd};
   int32_t g[6];
   int err = geometry(args, g);
   if (err) return err;

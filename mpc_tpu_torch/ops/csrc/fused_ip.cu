@@ -72,6 +72,14 @@
 //   and stores nothing, so that every warp meets the same __syncthreads.
 // - No tensor cores: the products are 5x5 in float32, and TF32 would break
 //   the float32 bands.
+// - Road-boundary rows (BND, a template parameter: the instances without
+//   them compile as before): 6 more rows a stage, built by each stage's
+//   owner from the stage's 18 floats of models in device memory
+//   (fused_gn.py::linearize_boundaries) wherever the rows of a rollout are
+//   computed; a stage's slacks and duals take 20 rows in the owner's
+//   registers, the rows cache 69 floats a stage (68, padded odd) in
+//   shared memory, so a lane takes more shared memory and a block fewer
+//   lanes.
 //
 // Semantics kept from the TPU kernel on purpose: maxima, minima and clips
 // propagate NaN; the unguarded step commits a non-finite rollout; a
@@ -89,6 +97,7 @@
 // bounds the lanes an SM holds (12 at H=30).
 #define MAX_LPB 12
 #define ROW_LD 45      // floats a stage in the rows cache (44, padded odd)
+#define ROW_LD_B 69    // the same with the boundary rows (68, padded odd)
 #define QUAD_LD 37     // floats a stage of the quadratics (36, padded odd)
 #define OBS_LD 7       // floats a stage of the obstacles (6, padded odd)
 #define FULL_MASK 0xffffffffu
@@ -124,6 +133,8 @@ struct IpArgs {
   float u_lo0, u_hi0, u_lo1, u_hi1, d_lo, d_hi, v_lo, v_hi;
   float rho, n_act;
   float alphas[MAX_ALPHAS];
+  int32_t boundary;  // 1: the instance with the road-boundary rows
+  float r_ego;       // their bound: r_ego <= h
 };
 
 // Every buffer lanes leading: (B, ...), one lane contiguous.
@@ -132,16 +143,18 @@ struct IpBufs {
   float *U, *z_lo, *z_hi;   // warm state, updated in place
   float *X, *pviol, *diag;  // outputs
   int32_t* rung;            // (ip_sqp_iters, B) or null
+  const float* bnd;         // (B, H + 1, NBND) boundary models or null
 };
 
-// Offsets (floats) of one lane's arrays in shared memory.
+// Offsets (floats) of one lane's arrays in shared memory; ``bnd``: the rows
+// cache of the boundary rows' instance.
 struct Layout {
   int rows, quad, ab, K, d, ddX, ddU, X, Xt, inc, U, Ut, xref, obs, P, p,
       stat, cst, total;
-  __host__ __device__ explicit Layout(int H) {
+  __host__ __device__ explicit Layout(int H, bool bnd = false) {
     const int S = H + 1;
     int o = 0;
-    rows = o;  o += ROW_LD * S;
+    rows = o;  o += (bnd ? ROW_LD_B : ROW_LD) * S;
     quad = o;  o += QUAD_LD * S;
     // a rollout's scratch shares the quadratics' space: the rollouts run
     // between the last Newton step of an RTI iteration and the next
@@ -185,6 +198,14 @@ __device__ __forceinline__ float row_lin(const Rows& r, int i,
   if (i < 12) return r.box[i - 10] + dU[i - 10];
   return r.box[i - 10] + dX[i - 10];
 }
+// the same with the boundary rows, whose gradient is a circle row's
+__device__ __forceinline__ float row_lin(const BndRows& r, int i,
+                                         const float dX[NX],
+                                         const float dU[NU]) {
+  if (i < NR) return row_lin(static_cast<const Rows&>(r), i, dX, dU);
+  const float* c = r.bnd[i - NR];
+  return c[0] + c[1] * dX[0] + c[2] * dX[1] + c[3] * dX[4];
+}
 
 // Fraction-to-boundary: min(amin, -v / dv) where dv < 0.
 __device__ __forceinline__ float ftb(float v, float dv, float amin) {
@@ -224,9 +245,10 @@ __device__ __forceinline__ float warp_max(float v) {
   return __shfl_sync(FULL_MASK, v, 0);
 }
 
-// One stage's Newton state, in its owner's registers.
+// One stage's Newton state, in its owner's registers (NRB rows a stage).
+template <int NRB>
 struct StageState {
-  float sl[NR], sh[NR], zl[NR], zh[NR];  // slacks and duals, both sides
+  float sl[NRB], sh[NRB], zl[NRB], zh[NRB];  // slacks and duals, both sides
   float dx[NX], du[NU];
 };
 
@@ -348,9 +370,12 @@ __device__ void adjoint_lane(const Args& a, float* sm, const Layout& L) {
 
 // One lane's solve, run by the 32 threads of its warp; the lanes of a
 // block meet at __syncthreads around the recursions that thread l of
-// warp 0 runs for lane l.
-template <int SPT>
+// warp 0 runs for lane l.  BND: with the 6 road-boundary rows a stage.
+template <int SPT, bool BND>
 struct IpLane {
+  static constexpr int NRB = nrows<BND>();  // rows a stage
+  static constexpr int RLD = BND ? ROW_LD_B : ROW_LD;  // the rows cache's
+  using RowsT = RowsOf<BND>;
   const IpArgs& a;
   const IpBufs& b;
   const int lane, t, w, lpb, H, S;
@@ -359,7 +384,7 @@ struct IpLane {
   float* const block_sm;   // the block's shared memory
   float* const sm;         // this lane's
   const Layout L;
-  StageState st[SPT];
+  StageState<NRB> st[SPT];
 
   __device__ __forceinline__ IpLane(const IpArgs& a_, const IpBufs& b_,
                                     int lane_, bool live_, int t_, int w_,
@@ -370,8 +395,8 @@ struct IpLane {
         sm(block_sm_ + (size_t)w_ * L_.total), L(L_) {}
 
   // ---- shared-memory views
-  __device__ __forceinline__ Rows& rows(int k) const {
-    return *reinterpret_cast<Rows*>(sm + L.rows + k * ROW_LD);
+  __device__ __forceinline__ RowsT& rows(int k) const {
+    return *reinterpret_cast<RowsT*>(sm + L.rows + k * RLD);
   }
   __device__ __forceinline__ float* quad(int k) const {
     return sm + L.quad + k * QUAD_LD;
@@ -393,12 +418,19 @@ struct IpLane {
   }
 
   __device__ void fresh_rows(int k, const float x[NX], const float u[NU],
-                             Rows& r) const {
+                             RowsT& r) const {
     const float* o = sm + L.obs + (a.moving ? k * OBS_LD : 0);
     float ob[6];
 #pragma unroll
     for (int i = 0; i < 6; ++i) ob[i] = o[i];
     compute_rows(a, x, u, ob, k == H, k == 0, r);
+    if constexpr (BND) {
+      const float* g = b.bnd + ((size_t)lane * S + k) * NBND;
+      float m[NBND];
+#pragma unroll
+      for (int i = 0; i < NBND; ++i) m[i] = g[i];
+      boundary_rows(a, x, m, r);
+    }
   }
 
   // ---- the lane's inputs into shared memory and registers
@@ -428,10 +460,10 @@ struct IpLane {
     for (int j = 0; j < SPT; ++j) {
       const int k = stage(j);
       if (k < 0) continue;
-      const float* zl = b.z_lo + (l * S + k) * NR;
-      const float* zh = b.z_hi + (l * S + k) * NR;
+      const float* zl = b.z_lo + (l * S + k) * NRB;
+      const float* zh = b.z_hi + (l * S + k) * NRB;
 #pragma unroll
-      for (int i = 0; i < NR; ++i) {
+      for (int i = 0; i < NRB; ++i) {
         st[j].zl[i] = zl[i];
         st[j].zh[i] = zh[i];
         st[j].sl[i] = st[j].sh[i] = 1.f;
@@ -454,10 +486,10 @@ struct IpLane {
     for (int j = 0; j < SPT; ++j) {
       const int k = stage(j);
       if (k < 0) continue;
-      float* zl = b.z_lo + (l * S + k) * NR;
-      float* zh = b.z_hi + (l * S + k) * NR;
+      float* zl = b.z_lo + (l * S + k) * NRB;
+      float* zh = b.z_hi + (l * S + k) * NRB;
 #pragma unroll
-      for (int i = 0; i < NR; ++i) {
+      for (int i = 0; i < NRB; ++i) {
         zl[i] = st[j].zl[i];
         zh[i] = st[j].zh[i];
       }
@@ -557,10 +589,10 @@ struct IpLane {
   }
 
   // max(lo - h, h - hi, 0) of row i (raw).
-  __device__ float row_viol(const Rows& r, int i, bool is_term) const {
+  __device__ float row_viol(const RowsT& r, int i, bool is_term) const {
     bool has_lo, has_hi;
     float lo, hi;
-    row_bounds(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
+    row_bounds_of<BND>(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
     const float h = row_value(r, i);
     float vi = 0.f;
     if (has_hi) vi = nmax(vi, h - hi);
@@ -572,10 +604,10 @@ struct IpLane {
     return i == 0 ? vi * a.inv_fr_scale : vi;
   }
   // sum over the rows of their scaled violations
-  __device__ float penalty_viol(const Rows& r, bool is_term) const {
+  __device__ float penalty_viol(const RowsT& r, bool is_term) const {
     float v = 0.f;
 #pragma unroll
-    for (int i = 0; i < NR; ++i) v = v + scaled(i, row_viol(r, i, is_term));
+    for (int i = 0; i < NRB; ++i) v = v + scaled(i, row_viol(r, i, is_term));
     return v;
   }
 
@@ -592,7 +624,7 @@ struct IpLane {
       const bool is_term = k == H;
       const float* x = Xs + k * NX;
       const float* u = Us + k * NU;
-      Rows r;
+      RowsT r;
       fresh_rows(k, x, u, r);
       if (write) rows(k) = r;
       if (merit) {
@@ -648,12 +680,12 @@ struct IpLane {
       const int k = stage(j);
       if (k < 0) continue;
       const bool is_term = k == H;
-      const Rows& r = rows(k);
+      const RowsT& r = rows(k);
 #pragma unroll
-      for (int i = 0; i < NR; ++i) {
+      for (int i = 0; i < NRB; ++i) {
         bool has_lo, has_hi;
         float lo, hi;
-        row_bounds(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
+        row_bounds_of<BND>(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
         const float h = row_value(r, i);
         float sl = 1.f, zl = 0.f, sh = 1.f, zh = 0.f;
         if (has_lo) side_init(h - lo, st[j].zl[i], a.warm != 0, sl, zl);
@@ -681,15 +713,15 @@ struct IpLane {
       const int k = stage(j);
       if (k < 0) continue;
       const bool is_term = k == H;
-      const StageState& s = st[j];
-      const Rows& r = rows(k);
-      float gh[NR], gn[NR];
+      const StageState<NRB>& s = st[j];
+      const RowsT& r = rows(k);
+      float gh[NRB], gn[NRB];
       {
 #pragma unroll
-        for (int i = 0; i < NR; ++i) {
+        for (int i = 0; i < NRB; ++i) {
           bool has_lo, has_hi;
           float lo, hi;
-          row_bounds(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
+          row_bounds_of<BND>(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
           const float c = row_lin(r, i, s.dx, s.du);
           float w = 0.f, sig = 0.f;
           if (has_hi) {
@@ -763,7 +795,7 @@ struct IpLane {
 
   // Slack and dual steps of row i from the current (dX, dU) and the
   // Newton direction; a missing side steps by 0.
-  __device__ __forceinline__ void side_steps(const StageState& s, int i,
+  __device__ __forceinline__ void side_steps(const StageState<NRB>& s, int i,
                                              bool has_lo, float lo,
                                              bool has_hi, float hi, float c,
                                              float jd, float mu_b, float& dsl,
@@ -796,15 +828,15 @@ struct IpLane {
       const int k = stage(j);
       if (k < 0) continue;
       const bool is_term = k == H;
-      StageState& s = st[j];
-      const Rows& r = rows(k);
+      StageState<NRB>& s = st[j];
+      const RowsT& r = rows(k);
       const float* ddx = sm + L.ddX + k * NX;
       const float* ddu = sm + L.ddU + k * NU;
 #pragma unroll
-      for (int i = 0; i < NR; ++i) {
+      for (int i = 0; i < NRB; ++i) {
         bool has_lo, has_hi;
         float lo, hi;
-        row_bounds(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
+        row_bounds_of<BND>(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
         const float c = row_lin(r, i, s.dx, s.du);
         const float jd = row_lin(r, i, ddx, ddu) - row_value(r, i);
         float dsl, dzl, dsh, dzh;
@@ -891,7 +923,7 @@ struct IpLane {
   // cost at the final iterate; rows from the cache, (A, B) recomputed.
   // The per-stage terms on the owners, the adjoint on one thread.
   __device__ void diagnostics() {
-    const float zero[NR] = {};
+    const float zero[NRB] = {};
     const size_t l = (size_t)lane;
     float viol = 0.f, cost = 0.f;
 #pragma unroll
@@ -899,10 +931,10 @@ struct IpLane {
       const int k = stage(j);
       if (k < 0) continue;
       const bool is_term = k == H;
-      const Rows& r = rows(k);
-      float lr[NR];
+      const RowsT& r = rows(k);
+      float lr[NRB];
 #pragma unroll
-      for (int i = 0; i < NR; ++i) lr[i] = st[j].zh[i] - st[j].zl[i];
+      for (int i = 0; i < NRB; ++i) lr[i] = st[j].zh[i] - st[j].zl[i];
       const float* x = sm + L.X + k * NX;
       const float* u = sm + L.U + k * NU;
       float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU];
@@ -915,9 +947,9 @@ struct IpLane {
 #pragma unroll
       for (int i = 0; i < NU; ++i) q[QO_QU + i] = qu[i];
       if (!is_term) store_ab(k, x, u);
-      float* pv = b.pviol + (l * S + k) * NR;
+      float* pv = b.pviol + (l * S + k) * NRB;
 #pragma unroll
-      for (int i = 0; i < NR; ++i) {
+      for (int i = 0; i < NRB; ++i) {
         const float vi = row_viol(r, i, is_term);
         if (live) pv[i] = vi;
         viol = nmax(viol, scaled(i, vi));
@@ -947,7 +979,7 @@ struct IpLane {
 // One warp a lane, lanes_per_block warps a block.  __grid_constant__: the
 // IpLane object keeps references to the parameters, which then stay in the
 // constant bank instead of a local copy.
-template <int SPT>
+template <int SPT, bool BND>
 __global__ void __launch_bounds__(TPL * MAX_LPB)
 fused_ip_kernel(const __grid_constant__ IpArgs a,
                                 const __grid_constant__ IpBufs b) {
@@ -956,8 +988,8 @@ fused_ip_kernel(const __grid_constant__ IpArgs a,
   const int lane = blockIdx.x * lpb + w;
   // a warp past the last lane solves a copy of it and stores nothing, so
   // that every warp of the block meets the same __syncthreads
-  const Layout L(a.H);
-  IpLane<SPT> s(a, b, lane < a.B ? lane : a.B - 1, lane < a.B,
+  const Layout L(a.H, BND);
+  IpLane<SPT, BND> s(a, b, lane < a.B ? lane : a.B - 1, lane < a.B,
                 threadIdx.x % TPL, w, lpb, smem_dyn, L);
   s.load();
   s.rollout(s.sm + L.U, s.sm + L.X);
@@ -978,9 +1010,9 @@ fused_ip_kernel(const __grid_constant__ IpArgs a,
 // an SM (occupancy API: registers and shared memory together), the most
 // lanes a block among equals.  Fills out[] as fused_ip_geometry does; the
 // most lanes a block is the most whose block fits an SM at all.
-template <int SPT>
+template <int SPT, bool BND>
 static int geometry(const IpArgs* args, int32_t out[6]) {
-  auto kernel = fused_ip_kernel<SPT>;
+  auto kernel = fused_ip_kernel<SPT, BND>;
   int dev = 0, optin = 0, err;
   if ((err = cudaGetDevice(&dev))) return err;
   if ((err = cudaDeviceGetAttribute(
@@ -989,7 +1021,7 @@ static int geometry(const IpArgs* args, int32_t out[6]) {
   if ((err = cudaFuncSetAttribute(
            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)))
     return err;
-  const int lane_bytes = Layout(args->H).total * (int)sizeof(float);
+  const int lane_bytes = Layout(args->H, BND).total * (int)sizeof(float);
   int smem_lpb = optin / lane_bytes;
   if (smem_lpb > MAX_LPB) smem_lpb = MAX_LPB;
   int best = 0, best_per_sm = 0, max_lpb = 0, given_per_sm = 0;
@@ -1016,10 +1048,10 @@ static int geometry(const IpArgs* args, int32_t out[6]) {
   return 0;
 }
 
-template <int SPT>
+template <int SPT, bool BND>
 static int launch(const IpArgs* args, const IpBufs& b, void* stream) {
   int32_t g[6];
-  int err = geometry<SPT>(args, g);
+  int err = geometry<SPT, BND>(args, g);
   if (err) return err;
   const int lpb = g[0];
   if (lpb < 1 || lpb > g[5]) return (int)cudaErrorInvalidValue;
@@ -1033,28 +1065,40 @@ static int launch(const IpArgs* args, const IpBufs& b, void* stream) {
   const long need = (long)g[3] * (g[2] + 1024);
   int pct = (int)((100 * need + sm_bytes - 1) / sm_bytes);
   if (pct > 100) pct = 100;
+  auto kernel = fused_ip_kernel<SPT, BND>;
   if ((err = cudaFuncSetAttribute(
-           fused_ip_kernel<SPT>, cudaFuncAttributePreferredSharedMemoryCarveout,
-           pct)))
+           kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct)))
     return err;
   const int threads = TPL * lpb;
   const int blocks = (args->B + lpb - 1) / lpb;
   const size_t smem = (size_t)g[2];
-  fused_ip_kernel<SPT><<<blocks, threads, smem, (cudaStream_t)stream>>>(*args, b);
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(*args, b);
   return (int)cudaGetLastError();
 }
 
-// Floats of one lane's shared memory at horizon H (the Python side's
-// eligibility mirrors it).
-extern "C" int fused_ip_lane_floats(int H) { return Layout(H).total; }
+// Floats of one lane's shared memory at horizon H, with (boundary != 0) or
+// without the boundary rows (the Python side's eligibility mirrors it).
+extern "C" int fused_ip_lane_floats(int H, int boundary) {
+  return Layout(H, boundary != 0).total;
+}
+
+// The template instance of args: 2 (SPT - 1) + BND, for SPT =
+// ceil((H + 1) / 32) stages a thread and the boundary rows (BND) or none;
+// -1 outside the kernel's horizons.
+static int instance(const IpArgs* args) {
+  const int spt = (args->H + TPL) / TPL;
+  return spt < 1 || spt > MAX_SPT ? -1 : 2 * (spt - 1) + (args->boundary != 0);
+}
 
 // The launch geometry at args: lanes per block (given or chosen), shared
 // bytes a lane and a block, blocks resident an SM, registers a thread, the
 // most lanes a block's shared memory holds.
 extern "C" int fused_ip_geometry(const IpArgs* args, int32_t* out) {
-  switch ((args->H + TPL) / TPL) {
-    case 1: return geometry<1>(args, out);
-    case 2: return geometry<2>(args, out);
+  switch (instance(args)) {
+    case 0: return geometry<1, false>(args, out);
+    case 1: return geometry<1, true>(args, out);
+    case 2: return geometry<2, false>(args, out);
+    case 3: return geometry<2, true>(args, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1064,11 +1108,15 @@ extern "C" int fused_ip_solve(const IpArgs* args, const float* x0,
                               const float* mind, const float* w, float* U,
                               float* lam_lo, float* lam_hi, float* X,
                               float* pviol, float* diag, int32_t* rung,
-                              void* stream) {
-  IpBufs b{x0, xref, obs, mind, w, U, lam_lo, lam_hi, X, pviol, diag, rung};
-  switch ((args->H + TPL) / TPL) {   // stages a thread: ceil((H + 1) / 32)
-    case 1: return launch<1>(args, b, stream);
-    case 2: return launch<2>(args, b, stream);
+                              const float* bnd, void* stream) {
+  if (args->boundary && !bnd) return (int)cudaErrorInvalidValue;
+  IpBufs b{x0, xref, obs, mind, w, U, lam_lo, lam_hi, X, pviol, diag, rung,
+           bnd};
+  switch (instance(args)) {
+    case 0: return launch<1, false>(args, b, stream);
+    case 1: return launch<1, true>(args, b, stream);
+    case 2: return launch<2, false>(args, b, stream);
+    case 3: return launch<2, true>(args, b, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,10 +4,17 @@
 // The counterparts of the row-list helpers that mpc_tpu/ops/fused_gn.py
 // shares between its two Pallas kernels: the KS model and its discrete step,
 // the analytic (A, B) of that step, the constraint rows with their
-// closed-form gradients, the rows cache, the row bounds, the stage costs,
+// closed-form gradients, the row bounds, the stage costs,
 // the sparse stage quadratic and one step of the Riccati sweep.  Each helper
 // that reads per-config constants is a template over the kernel's argument
 // block, which names them the same in both kernels.
+//
+// Road-boundary rows: a stage of a kernel's boundary instance has 6 more
+// rows (NR + NB_ROWS), each the model nx cx + ny cy + c0 of a signed
+// distance on an ego circle centre, from the stage's 18 floats of
+// linear models (fused_gn.py::linearize_boundaries).  They are added as
+// overloads and template instances (BndRows, row_value, row_bounds_of,
+// assemble_quad), so that the instances without them compile as before.
 //
 // Semantics kept from the TPU kernels on purpose: clips, maxima, minima and
 // signs propagate NaN (compares, not fminf/fmaxf).  Build without
@@ -18,11 +25,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define NX 5
 #define NU 2
 #define NR 14
-#define NROWVALS 44
 #define MAX_ALPHAS 16
+#define NB_ROWS 6     // road-boundary rows a stage: 3 circles x 2 boundaries
+#define NBND 18       // floats of their models a stage: [nx, ny, c0] x 6
 
 // --------------------------------------------------------------------------
 // NaN-propagating scalar helpers (jnp semantics)
@@ -221,7 +231,7 @@ __device__ void lin_step(const Args& a, const float x[NX], const float u[NU],
 // --------------------------------------------------------------------------
 
 // friction h_f, gf = (g_delta, g_v, g_a); 9 circles (d, ux, uy, g_psi);
-// boxes (u0, u1, delta, v).  Packed in this order into the rows cache.
+// boxes (u0, u1, delta, v).
 struct Rows {
   float hf, gf[3], circ[9][4], box[4];
 };
@@ -281,30 +291,42 @@ __device__ __forceinline__ float row_value(const Rows& r, int i) {
   return i == 0 ? r.hf : (i < 10 ? r.circ[i - 1][0] : r.box[i - 10]);
 }
 
-__device__ void store_rows(const Lane& L, float* rows, int k, const Rows& r) {
-  rows[L.at(k, 0, NROWVALS)] = r.hf;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) rows[L.at(k, 1 + i, NROWVALS)] = r.gf[i];
-#pragma unroll
-  for (int p = 0; p < 9; ++p)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      rows[L.at(k, 4 + 4 * p + c, NROWVALS)] = r.circ[p][c];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) rows[L.at(k, 40 + i, NROWVALS)] = r.box[i];
+// The rows with the 6 road-boundary rows (hb, nx, ny, g_psi), circle-major:
+// row NR + 2 i + j is circle i (offset 0, +d, -d along the heading) and
+// boundary j.
+struct BndRows : Rows {
+  float bnd[NB_ROWS][4];
+};
+template <bool BND>
+using RowsOf = typename std::conditional<BND, BndRows, Rows>::type;
+template <bool BND>
+__host__ __device__ constexpr int nrows() {
+  return BND ? NR + NB_ROWS : NR;
 }
 
-__device__ void load_rows(const Lane& L, const float* rows, int k, Rows& r) {
-  r.hf = rows[L.at(k, 0, NROWVALS)];
+// The boundary rows at x from the stage's models m[18] ([nx, ny, c0] a row),
+// with the circle rows' (px, py, psi) gradient.
+template <class Args>
+__device__ void boundary_rows(const Args& a, const float x[NX],
+                              const float m[NBND], BndRows& r) {
+  const float px = x[0], py = x[1], psi = x[4];
+  const float cp = cosf(psi), sp = sinf(psi);
+  const float ks[3] = {0.f, a.d_ego, -a.d_ego};
 #pragma unroll
-  for (int i = 0; i < 3; ++i) r.gf[i] = rows[L.at(k, 1 + i, NROWVALS)];
-#pragma unroll
-  for (int p = 0; p < 9; ++p)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      r.circ[p][c] = rows[L.at(k, 4 + 4 * p + c, NROWVALS)];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) r.box[i] = rows[L.at(k, 40 + i, NROWVALS)];
+  for (int idx = 0; idx < NB_ROWS; ++idx) {
+    const int i = idx / 2;
+    const float nx = m[3 * idx], ny = m[3 * idx + 1], c0 = m[3 * idx + 2];
+    const float cx = px + ks[i] * cp, cy = py + ks[i] * sp;
+    r.bnd[idx][0] = nx * cx + ny * cy + c0;
+    r.bnd[idx][1] = nx;
+    r.bnd[idx][2] = ny;
+    r.bnd[idx][3] = i == 0 ? 0.f : ks[i] * (-nx * sp + ny * cp);
+  }
+}
+
+__device__ __forceinline__ float row_value(const BndRows& r, int i) {
+  return i < NR ? row_value(static_cast<const Rows&>(r), i)
+                : r.bnd[i - NR][0];
 }
 
 // (lo, hi) of row i; has_lo / has_hi false for an unbounded side.
@@ -338,6 +360,23 @@ __device__ __forceinline__ void row_bounds(const Args& a, int i, bool is_term,
   }
 }
 
+// (lo, hi) of row i of a stage with (BND) or without the boundary rows,
+// whose bound is r_ego <= h.
+template <bool BND, class Args>
+__device__ __forceinline__ void row_bounds_of(const Args& a, int i,
+                                              bool is_term, float mind,
+                                              bool& has_lo, float& lo,
+                                              bool& has_hi, float& hi) {
+  if (BND && i >= NR) {
+    has_lo = true;
+    lo = a.r_ego;
+    has_hi = false;
+    hi = 0.f;
+    return;
+  }
+  row_bounds(a, i, is_term, mind, has_lo, lo, has_hi, hi);
+}
+
 __device__ __forceinline__ float stage_cost(const float x[NX],
                                             const float u[NU],
                                             const float xref[NX],
@@ -365,9 +404,11 @@ __device__ __forceinline__ float term_cost(const float x[NX],
 // gradient weight gh[i] and its curvature gn[i] (the AL terms' d psi / d h
 // and GN diagonal, or the IP's barrier weight and z / s).  Non-terminal: Q,
 // R, M, qx, qu with the stage weights; terminal: Q, qx only, with wqN when
-// use_cost.
-__device__ void assemble_quad(const Rows& r, const float gh[NR],
-                              const float gn[NR], const float x[NX],
+// use_cost.  RowsT: Rows, or BndRows, whose boundary rows enter after the
+// box rows.
+template <class RowsT>
+__device__ void assemble_quad(const RowsT& r, const float* gh,
+                              const float* gn, const float x[NX],
                               const float ue[NU], const float xref[NX],
                               const float w[NX], const float wr[NU],
                               bool is_term, bool use_cost, float Q[NX][NX],
@@ -422,6 +463,22 @@ __device__ void assemble_quad(const Rows& r, const float gh[NR],
   qx[2] = qx[2] + gh[12];
   Q[3][3] = Q[3][3] + gn[13];
   qx[3] = qx[3] + gh[13];
+  if constexpr (std::is_same<RowsT, BndRows>::value) {
+#pragma unroll
+    for (int b = 0; b < NB_ROWS; ++b) {  // boundary rows -> (px, py, psi)
+      const float nx = r.bnd[b][1], ny = r.bnd[b][2], gp = r.bnd[b][3];
+      const float h = gh[NR + b], n = gn[NR + b];
+      Q[0][0] = Q[0][0] + n * nx * nx;
+      Q[0][1] = Q[0][1] + n * nx * ny;
+      Q[1][1] = Q[1][1] + n * ny * ny;
+      Q[0][4] = Q[0][4] + n * nx * gp;
+      Q[1][4] = Q[1][4] + n * ny * gp;
+      Q[4][4] = Q[4][4] + n * gp * gp;
+      qx[0] = qx[0] + h * nx;
+      qx[1] = qx[1] + h * ny;
+      qx[4] = qx[4] + h * gp;
+    }
+  }
 
   if (!is_term || use_cost) {  // quadratic cost: exact Hessian
 #pragma unroll

@@ -31,10 +31,19 @@ Two implementations of the same function:
 tensor to the kernel; nothing falls back from one to the other.
 
 Envelope (:func:`eligible`): KS model, method 'al', forcespro or casadi
-rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1, 3, 2) obstacles, no
-boundary rows, any iteration budget, ``alphas=()`` or a ladder of at most
-``MAX_ALPHAS`` rungs, a horizon whose block of 32 lanes fits a block's
-shared memory (``MAX_HORIZON``).
+rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1, 3, 2) obstacles,
+with or without the 6 road-boundary rows (given the boundaries), any
+iteration budget, ``alphas=()`` or a ladder of at most ``MAX_ALPHAS`` rungs,
+a horizon whose block of 32 lanes fits a block's shared memory
+(``MAX_HORIZON``).  Other KS AL problems go to ``sqp_vec.solve_batch_vec``,
+as in the JAX package.
+
+Road-boundary rows: as in the JAX package, each signed-distance row of an
+ego circle to a boundary polyline is replaced by its first-order model at
+the nearest segment of the warm start's rollout
+(:func:`linearize_boundaries`, on the host side of the launch, before
+every solve); the kernel reads the (H+1, 18) models of a lane and builds
+the 6 rows a stage from them.
 """
 from __future__ import annotations
 
@@ -51,6 +60,8 @@ from mpc_tpu_torch.ops import sqp as S
 NX = 5
 NU = 2
 NR = 14            # 1 friction + 9 circles + 4 box rows
+NB_ROWS = 6        # road-boundary rows: 3 ego circles x 2 boundaries
+NBND = 18          # floats of their linear models a stage: [nx, ny, c0] x 6
 MAX_ALPHAS = 16    # ladder rungs the kernel's argument block holds
 NOP = 43           # floats of one stage's operands in the kernel's ring
 LANES_PER_BLOCK = 32          # csrc/fused_gn.cu LPB: a warp's width
@@ -93,8 +104,10 @@ MAX_HORIZON = _max_horizon()
 
 def make_consts(cfg: S.SolverConfig) -> dict:
     """Static per-config scalars of the fused kernels."""
-    _, spacing = C.approx_circle_radius(cfg.ego_length, cfg.ego_width)
+    r_ego, spacing = C.approx_circle_radius(cfg.ego_length, cfg.ego_width)
     return {
+        "boundary": bool(cfg.boundary_rows),
+        "r_ego": r_ego,
         "formulation": cfg.formulation,
         "inv_l": 1.0 / cfg.wheelbase,
         "a_max": float(cfg.a_max),
@@ -112,11 +125,12 @@ def ineligible_reason(cfg: S.SolverConfig, params: S.OcpParams):
         return (f"method '{cfg.method}': this is the AL kernel; the IP "
                 "solve is ops.fused_ip")
     if cfg.model != "ks":
-        return (f"model '{cfg.model}': the ST model in the AL kernel is a "
-                "later item (ROADMAP queue A, 'ST and boundary rows')")
-    if cfg.boundary_rows:
-        return ("boundary_rows: boundary rows in the AL kernel are a later "
-                "item (ROADMAP queue A, 'ST and boundary rows')")
+        return (f"model '{cfg.model}': the ST model in the AL kernel is "
+                "ROADMAP queue A, item 1 (ST)")
+    if cfg.boundary_rows and (params.boundaries is None
+                              or params.boundary_signs is None):
+        return ("boundary_rows without boundary data (params.boundaries "
+                "and boundary_signs)")
     if params.obs_centers.dim() not in (3, 4):
         return (f"obs_centers of shape {tuple(params.obs_centers.shape)}: "
                 "want (B, 3, 2) or (B, H+1, 3, 2)")
@@ -136,6 +150,95 @@ def ineligible_reason(cfg: S.SolverConfig, params: S.OcpParams):
 
 def eligible(cfg: S.SolverConfig, params: S.OcpParams) -> bool:
     return ineligible_reason(cfg, params) is None
+
+
+# ---------------------------------------------------------------------------
+# road-boundary rows: per-stage linear models at the warm start
+# ---------------------------------------------------------------------------
+
+# bytes the temporaries of one call of _linearize_lanes may take: the lanes
+# go through it in chunks of at most this much
+LINEARIZE_BYTES = 2 ** 31
+_LINEARIZE_TEMPS = 6   # (lanes, H+1, 3, NB-1, 2) temporaries alive at once
+
+
+def _nearest_segment_model(p, poly, sgn):
+    """(nx, ny, c0), each (B, S, 3): the model n . c + c0 of the signed
+    distance sgn * d(c, poly) at the nearest segment, for the circle
+    centres p (B, S, 3, 2) of each lane's polyline poly (B, NB, 2)."""
+    a = poly[:, None, None, :-1]                          # (B, 1, 1, NS, 2)
+    ab = poly[:, None, None, 1:] - a
+    ab2 = torch.clamp((ab * ab).sum(-1), min=1e-12)
+    pa = p[..., None, :] - a                              # (B, S, 3, NS, 2)
+    t = torch.clamp((pa * ab).sum(-1) / ab2, 0.0, 1.0)
+    proj = a + t[..., None] * ab
+    diff = p[..., None, :] - proj
+    d2 = (diff * diff).sum(-1)                            # (B, S, 3, NS)
+    i = d2.argmin(-1, keepdim=True)         # the first least, as jnp.argmin
+    proj_i = torch.gather(proj, 3, i[..., None].expand(
+        i.shape + (2,)))[..., 0, :]                       # (B, S, 3, 2)
+    ab_i = torch.gather(ab.expand(proj.shape), 3, i[..., None].expand(
+        i.shape + (2,)))[..., 0, :]
+    d_i = torch.sqrt(torch.gather(d2, 3, i)[..., 0] + 1e-12)
+    off = p - proj_i
+    cross = ab_i[..., 0] * off[..., 1] - ab_i[..., 1] * off[..., 0]
+    s = sgn[:, None, None] * torch.sign(cross)
+    n = s[..., None] * off / d_i[..., None]
+    c0 = s * d_i - (n * p).sum(-1)
+    return n[..., 0], n[..., 1], c0
+
+
+def _linearize_lanes(cfg, X0, boundaries, boundary_signs):
+    _, spacing = C.approx_circle_radius(cfg.ego_length, cfg.ego_width)
+    d_ego = spacing / 4.0
+    ks = torch.tensor([0.0, d_ego, -d_ego], dtype=X0.dtype, device=X0.device)
+    psi = X0[..., 4:5]
+    cxy = torch.stack([X0[..., 0:1] + ks * torch.cos(psi),
+                       X0[..., 1:2] + ks * torch.sin(psi)], -1)
+    per_edge = [torch.stack(_nearest_segment_model(
+        cxy, boundaries[:, j], boundary_signs[:, j]), -1) for j in (0, 1)]
+    # (B, S, 3 circles, 2 boundaries, [nx, ny, c0]) -> (B, S, 18)
+    return torch.stack(per_edge, -2).reshape(X0.shape[0], X0.shape[1], NBND)
+
+
+def linearize_boundaries(cfg: S.SolverConfig, X0: torch.Tensor,
+                         boundaries: torch.Tensor,
+                         boundary_signs: torch.Tensor) -> torch.Tensor:
+    """Per-(lane, stage) linear models of the 6 boundary rows, (B, H+1, 18)
+    (``mpc_tpu.ops.fused_gn.linearize_boundaries``).
+
+    Each signed-distance row h_ij = sign_j * d(circle_i(x), poly_j) is
+    replaced by its first-order model n . c + c0 at the nearest segment,
+    where c is the ego circle centre on the warm-start trajectory X0 (B,
+    H+1, NX): exact while the nearest segment is a straight line.  Layout a
+    stage: [nx, ny, c0] x 6 rows, circle-major (row idx = 2 i + j).
+    boundaries (B, 2, NB, 2), boundary_signs (B, 2).
+
+    The nearest-segment search holds (lanes, H+1, 3, NB-1, 2) temporaries;
+    the lanes go through it in chunks whose temporaries stay within
+    ``LINEARIZE_BYTES``, which changes no result.
+    """
+    B, S = X0.shape[:2]
+    per_lane = (_LINEARIZE_TEMPS * S * 3 * (boundaries.shape[2] - 1) * 2
+                * X0.element_size())
+    chunk = max(1, LINEARIZE_BYTES // per_lane)
+    if B <= chunk:
+        return _linearize_lanes(cfg, X0, boundaries, boundary_signs)
+    return torch.cat([_linearize_lanes(cfg, X0[i:i + chunk],
+                                       boundaries[i:i + chunk],
+                                       boundary_signs[i:i + chunk])
+                      for i in range(0, B, chunk)])
+
+
+def boundary_models(cfg: S.SolverConfig, params: S.OcpParams,
+                    state: S.SqpState):
+    """The boundary rows' models of a solve, (B, H+1, 18), at the rollout of
+    its warm-start inputs (None without boundary rows)."""
+    if not cfg.boundary_rows:
+        return None
+    X0 = S._rollout(cfg, params.x0, state.U)
+    return linearize_boundaries(cfg, X0, params.boundaries,
+                                params.boundary_signs)
 
 
 # ---------------------------------------------------------------------------
@@ -234,14 +337,18 @@ class _Rows:
     friction: h_f, gf = (g_delta, g_v, g_a)
     circles:  9 x (d, ux, uy, g_psi)   [grad wrt px, py, psi]
     boxes:    [u0, u1, delta, v] identity rows
+    boundary: 6 x (hb, nx, ny, g_psi) or none
     """
 
-    __slots__ = ("h_f", "gf", "circ", "box")
+    __slots__ = ("h_f", "gf", "circ", "box", "bnd")
 
 
-def _compute_rows(x, u_eff, obs, consts, is_term, k_is0):
+def _compute_rows(x, u_eff, obs, consts, is_term, k_is0, bnd=None):
     """Rows at (x, u_eff); obs is 6 registers [o_xy x 3]; k_is0 is a bool
-    tensor (the casadi friction row binds stage 0 only)."""
+    tensor (the casadi friction row binds stage 0 only); bnd is 18
+    registers [nx, ny, c0] x 6 of the boundary rows' models when
+    ``consts['boundary']``: the value nx cx + ny cy + c0 on the ego circle
+    centre (cx, cy), with the circle rows' (px, py, psi) gradient."""
     px, py, delta, v, psi = x
     a = u_eff[1]
     inv_l = consts["inv_l"]
@@ -285,11 +392,22 @@ def _compute_rows(x, u_eff, obs, consts, is_term, k_is0):
         circ.append((dist, ux, uy, g_psi))
     r.circ = circ
     r.box = (u_eff[0], u_eff[1], delta, v)
+    r.bnd = []
+    if consts["boundary"]:
+        for idx, ki in enumerate(k for k in ks for _ in range(2)):
+            nx_, ny_, c0 = bnd[3 * idx], bnd[3 * idx + 1], bnd[3 * idx + 2]
+            cx = px + ki * cp
+            cy = py + ki * sp
+            hb = nx_ * cx + ny_ * cy + c0
+            gpsi = (ki * (-nx_ * sp + ny_ * cp) if ki != 0.0
+                    else torch.zeros_like(hb))
+            r.bnd.append((hb, nx_, ny_, gpsi))
     return r
 
 
 def _row_values(r):
-    return [r.h_f] + [c[0] for c in r.circ] + list(r.box)
+    return ([r.h_f] + [c[0] for c in r.circ] + list(r.box)
+            + [b[0] for b in r.bnd])
 
 
 def _row_lin(r, dX, dU):
@@ -303,6 +421,8 @@ def _row_lin(r, dX, dU):
     cs.append(r.box[1] + dU[1])
     cs.append(r.box[2] + dX[2])
     cs.append(r.box[3] + dX[3])
+    for (hb, nx_, ny_, gp) in r.bnd:
+        cs.append(hb + nx_ * dX[0] + ny_ * dX[1] + gp * dX[4])
     return cs
 
 
@@ -318,6 +438,8 @@ def _row_bounds(consts, mind, is_term):
                    (consts["u_lo1"], consts["u_hi1"])]
     bounds += [(consts["d_lo"], consts["d_hi"]),
                (consts["v_lo"], consts["v_hi"])]
+    if consts["boundary"]:
+        bounds += [(consts["r_ego"], None)] * NB_ROWS
     return bounds
 
 
@@ -420,6 +542,18 @@ def _assemble_quad(r, terms, x, u_eff, xref, wq, wr, is_term, wqN=None,
     Q[3][3] = Q[3][3] + terms[13][2]
     qx[3] = qx[3] + terms[13][1]
 
+    for idx, (_, nx_, ny_, gp) in enumerate(r.bnd):  # -> (px, py, psi)
+        _, gh, gn = terms[NR + idx]
+        Q[0][0] = Q[0][0] + gn * nx_ * nx_
+        Q[0][1] = Q[0][1] + gn * nx_ * ny_
+        Q[1][1] = Q[1][1] + gn * ny_ * ny_
+        Q[0][4] = Q[0][4] + gn * nx_ * gp
+        Q[1][4] = Q[1][4] + gn * ny_ * gp
+        Q[4][4] = Q[4][4] + gn * gp * gp
+        qx[0] = qx[0] + gh * nx_
+        qx[1] = qx[1] + gh * ny_
+        qx[4] = qx[4] + gh * gp
+
     if is_term:
         if use_terminal:
             for i in range(NX):
@@ -478,11 +612,14 @@ def _clip(x, lo, hi):
 
 
 class _Problem:
-    """Per-lane data of one solve as registers (lanes leading)."""
+    """Per-lane data of one solve as registers (lanes leading); ``bnd`` the
+    boundary rows' models (B, H+1, 18) or None."""
 
-    def __init__(self, cfg, params):
+    def __init__(self, cfg, params, bnd=None):
         self.H = cfg.horizon
         self.consts = make_consts(cfg)
+        self.nr = S.nrows(cfg)
+        self.bnd = bnd
         B = params.x0.shape[0]
         w = params.weights
         self.wq = _cols(w.q.reshape(B, 1, NX), NX)       # (B, 1) registers
@@ -505,34 +642,41 @@ class _Problem:
         return _cols(self.obs[:, self.H] if self.moving else self.obs[:, 0],
                      6)
 
+    def bnd_at(self, k):
+        """The boundary models of stages ``k`` (a slice or an index) as 18
+        registers, or None."""
+        return None if self.bnd is None else _cols(self.bnd[:, k], NBND)
+
 
 def _stage_rows(pb, X, U):
     """Rows of stages 0..H-1, registers (B, H)."""
     return _compute_rows(_cols(X[:, :-1], NX), _cols(U, NU), pb.obs_stages(),
-                         pb.consts, False, pb.k_is0)
+                         pb.consts, False, pb.k_is0,
+                         pb.bnd_at(slice(0, pb.H)))
 
 
 def _term_rows(pb, X):
     xT = _cols(X[:, -1], NX)
     zero = torch.zeros_like(xT[0])
     return _compute_rows(xT, [zero, zero], pb.obs_term(), pb.consts, True,
-                         torch.zeros_like(xT[0], dtype=torch.bool))
+                         torch.zeros_like(xT[0], dtype=torch.bool),
+                         pb.bnd_at(pb.H))
 
 
 def _stage_merits(cfg, pb, X, U, lam_lo, lam_hi, mu):
     """Per-stage cost + AL psi, (B, H), and the terminal term, (B,)."""
-    H = pb.H
+    H, nr = pb.H, pb.nr
     rs = _stage_rows(pb, X, U)
     terms = _row_terms(rs, _row_bounds(pb.consts, pb.mind, False),
-                       _cols(lam_lo[:, :H], NR), _cols(lam_hi[:, :H], NR),
-                       _cols(mu[:, :H], NR))
+                       _cols(lam_lo[:, :H], nr), _cols(lam_hi[:, :H], nr),
+                       _cols(mu[:, :H], nr))
     m_k = (_stage_cost(_cols(X[:, :H], NX), _cols(U, NU),
                        _cols(pb.xref[:, :H], NX), pb.wq, pb.wr)
            + _stage_psi(terms))
     rT = _term_rows(pb, X)
     termsT = _row_terms(rT, _row_bounds(pb.consts, pb.mind[:, 0], True),
-                        _cols(lam_lo[:, H], NR), _cols(lam_hi[:, H], NR),
-                        _cols(mu[:, H], NR))
+                        _cols(lam_lo[:, H], nr), _cols(lam_hi[:, H], nr),
+                        _cols(mu[:, H], nr))
     psiT = _stage_psi(termsT)
     cT = (_term_cost(_cols(X[:, H], NX), _cols(pb.xref[:, H], NX), pb.wqN)
           if cfg.use_terminal_cost else torch.zeros_like(psiT))
@@ -570,12 +714,12 @@ def _feedback_rollout(cfg, pb, X, U, K, d, alpha):
 
 def _quadratics(cfg, pb, X, U, lam_lo, lam_hi, mu):
     """Stage quadratics (B, H, ...), terminal (QH, qH) and the Jacobians."""
-    H = pb.H
+    H, nr = pb.H, pb.nr
     xk, uk = _cols(X[:, :H], NX), _cols(U, NU)
     rs = _stage_rows(pb, X, U)
     terms = _row_terms(rs, _row_bounds(pb.consts, pb.mind, False),
-                       _cols(lam_lo[:, :H], NR), _cols(lam_hi[:, :H], NR),
-                       _cols(mu[:, :H], NR))
+                       _cols(lam_lo[:, :H], nr), _cols(lam_hi[:, :H], nr),
+                       _cols(mu[:, :H], nr))
     Q, R, M, qx, qu = _assemble_quad(rs, terms, xk, uk,
                                      _cols(pb.xref[:, :H], NX), pb.wq, pb.wr,
                                      False)
@@ -586,8 +730,8 @@ def _quadratics(cfg, pb, X, U, lam_lo, lam_hi, mu):
     zero = torch.zeros_like(xT[0])
     rT = _term_rows(pb, X)
     termsT = _row_terms(rT, _row_bounds(pb.consts, pb.mind[:, 0], True),
-                        _cols(lam_lo[:, H], NR), _cols(lam_hi[:, H], NR),
-                        _cols(mu[:, H], NR))
+                        _cols(lam_lo[:, H], nr), _cols(lam_hi[:, H], nr),
+                        _cols(mu[:, H], nr))
     QH, qH = _assemble_quad(rT, termsT, xT, [zero, zero],
                             _cols(pb.xref[:, H], NX), pb.wq, pb.wr, True,
                             pb.wqN, cfg.use_terminal_cost)
@@ -641,7 +785,7 @@ def _multiplier_update(cfg, pb, X, U, lam_lo, lam_hi, mu, prev_viol):
     obs = _cols(pb.obs, 6)
     k_is0 = (torch.arange(H + 1, device=X.device) == 0).unsqueeze(0)
     r = _compute_rows(_cols(X, NX), _cols(U_eff, NU), obs, pb.consts, False,
-                      k_is0)
+                      k_is0, pb.bnd_at(slice(None)))
     hs = _row_values(r)
     is_last = (torch.arange(H + 1, device=X.device) == H).unsqueeze(0)
     zero = torch.zeros((), dtype=X.dtype, device=X.device)
@@ -691,7 +835,7 @@ def _diagnostics(cfg, pb, X, U, lam_lo, lam_hi, mu):
     c = pb.consts
     fr_scale = c["a_max"] ** 2 if c["formulation"] == "forcespro" \
         else c["a_max"]
-    inv_scale = [1.0 / fr_scale] + [1.0] * (NR - 1)
+    inv_scale = [1.0 / fr_scale] + [1.0] * (pb.nr - 1)
     qd = _quadratics(cfg, pb, X, U, lam_lo, lam_hi, mu)
     psiT = _stage_psi(qd["termsT"])
     costT = (_term_cost(_cols(X[:, H], NX), _cols(pb.xref[:, H], NX), pb.wqN)
@@ -735,7 +879,7 @@ def solve_batch_fused_plain(cfg: S.SolverConfig, params: S.OcpParams,
     commit the rungs ``follow[i]`` instead of the best ones, which replays
     the kernel's choices.
     """
-    pb = _Problem(cfg, params)
+    pb = _Problem(cfg, params, boundary_models(cfg, params, state))
     U = state.U
     lam_lo, lam_hi, prev_viol = state.lam_lo, state.lam_hi, state.prev_viol
     mu = _prepared_mu(cfg, state.mu)
@@ -803,7 +947,8 @@ class FgnArgs(ctypes.Structure):
             "d_hi", "v_lo", "v_hi", "mu0", "mu_factor", "mu_max",
             "viol_improve", "lam_max", "tol_feas", "tol_stat",
             "tol_infeas")] + [
-        ("alphas", ctypes.c_float * MAX_ALPHAS)]
+        ("alphas", ctypes.c_float * MAX_ALPHAS),
+        ("boundary", ctypes.c_int32), ("r_ego", ctypes.c_float)]
 
 
 def kernel_args(cfg: S.SolverConfig, B: int, moving: bool,
@@ -830,7 +975,8 @@ def kernel_args(cfg: S.SolverConfig, B: int, moving: bool,
         v_hi=c["v_hi"], mu0=cfg.mu0, mu_factor=cfg.mu_factor,
         mu_max=cfg.mu_max, viol_improve=cfg.viol_improve,
         lam_max=cfg.lam_max, tol_feas=cfg.tol_feas, tol_stat=cfg.tol_stat,
-        tol_infeas=cfg.tol_infeas)
+        tol_infeas=cfg.tol_infeas, boundary=int(cfg.boundary_rows),
+        r_ego=c["r_ego"])
     for i, v in enumerate(cfg.alphas):
         a.alphas[i] = v
     return a
@@ -861,6 +1007,9 @@ KERNEL_STATE = ("U", "lam_lo", "lam_hi", "mu", "pviol")   # updated in place
 KERNEL_OUTPUTS = ("X", "diag", "status")
 KERNEL_SCRATCH = ("K", "d", "Xc", "Uc")
 KERNEL_TRACE = ("rung",)     # optional: the rung each ladder step committed
+KERNEL_BOUNDARY = ("bnd",)   # with boundary rows: their models (H+1, 18, B)
+KERNEL_ORDER = (KERNEL_INPUTS + KERNEL_STATE + KERNEL_OUTPUTS + KERNEL_SCRATCH
+                + KERNEL_TRACE + KERNEL_BOUNDARY)
 _OUT_ORDER = ("X", "U", "lam_lo", "lam_hi", "mu", "pviol", "diag")
 
 
@@ -910,11 +1059,12 @@ def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
     ``torch.cat``, every output and scratch buffer allocated.  The line-search
     trial chains are allocated only when the ladder is on, and the rung
     trace (al_iters * sqp_iters, B) only when it is on and ``trace_rungs``
-    asks for it."""
+    asks for it.  With boundary rows their models at the rollout of the
+    warm start (:func:`boundary_models`) go into the same buffer."""
     reason = ineligible_reason(cfg, params)
     if reason is not None:
         raise NotImplementedError(reason)
-    B, H = params.x0.shape[0], cfg.horizon
+    B, H, nr = params.x0.shape[0], cfg.horizon, S.nrows(cfg)
     dev, f32 = params.x0.device, torch.float32
     moving = params.obs_centers.dim() == 4
     w = params.weights
@@ -922,7 +1072,7 @@ def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
     # floor alone, which leaves no penalty <= 0
     mu = (state.mu.clamp_min(cfg.mu0) if cfg.mu0 > 0
           else _prepared_mu(cfg, state.mu))
-    bufs = _lanes_fastest([
+    parts = [
         ("x0", params.x0, (B, NX)),
         ("xref", params.x_ref, (B, H + 1, NX)),
         ("obs", params.obs_centers.reshape(B, -1, 6) if moving
@@ -930,10 +1080,14 @@ def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
          (B, H + 1, 6) if moving else (B, 6)),
         ("mind", params.min_dist.reshape(B), (B,)),
         ("w", [w.q, w.r, w.qN], (B, 2 * NX + NU)),
-        ("lam_lo", state.lam_lo, (B, H + 1, NR)),
-        ("lam_hi", state.lam_hi, (B, H + 1, NR)),
-        ("mu", mu, (B, H + 1, NR)),
-        ("pviol", state.prev_viol, (B, H + 1, NR))])
+        ("lam_lo", state.lam_lo, (B, H + 1, nr)),
+        ("lam_hi", state.lam_hi, (B, H + 1, nr)),
+        ("mu", mu, (B, H + 1, nr)),
+        ("pviol", state.prev_viol, (B, H + 1, nr))]
+    if cfg.boundary_rows:
+        parts.append(("bnd", boundary_models(cfg, params, state),
+                      (B, H + 1, NBND)))
+    bufs = _lanes_fastest(parts)
     bufs.update(
         # a buffer of its own: a caller keeps views of the solution's U
         # (the applied input), which must not hold the whole copy alive
@@ -978,11 +1132,9 @@ def launch(cfg: S.SolverConfig, bufs: dict, threads_per_lane: int = 0):
     writes X and diag.  ``threads_per_lane`` 0 lets the kernel choose.
     ``launch.launches`` counts the launches.
     """
-    order = (KERNEL_INPUTS + KERNEL_STATE + KERNEL_OUTPUTS + KERNEL_SCRATCH
-             + KERNEL_TRACE)
     args = _launch_args(cfg, bufs["x0"].shape[-1], bufs["obs"].dim() == 3,
                         threads_per_lane)
-    err = call_kernel("fused_gn", args, bufs, order)
+    err = call_kernel("fused_gn", args, bufs, KERNEL_ORDER)
     launch.launches += 1
     if err != 0:
         raise RuntimeError(f"fused_gn kernel launch failed: CUDA error {err}")
@@ -1041,14 +1193,18 @@ def solve_batch_fused(cfg: S.SolverConfig, params: S.OcpParams,
     ``fused_gn.solve_batch_fused``.
 
     Runs on ``device`` (default: the GPU, see ``resolve_device``): CUDA
-    tensors go to the kernel, CPU tensors to the plain version.  Problems
-    outside the kernel's envelope raise ``NotImplementedError``; there is
-    no fallback engine yet.
+    tensors go to the kernel, CPU tensors to the plain version.  A KS AL
+    problem outside the kernel's envelope goes to
+    ``sqp_vec.solve_batch_vec`` on every device, as the JAX package falls
+    back; the IP method and the ST model raise ``NotImplementedError``.
     """
     dev = resolve_device(device)
     reason = ineligible_reason(cfg, params)
     if reason is not None:
-        raise NotImplementedError(reason)
+        if cfg.method != "al" or cfg.model != "ks":
+            raise NotImplementedError(reason)
+        from mpc_tpu_torch.ops import sqp_vec
+        return sqp_vec.solve_batch_vec(cfg, params, state, device=dev)
     params = _to(S.normalize_params(cfg, params), dev)
     state = _to(state, dev)
     if dev.type == "cuda":

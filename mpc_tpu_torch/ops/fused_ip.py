@@ -35,10 +35,12 @@ Two implementations of the same function:
 CUDA tensor to the kernel; nothing falls back from one to the other.
 
 Envelope (:func:`eligible_ip`): KS model, method 'ip', forcespro or casadi
-rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1, 3, 2) obstacles, no
-boundary rows, cold or warm duals, any ``ip_sqp_iters x ip_iters`` budget,
-``ip_alphas=()`` or a ladder of at most ``MAX_ALPHAS`` rungs, a horizon of
-at most ``MAX_HORIZON`` stages whose shared-memory footprint a block holds.
+rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1, 3, 2) obstacles,
+with or without the 6 road-boundary rows (given the boundaries; their
+per-stage models are ``fused_gn.boundary_models``), cold or warm duals, any
+``ip_sqp_iters x ip_iters`` budget, ``ip_alphas=()`` or a ladder of at most
+``MAX_ALPHAS`` rungs, a horizon of at most ``MAX_HORIZON`` stages whose
+shared-memory footprint a block holds.
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ from mpc_tpu_torch.device import resolve_device
 from mpc_tpu_torch.ops import fused_gn as F
 from mpc_tpu_torch.ops import sqp as S
 from mpc_tpu_torch.ops.fused_gn import (
-    MAX_ALPHAS, NR, NU, NX, _assemble_quad, _cols,
+    MAX_ALPHAS, NU, NX, _assemble_quad, _cols,
     _lin_step, _mat, _mv, _row_bounds, _row_lin, _row_values, _vec,
     make_consts)
 from mpc_tpu_torch.ops.ipqp import (
@@ -64,13 +66,15 @@ MAX_HORIZON = TPL * MAX_SPT - 1
 SMEM_PER_BLOCK = 232448   # bytes of shared memory an H100 block may use
 
 
-def lane_smem_bytes(H: int) -> int:
+def lane_smem_bytes(H: int, boundary: bool = False) -> int:
     """Shared memory of one lane at horizon H: ``Layout`` in
-    csrc/fused_ip.cu (rows cache, quadratics (whose space a rollout's
-    scratch shares), (A, B), K, d, ddX, ddU, X, U, xref, obstacles, the
-    terminal P and p, the stationarity, the lane's constants)."""
+    csrc/fused_ip.cu (rows cache, 45 floats a stage or 69 with the boundary
+    rows, quadratics (whose space a rollout's scratch shares), (A, B), K,
+    d, ddX, ddU, X, U, xref, obstacles, the terminal P and p, the
+    stationarity, the lane's constants)."""
     S = H + 1
-    floats = (45 * S + 37 * S + 35 * H + 10 * H + 2 * H + 5 * S + 2 * S
+    rows = 69 if boundary else 45
+    floats = (rows * S + 37 * S + 35 * H + 10 * H + 2 * H + 5 * S + 2 * S
               + 5 * S + 2 * S + 5 * S + 7 * S + 25 + 5 + 1 + 18)
     return 4 * floats
 
@@ -82,10 +86,11 @@ def ineligible_reason_ip(cfg: S.SolverConfig, params: S.OcpParams):
                 "solve is ops.fused_gn")
     if cfg.model != "ks":
         return (f"model '{cfg.model}': the ST model in the fused kernels is "
-                "ROADMAP queue A, item 'Next 4. ST and boundary rows'")
-    if cfg.boundary_rows:
-        return ("boundary_rows: boundary rows in the fused kernels are "
-                "ROADMAP queue A, item 'Next 4. ST and boundary rows'")
+                "ROADMAP queue A, item 1 (ST)")
+    if cfg.boundary_rows and (params.boundaries is None
+                              or params.boundary_signs is None):
+        return ("boundary_rows without boundary data (params.boundaries "
+                "and boundary_signs)")
     if params.obs_centers.dim() not in (3, 4):
         return (f"obs_centers of shape {tuple(params.obs_centers.shape)}: "
                 "want (B, 3, 2) or (B, H+1, 3, 2)")
@@ -99,9 +104,10 @@ def ineligible_reason_ip(cfg: S.SolverConfig, params: S.OcpParams):
         return (f"horizon {H}: the kernel's warp holds at most "
                 f"{TPL * MAX_SPT} stages a lane ({MAX_SPT} a thread), "
                 f"H <= {MAX_HORIZON}")
-    if lane_smem_bytes(H) > SMEM_PER_BLOCK:
-        return (f"horizon {H}: a lane needs {lane_smem_bytes(H)} bytes of "
-                f"shared memory, a block holds {SMEM_PER_BLOCK}")
+    lane = lane_smem_bytes(H, cfg.boundary_rows)
+    if lane > SMEM_PER_BLOCK:
+        return (f"horizon {H}: a lane needs {lane} bytes of shared memory, "
+                f"a block holds {SMEM_PER_BLOCK}")
     return None
 
 
@@ -257,8 +263,8 @@ class _IpProblem(F._Problem):
     """Per-lane data of one IP solve, with the row bounds of both stage
     groups and the (A, B) of the current linearization."""
 
-    def __init__(self, cfg, params):
-        super().__init__(cfg, params)
+    def __init__(self, cfg, params, bnd=None):
+        super().__init__(cfg, params, bnd)
         c = self.consts
         self.bounds = (_row_bounds(c, self.mind, False),
                        _row_bounds(c, self.mind[:, 0], True))
@@ -380,7 +386,7 @@ def _diagnostics_ip(cfg, pb, X, U, z_lo, z_hi):
     and the Jacobians at the final iterate."""
     H = pb.H
     rs, rT = pb.rows(X, U)
-    lam_k, lam_T = _split(z_hi - z_lo, H, NR)
+    lam_k, lam_T = _split(z_hi - z_lo, H, pb.nr)
     xk, uk = _cols(X[:, :H], NX), _cols(U, NU)
     like = xk[0]
     zk = torch.zeros_like(like)
@@ -427,14 +433,14 @@ def solve_batch_fused_ip_plain(cfg: S.SolverConfig, params: S.OcpParams,
     commit the rungs ``follow[i]`` instead of the best ones, which replays
     the kernel's choices.
     """
-    pb = _IpProblem(cfg, params)
+    pb = _IpProblem(cfg, params, F.boundary_models(cfg, params, state))
     H = pb.H
     U, z_lo, z_hi = state.U, state.lam_lo, state.lam_hi
     X = F._rollout(cfg, pb, U)
     ones = torch.ones_like(X[:, 0, 0])
     for si in range(cfg.ip_sqp_iters):
         rows = pb.rows(X, U)
-        zl, zh = _split(z_lo, H, NR), _split(z_hi, H, NR)
+        zl, zh = _split(z_lo, H, pb.nr), _split(z_hi, H, pb.nr)
         sz = [_init_group(rows[g], pb.bounds[g], zl[g], zh[g],
                           cfg.ip_warm_duals) for g in (0, 1)]
         dX, dU = torch.zeros_like(X), torch.zeros_like(U)
@@ -488,7 +494,8 @@ class IpArgs(ctypes.Structure):
             "dt", "half_dt", "dt6", "inv_l", "reg", "d_ego", "a_cap",
             "inv_fr_scale", "u_lo0", "u_hi0", "u_lo1", "u_hi1", "d_lo",
             "d_hi", "v_lo", "v_hi", "rho", "n_act")] + [
-        ("alphas", ctypes.c_float * MAX_ALPHAS)]
+        ("alphas", ctypes.c_float * MAX_ALPHAS),
+        ("boundary", ctypes.c_int32), ("r_ego", ctypes.c_float)]
 
 
 def kernel_args_ip(cfg: S.SolverConfig, B: int, moving: bool,
@@ -509,7 +516,8 @@ def kernel_args_ip(cfg: S.SolverConfig, B: int, moving: bool,
         d_ego=c["d_ego"], a_cap=fr, inv_fr_scale=1.0 / fr, u_lo0=c["u_lo0"],
         u_hi0=c["u_hi0"], u_lo1=c["u_lo1"], u_hi1=c["u_hi1"],
         d_lo=c["d_lo"], d_hi=c["d_hi"], v_lo=c["v_lo"], v_hi=c["v_hi"],
-        rho=float(cfg.ip_ls_rho), n_act=n_active(cfg))
+        rho=float(cfg.ip_ls_rho), n_act=n_active(cfg),
+        boundary=int(cfg.boundary_rows), r_ego=c["r_ego"])
     for i, v in enumerate(cfg.ip_alphas):
         a.alphas[i] = v
     return a
@@ -522,6 +530,9 @@ KERNEL_INPUTS = F.KERNEL_INPUTS                 # x0, xref, obs, mind, w
 KERNEL_STATE = ("U", "lam_lo", "lam_hi")        # updated in place
 KERNEL_OUTPUTS = ("X", "pviol", "diag")
 KERNEL_TRACE = ("rung",)     # optional: the rung each ladder step committed
+KERNEL_BOUNDARY = F.KERNEL_BOUNDARY   # with boundary rows: (B, H+1, 18)
+KERNEL_ORDER = (KERNEL_INPUTS + KERNEL_STATE + KERNEL_OUTPUTS + KERNEL_TRACE
+                + KERNEL_BOUNDARY)
 _OUT_ORDER = ("X", "U", "lam_lo", "lam_hi", "pviol", "diag")
 
 
@@ -541,11 +552,12 @@ def pack_ip(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
     input copied (never a view of the caller's tensors, since the kernel
     writes U, lam_lo and lam_hi in place), every output allocated; the rung
     trace (ip_sqp_iters, B) only when the ladder is on and ``trace_rungs``
-    asks for it."""
+    asks for it; with boundary rows their models at the rollout of the warm
+    start (``fused_gn.boundary_models``)."""
     reason = ineligible_reason_ip(cfg, params)
     if reason is not None:
         raise NotImplementedError(reason)
-    B, H = params.x0.shape[0], cfg.horizon
+    B, H, nr = params.x0.shape[0], cfg.horizon, S.nrows(cfg)
     dev, f32 = params.x0.device, torch.float32
     moving = params.obs_centers.dim() == 4
     w = params.weights
@@ -562,9 +574,12 @@ def pack_ip(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
         mind=_copied(params.min_dist.reshape(B), (B,)),
         w=_copied(torch.cat([w.q, w.r, w.qN], -1), (B, 2 * NX + NU)),
         U=_copied(state.U, (B, H, NU)),
-        lam_lo=_copied(state.lam_lo, (B, H + 1, NR)),
-        lam_hi=_copied(state.lam_hi, (B, H + 1, NR)),
-        X=empty(H + 1, NX), pviol=empty(H + 1, NR), diag=empty(4))
+        lam_lo=_copied(state.lam_lo, (B, H + 1, nr)),
+        lam_hi=_copied(state.lam_hi, (B, H + 1, nr)),
+        X=empty(H + 1, NX), pviol=empty(H + 1, nr), diag=empty(4))
+    if cfg.boundary_rows:
+        # boundary_models makes a new tensor: no copy needed
+        bufs["bnd"] = F.boundary_models(cfg, params, state).contiguous()
     if cfg.ip_alphas and trace_rungs:
         bufs["rung"] = torch.empty((cfg.ip_sqp_iters, B), dtype=torch.int32,
                                    device=dev)
@@ -583,10 +598,9 @@ def launch_ip(cfg: S.SolverConfig, bufs: dict, lanes_per_block: int = 0):
     ``lanes_per_block`` 0 lets the kernel choose.  ``launch_ip.launches``
     counts the launches.
     """
-    order = KERNEL_INPUTS + KERNEL_STATE + KERNEL_OUTPUTS + KERNEL_TRACE
     args = kernel_args_ip(cfg, bufs["x0"].shape[0], _moving(bufs),
                           lanes_per_block)
-    err = F.call_kernel("fused_ip", args, bufs, order)
+    err = F.call_kernel("fused_ip", args, bufs, KERNEL_ORDER)
     launch_ip.launches += 1
     if err != 0:
         raise RuntimeError(f"fused_ip kernel launch failed: CUDA error {err}")
@@ -636,13 +650,19 @@ def solve_batch_fused_ip(cfg: S.SolverConfig, params: S.OcpParams,
     ``fused_ip.solve_batch_fused_ip``.
 
     Runs on ``device`` (default: the GPU, see ``resolve_device``): CUDA
-    tensors go to the kernel, CPU tensors to the plain version.  Problems
-    outside the kernel's envelope raise ``NotImplementedError``; the JAX
-    package's fallback, the vmapped ``sqp.solve_batch``, is not ported yet.
+    tensors go to the kernel, CPU tensors to the plain version.  Boundary
+    rows without boundary data raise ``ValueError``, as the rows of the JAX
+    package's fallback do; other problems outside the kernel's envelope
+    raise ``NotImplementedError``: that fallback, the vmapped
+    ``sqp.solve_batch``, is ROADMAP queue A, item 3.
     """
     dev = resolve_device(device)
     reason = ineligible_reason_ip(cfg, params)
     if reason is not None:
+        if cfg.boundary_rows and (params.boundaries is None
+                                  or params.boundary_signs is None):
+            raise ValueError(
+                "boundary_rows=True needs params.boundaries + signs")
         raise NotImplementedError(reason)
     params = F._to(S.normalize_params(cfg, params), dev)
     state = F._to(state, dev)

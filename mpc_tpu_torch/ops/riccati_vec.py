@@ -107,7 +107,7 @@ def feedback_rollout_vec(dt: float, wheelbase: float, x0: torch.Tensor,
     if model != "ks":
         raise NotImplementedError(
             f"model '{model}': the ST rows of the rollout are ROADMAP queue "
-            "A, item 'Next 4. ST and boundary rows'")
+            "A, item 1 (ST)")
     step = dyn_mod.make_step_fn(integrator, dt, wheelbase)
     A, (B, H) = len(alphas), U_bar.shape[:2]
     al = torch.tensor(alphas, dtype=x0.dtype, device=x0.device)[:, None]

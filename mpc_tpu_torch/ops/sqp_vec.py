@@ -100,8 +100,8 @@ def solve_batch_vec(cfg: S.SolverConfig, params: S.OcpParams,
             "A, item 12")
     if cfg.model != "ks":
         raise NotImplementedError(
-            f"model '{cfg.model}': the ST model is ROADMAP queue A, item "
-            "'Next 4. ST and boundary rows'")
+            f"model '{cfg.model}': the ST model is ROADMAP queue A, item 1 "
+            "(ST)")
     dev = resolve_device(device)
     params = _to(S.normalize_params(cfg, params), dev)
     state = _to(state, dev)

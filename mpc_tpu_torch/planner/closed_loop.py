@@ -117,15 +117,18 @@ def _shift_state(st: sqp.SqpState) -> sqp.SqpState:
     return st.map(_shift)
 
 
-def select_engine(scfg: sqp.SolverConfig):
-    """The batched solve for ``scfg``.
+def select_engine(scfg: sqp.SolverConfig, have_boundaries: bool = False):
+    """The batched solve for ``scfg`` (``mpc_tpu``'s ``select_engine``).
 
     ``engine='xla'``: the lanes-leading AL engine ``sqp_vec.solve_batch_vec``
     (KS, with or without boundary rows).  ``'auto'`` and ``'fused'``: the
     fused AL kernel engine, or the fused IP kernel engine for
-    ``method='ip'``.  Outside an engine's envelope the JAX package falls
-    back to another engine; the port raises ``NotImplementedError`` naming
-    the ROADMAP item that brings the case instead of rerouting it.
+    ``method='ip'``, boundary rows included when ``have_boundaries``.
+    Boundary rows without boundary data: ``'auto'`` AL goes to ``sqp_vec``
+    (whose rows then raise ``ValueError``), ``'fused'`` and IP raise
+    ``ValueError`` as the JAX package does.  The cases the JAX package
+    sends to its vmapped per-lane path raise ``NotImplementedError``
+    naming the ROADMAP item that brings them.
     """
     if scfg.engine == "xla":
         if scfg.method != "al":
@@ -136,7 +139,7 @@ def select_engine(scfg: sqp.SolverConfig):
         if scfg.model != "ks":
             raise NotImplementedError(
                 f"engine='xla', model='{scfg.model}': the ST model is "
-                "ROADMAP queue A, item 'Next 4. ST and boundary rows'")
+                "ROADMAP queue A, item 1 (ST)")
         if scfg.lqr_backend == "pscan":
             raise NotImplementedError(
                 "lqr_backend='pscan': the parallel-scan sweep is ROADMAP "
@@ -145,11 +148,13 @@ def select_engine(scfg: sqp.SolverConfig):
     if scfg.model != "ks":
         raise NotImplementedError(
             f"model='{scfg.model}': ST in the fused kernels is ROADMAP "
-            "queue A, item 'Next 4. ST and boundary rows'")
-    if scfg.boundary_rows:
-        raise NotImplementedError(
-            "boundary_rows: boundary rows in the fused kernels are ROADMAP "
-            "queue A, item 'Next 4. ST and boundary rows'")
+            "queue A, item 1 (ST)")
+    if scfg.boundary_rows and not have_boundaries:
+        if scfg.method == "al" and scfg.engine != "fused":
+            return sqp_vec.solve_batch_vec
+        raise ValueError(f"engine='{scfg.engine}', method '{scfg.method}' "
+                         "with boundary rows needs boundary data "
+                         "(params.boundaries + signs)")
     if scfg.method == "ip":
         return fused_ip.solve_batch_fused_ip
     return fused_gn.solve_batch_fused
@@ -308,7 +313,7 @@ def closed_loop_batch_vec(lcfg: LoopConfig, params: LoopParams,
     ``closed_loop_batch_vec``; results are (B, T, ...).
     """
     dev = resolve_device(device)
-    engine = select_engine(lcfg.solver)
+    engine = select_engine(lcfg.solver, params.boundaries is not None)
     batched_solve = functools.partial(engine, device=dev)
     params = params.map(lambda t: t.to(dev))
     n = params.x_init.shape[0]

@@ -267,3 +267,133 @@ def test_al_timing_sweeps_threads_per_lane():
     eng = cs.engine(lcfg.solver)
     assert eng.geometry == "threads_per_lane" and eng.default == 0
     assert eng.sweep(lcfg.solver) == (0, 2, 4, 8) == (0,) + TF.THREADS_PER_LANE
+
+
+@pytest.mark.parametrize("kw,kernel,horizon", [
+    (cs.HARD_CORRIDOR, "fused_ip", 14), (cs.SOFT_CORRIDOR, "fused_gn", 30)],
+    ids=["hard-corridor", "soft-corridor"])
+def test_corridor_rows_launch_their_kernel_once_a_solve(kw, kernel, horizon):
+    """The corridor rows run their own budgets with boundary rows at their
+    horizons: one fused launch per cold start and step, 104 a loop."""
+    lcfg, lp = cs.bench_loop(n_lanes=2, device="cpu", **kw)
+    assert lcfg.solver.boundary_rows and lcfg.solver.horizon == horizon
+    assert lp.boundaries is not None
+    assert cs.row_kernel(lcfg) == (kernel, 104)
+
+
+def test_corridor_spans_the_track_with_its_edges_at_four_metres():
+    """Left edge at y = +4 directed -x, right edge at y = -4 directed +x,
+    128 points each, signs +1, beyond both ends of every lane's track; the
+    starts lie inside it, every row's margin over r_ego 1.65 m (4 m less
+    the start's y of about -1.15 m less 1.2 m)."""
+    lcfg, lp = cs.bench_loop(n_lanes=3, device="cpu", **cs.SOFT_CORRIDOR)
+    b = lp.boundaries
+    assert b.shape == (3, 2, cs.CORRIDOR_POINTS, 2)
+    assert bool((b[:, 0, :, 1] == 4.0).all() and (b[:, 1, :, 1] == -4.0).all())
+    assert bool((b[:, 0, 1:, 0] < b[:, 0, :-1, 0]).all())     # left: -x
+    assert bool((b[:, 1, 1:, 0] > b[:, 1, :-1, 0]).all())     # right: +x
+    assert bool((lp.boundary_signs == 1.0).all())
+    px = lp.track.path[..., 0]
+    assert float(b[..., 0].min()) < float(px.min())
+    assert float(b[..., 0].max()) > float(px.max())
+    m = cs.boundary_margins(lcfg.solver, lp.x_init[:, None], b,
+                            lp.boundary_signs)
+    assert bool((m > 1.5).all())
+    assert cs.active_boundary_rows(lcfg.solver, lp.x_init[:, None], b,
+                                   lp.boundary_signs) == 0
+
+
+PTXAS_BND = "".join(
+    f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+    f"ptxas info    : Function properties for {name}\n"
+    f"    8 bytes stack frame, {spill} bytes spill stores, {spill} bytes "
+    f"spill loads\nptxas info    : Used 128 registers, 880 bytes cmem[0]\n"
+    for name, spill in (
+        ("_Z15fused_gn_kernelILi4ELb0EEv7FgnArgs4Bufs", 68),
+        ("_Z15fused_gn_kernelILi4ELb1EEv7FgnArgs4Bufs", 432),
+        ("_Z15fused_gn_kernelILi2ELb1EEv7FgnArgs4Bufs", 7)))
+
+
+def test_build_line_reads_the_boundary_instances():
+    """Each fused kernel has an instance with and one without the boundary
+    rows (the template's bool, Lb1E / Lb0E in the mangled name): the build
+    line reads each at its threads a lane."""
+    entries = cs.ptxas_entries(PTXAS_BND)
+    assert cs.main_entry(entries, 4)["spill_stores"] == 68
+    assert cs.main_entry(entries, 4, boundary=True)["spill_stores"] == 432
+    assert cs.main_entry(entries, 2, boundary=True)["spill_stores"] == 7
+
+
+def _corridor_lines():
+    errs = {"U": 1e-4, "X": 2e-4}
+    timing = {"warm_2x6": {"ms": 3.0, "plain_ms": 90.0, "bound_ms": 0.1,
+                           "bound_by": "operations", "max_abs_err": errs,
+                           "boundary_models_ms": 18.0},
+              "cold_5x10": {"ms": 20.0, "plain_ms": 900.0, "bound_ms": 0.5,
+                            "bound_by": "operations", "max_abs_err": errs}}
+    loop = {"row": "hard-corridor", "kernel_launches": 104,
+            "feasible_steps": 1638400, "total_solves": 1638400,
+            "active_boundary_lane_steps": 163290}
+    entry = {"registers": 168, "spill_stores": 292, "spill_loads": 496,
+             "smem_bytes_per_block": 128976, "geometry": {}}
+    build = {"fused_ip": dict(entry, boundary_instance=entry)}
+    return timing, loop, build, {"case": errs}
+
+
+def test_kernels_line_carries_each_boundary_instance():
+    """The kernels line's entry of a fused kernel nests its boundary
+    instance with every key the line needs: launches of its corridor row,
+    the largest check error, its time, plain time, bound and what sets it,
+    the library call (none), and the glue of the rows' models."""
+    timing, loop, build, checks = _corridor_lines()
+    eng = cs.engine(TS.SolverConfig(horizon=14, method="ip"))
+    bnd = cs.boundary_instance_line(eng, loop, timing, "warm_2x6",
+                                    "cold_5x10", checks, build)
+    for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "boundary_models_ms",
+                "active_boundary_lane_steps", "registers", "spill_stores"):
+        assert key in bnd, key
+    assert bnd["launches"] == 104
+    assert (bnd["max_abs_err"], bnd["max_abs_err_X"]) == (1e-4, 2e-4)
+    line = cs.kernel_line(eng, loop, timing, "warm_2x6", "cold_5x10",
+                          checks, build, bnd)
+    assert line["boundary_instance"] is bnd
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in line, key
+
+
+def test_corridor_loop_line_counts_active_rows(monkeypatch):
+    """A corridor row's loop line: its kernel's launches, every step
+    feasible, the lane-steps where a boundary row is active (states at
+    y = 2.8 m, 1.2 m below the left edge) and the largest lateral y; a
+    stand-in loop on the CPU gives the states."""
+    from mpc_tpu_torch.ops import fused_ip as TFI
+    B, T = 4, cs.T_BENCH
+    monkeypatch.setattr(cs, "B_BENCH", B)
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "cuda_ms", lambda fn: (1.0, fn()))
+
+    def loop(lcfg, lp, device=None):
+        TFI.launch_ip.launches += 104
+        X = torch.zeros(B, T, 5)
+        X[:, 40:60, 1] = 4.0 - 1.2
+        zero = torch.zeros(B, T)
+        return tcl.LoopResult(X=X, U=torch.zeros(B, T, 2),
+                              status=zero.int(), viol=zero, cost=zero,
+                              stat=zero)
+    monkeypatch.setattr(tcl, "closed_loop_batch_vec", loop)
+    lines = []
+    monkeypatch.setattr(cs, "emit", lines.append)
+    line, lcfg, _ = cs.phase_loop("cpu", "card, 700.00 W", "hard-corridor",
+                                  "b", **cs.HARD_CORRIDOR)
+    assert lines == [line]
+    assert line["metric"] == "nmpc_solves_per_s_per_chip_h14"
+    assert line["kernel_launches"] == 104
+    assert line["launches_by_kernel"]["fused_gn"] == 0
+    assert line["feasible_steps"] == line["total_solves"] == B * T
+    assert line["active_boundary_lane_steps"] == B * 20
+    assert line["max_lateral_y"] == pytest.approx(2.8)

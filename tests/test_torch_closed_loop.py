@@ -238,17 +238,26 @@ def test_ip_warmup_budget_is_5x10_and_selects_the_ip_kernel():
     assert tcl._warmup_cfg(lcfg2).ip_iters == 4
 
 
-@pytest.mark.parametrize("solver_kw,loop_kw", [
-    (dict(method="ip", boundary_rows=True), {}),
-    (dict(engine="xla", model="st"), {}),
-    (dict(model="st"), {}),
-    (dict(boundary_rows=True), {}),
-    (dict(engine="xla", lqr_backend="pscan"), {}),
-    (dict(engine="xla", method="ip"), {}),
-    (dict(engine="fused", boundary_rows=True), {}),
+# boundary rows without boundary data raise the JAX package's ValueError
+NO_DATA = (ValueError, "boundaries")
+ROADMAP = (NotImplementedError, "ROADMAP")
+
+
+@pytest.mark.parametrize("solver_kw,loop_kw,raises", [
+    (dict(method="ip", boundary_rows=True), {}, NO_DATA),
+    (dict(engine="xla", model="st"), {}, ROADMAP),
+    (dict(model="st"), {}, ROADMAP),
+    (dict(boundary_rows=True), {}, NO_DATA),
+    (dict(engine="xla", lqr_backend="pscan"), {}, ROADMAP),
+    (dict(engine="xla", method="ip"), {}, ROADMAP),
+    (dict(engine="fused", boundary_rows=True), {}, NO_DATA),
 ], ids=["ip", "xla-st", "st", "boundary_rows", "xla-pscan", "xla-ip",
         "fused-boundary_rows"])
-def test_out_of_envelope_raises(solver_kw, loop_kw):
+def test_out_of_envelope_raises(solver_kw, loop_kw, raises):
+    """Cases the port does not run: the ones the JAX package runs on a path
+    not ported yet raise ``NotImplementedError`` naming the ROADMAP item;
+    boundary rows without boundary data (the bench loop has none) raise
+    the ``ValueError`` that the JAX package raises there."""
     from mpc_tpu_torch.models.vehicle import VEHICLE_2
     lcfg, p = tsyn.make_bench_loop(3, 4, 2, device="cpu")
     if solver_kw.get("model") == "st":
@@ -256,7 +265,8 @@ def test_out_of_envelope_raises(solver_kw, loop_kw):
     lcfg = dataclasses.replace(
         lcfg, solver=dataclasses.replace(lcfg.solver, **solver_kw),
         **loop_kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error, match = raises
+    with pytest.raises(error, match=match):
         tcl.closed_loop_batch_vec(lcfg, p, device="cpu")
 
 

@@ -119,18 +119,32 @@ def _tocp(H=4, B=2, **kw):
     return convert.ocp_params(ocp_numpy(H, B, **kw))
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(method="ip"), "IP"),
-    (dict(boundary_rows=True), "boundary"),
-    (dict(alphas=tuple(0.5 ** i for i in range(17))), "rungs"),
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(method="ip"), NotImplementedError, "IP"),
+    # no boundary data: the wrapper goes to sqp_vec, whose rows raise, as
+    # the JAX package's fallback does
+    (dict(boundary_rows=True), ValueError, "boundaries"),
+    # 17 rungs: the wrapper goes to sqp_vec and returns its solution
+    (dict(alphas=tuple(0.5 ** i for i in range(17))), None, "rungs"),
 ])
-def test_out_of_envelope_raises(kw, match):
+def test_out_of_envelope_raises(kw, error, match):
+    """Outside the kernel's envelope the IP method raises, a KS AL problem
+    goes to ``sqp_vec.solve_batch_vec`` as in the JAX package (which raises
+    where boundary rows have no data)."""
+    from mpc_tpu_torch.ops import sqp_vec as TSV
     cfg = _tcfg(**kw)
     p = _tocp()
     assert not TF.eligible(cfg, p)
-    with pytest.raises(NotImplementedError, match=match):
-        TF.solve_batch_fused(cfg, p, TS.init_state(cfg, batch=2),
-                             device="cpu")
+    assert match in TF.ineligible_reason(cfg, p)
+    st = TS.init_state(cfg, batch=2)
+    if error is None:
+        got = TF.solve_batch_fused(cfg, p, st, device="cpu")
+        ref = TSV.solve_batch_vec(cfg, p, st, device="cpu")
+        assert torch.equal(got.U, ref.U) and torch.equal(got.status,
+                                                         ref.status)
+        return
+    with pytest.raises(error, match=match):
+        TF.solve_batch_fused(cfg, p, st, device="cpu")
 
 
 def test_st_model_raises():
@@ -186,8 +200,12 @@ def test_launch_kernel_refuses_cpu_tensors():
 
 
 def test_kernel_argument_block_layout():
-    """The ctypes mirror has the C struct's 4-byte fields, in order."""
-    assert ctypes.sizeof(TF.FgnArgs) == 4 * (10 + 24 + TF.MAX_ALPHAS)
+    """The ctypes mirror has the C struct's 4-byte fields, in order: 10
+    integers, 24 floats, the ladder, then the boundary rows' flag and their
+    bound r_ego."""
+    assert ctypes.sizeof(TF.FgnArgs) == 4 * (10 + 24 + TF.MAX_ALPHAS + 2)
+    b = TF.kernel_args(_tcfg(boundary_rows=True), B=7, moving=False)
+    assert b.boundary == 1 and b.r_ego == pytest.approx(1.2)
     a = TF.kernel_args(_tcfg(alphas=(1.0, 0.5), formulation="casadi"),
                        B=7, moving=True)
     assert (a.B, a.H, a.n_alphas, a.forcespro, a.moving) == (7, 4, 2, 0, 1)
@@ -207,9 +225,9 @@ def test_ctypes_binding_matches_the_c_source():
                     re.S).group(1)
     params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
     assert params[0] == "args" and params[-1] == "stream"
-    assert tuple(params[1:-1]) == (TF.KERNEL_INPUTS + TF.KERNEL_STATE
-                                   + TF.KERNEL_OUTPUTS + TF.KERNEL_SCRATCH
-                                   + TF.KERNEL_TRACE)
+    assert tuple(params[1:-1]) == TF.KERNEL_ORDER == (
+        TF.KERNEL_INPUTS + TF.KERNEL_STATE + TF.KERNEL_OUTPUTS
+        + TF.KERNEL_SCRATCH + TF.KERNEL_TRACE + TF.KERNEL_BOUNDARY)
     fn_name, argtypes = _build.SIGNATURES["fused_gn"]
     assert fn_name == "fused_gn_solve" and len(argtypes) == len(params)
 

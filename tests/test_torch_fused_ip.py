@@ -135,16 +135,18 @@ def _tocp(H=4, B=2, **kw):
     return convert.ocp_params(ip_ocp_numpy(H, B, **kw))
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(method="al"), "AL"),
-    (dict(boundary_rows=True), "boundary"),
-    (dict(ip_alphas=tuple(0.5 ** i for i in range(17))), "rungs"),
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(method="al"), NotImplementedError, "AL"),
+    # no boundary data: the ValueError of the JAX package's fallback rows
+    (dict(boundary_rows=True), ValueError, "boundaries"),
+    (dict(ip_alphas=tuple(0.5 ** i for i in range(17))), NotImplementedError,
+     "rungs"),
 ])
-def test_out_of_envelope_raises(kw, match):
+def test_out_of_envelope_raises(kw, error, match):
     cfg = _tcfg(**kw)
     p = _tocp()
     assert not TFI.eligible_ip(cfg, p)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         TFI.solve_batch_fused_ip(cfg, p, TS.init_state(cfg, batch=2),
                                  device="cpu")
 
@@ -182,7 +184,7 @@ def test_barrier_count_and_argument_block():
     mirror has the C struct's 4-byte fields."""
     assert TFI.n_active(_tcfg(horizon=30)) == 30 * 19 + 15
     assert TFI.n_active(_tcfg(formulation="casadi")) == 4 * 19 + 15
-    assert ctypes.sizeof(TFI.IpArgs) == 4 * (11 + 18 + TF.MAX_ALPHAS)
+    assert ctypes.sizeof(TFI.IpArgs) == 4 * (11 + 18 + TF.MAX_ALPHAS + 2)
     a = TFI.kernel_args_ip(_tcfg(ip_alphas=(1.0, 0.5), ip_warm_duals=True,
                                  formulation="casadi", integrator="euler"),
                            B=7, moving=True)
@@ -204,8 +206,9 @@ def test_ctypes_binding_matches_the_c_source():
                     re.S).group(1)
     params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
     assert params[0] == "args" and params[-1] == "stream"
-    assert tuple(params[1:-1]) == (TFI.KERNEL_INPUTS + TFI.KERNEL_STATE
-                                   + TFI.KERNEL_OUTPUTS + TFI.KERNEL_TRACE)
+    assert tuple(params[1:-1]) == TFI.KERNEL_ORDER == (
+        TFI.KERNEL_INPUTS + TFI.KERNEL_STATE + TFI.KERNEL_OUTPUTS
+        + TFI.KERNEL_TRACE + TFI.KERNEL_BOUNDARY)
     fn_name, argtypes = _build.SIGNATURES["fused_ip"]
     assert fn_name == "fused_ip_solve" and len(argtypes) == len(params)
 

@@ -194,8 +194,7 @@ def host_gn(libs, cfg, ocp, st, threads_per_lane=2):
     bufs = TF.pack(cfg, ocp, st, trace_rungs=True)
     run_host(libs, "fused_gn", TF.kernel_args(
         cfg, ocp.x0.shape[0], ocp.obs_centers.dim() == 4, threads_per_lane),
-        bufs, TF.KERNEL_INPUTS + TF.KERNEL_STATE + TF.KERNEL_OUTPUTS
-        + TF.KERNEL_SCRATCH + TF.KERNEL_TRACE)
+        bufs, TF.KERNEL_ORDER)
     sol = TF.to_solution(cfg, TF.unpack(bufs))
     # the status the kernel writes is to_solution's, from its diagnostics
     assert torch.equal(bufs["status"], sol.status)
@@ -208,8 +207,7 @@ def host_ip(libs, cfg, ocp, st, lanes_per_block=2):
     bufs = TFI.pack_ip(cfg, ocp, st, trace_rungs=True)
     run_host(libs, "fused_ip", TFI.kernel_args_ip(
         cfg, ocp.x0.shape[0], ocp.obs_centers.dim() == 4, lanes_per_block),
-        bufs, TFI.KERNEL_INPUTS + TFI.KERNEL_STATE + TFI.KERNEL_OUTPUTS
-        + TFI.KERNEL_TRACE)
+        bufs, TFI.KERNEL_ORDER)
     return bufs, TFI.to_solution_ip(cfg, TFI.unpack_ip(bufs), st.mu)
 
 
@@ -284,17 +282,29 @@ def test_fused_gn_source_ragged_lanes_and_strided_stages(host_libs):
         assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
 
 
-@pytest.mark.parametrize("horizon,threads_per_lane",
-                         [(1, 2), (30, 4), (30, 8), (40, 8),
-                          (TF.MAX_HORIZON, 8)])
+@pytest.mark.parametrize("horizon,threads_per_lane,boundary",
+                         [(1, 2, False), (30, 4, False), (30, 8, False),
+                          (40, 8, False), (TF.MAX_HORIZON, 8, False),
+                          (14, 4, True), (30, 4, True),
+                          (TF.MAX_HORIZON, 8, True)])
 def test_fused_gn_shared_memory_footprint_matches_the_source(
-        host_libs, horizon, threads_per_lane):
+        host_libs, horizon, threads_per_lane, boundary):
     """``lane_smem_bytes``, which the eligibility reads, is the source's
-    own ``lane_floats`` of one lane's shared memory."""
+    own ``lane_floats`` of one lane's shared memory, and the geometry of
+    the instance with or without the boundary rows takes that much: the
+    boundary rows' models come from device memory, so both instances take
+    the same."""
     fn = host_libs["fused_gn"].fused_gn_lane_floats
     fn.restype = ctypes.c_int
-    assert 4 * fn(horizon, threads_per_lane) == TF.lane_smem_bytes(
-        horizon, threads_per_lane)
+    want = TF.lane_smem_bytes(horizon, threads_per_lane)
+    assert 4 * fn(horizon, threads_per_lane) == want
+    cfg = TS.SolverConfig(horizon=horizon, boundary_rows=boundary)
+    out = (ctypes.c_int32 * 6)()
+    geo = host_libs["fused_gn"].fused_gn_geometry
+    geo.restype = ctypes.c_int
+    assert geo(ctypes.byref(TF.kernel_args(cfg, 64, False,
+                                           threads_per_lane)), out) == 0
+    assert (out[0], out[2], out[3]) == (threads_per_lane, want, 32 * want)
 
 
 IP_CASES = {
@@ -357,14 +367,72 @@ def test_fused_ip_source_ragged_lanes_and_strided_stages(host_libs):
                                    rtol=0.0, atol=1e-3)
 
 
-@pytest.mark.parametrize("horizon", [1, 8, 30, 31, 63])
+@pytest.mark.parametrize("horizon,boundary", [
+    (1, False), (8, False), (30, False), (31, False), (63, False),
+    (8, True), (14, True), (30, True), (63, True)])
 def test_fused_ip_shared_memory_footprint_matches_the_source(host_libs,
-                                                            horizon):
+                                                            horizon,
+                                                            boundary):
     """``lane_smem_bytes``, which the eligibility reads, is the source's
-    own ``Layout`` of one lane's shared memory."""
+    own ``Layout`` of one lane's shared memory, with or without the
+    boundary rows (69 floats a stage of rows cache in place of 45), and the
+    geometry of that instance takes it."""
     fn = host_libs["fused_ip"].fused_ip_lane_floats
     fn.restype = ctypes.c_int
-    assert 4 * fn(horizon) == TFI.lane_smem_bytes(horizon)
+    want = TFI.lane_smem_bytes(horizon, boundary)
+    assert 4 * fn(horizon, int(boundary)) == want
+    cfg = TS.SolverConfig(horizon=horizon, method="ip",
+                          boundary_rows=boundary)
+    out = (ctypes.c_int32 * 6)()
+    geo = host_libs["fused_ip"].fused_ip_geometry
+    geo.restype = ctypes.c_int
+    assert geo(ctypes.byref(TFI.kernel_args_ip(cfg, 64, False)), out) == 0
+    assert out[1] == want
+    assert out[5] == min(12, TFI.SMEM_PER_BLOCK // want)
+
+
+def corridor_ocp(**kw):
+    """B=5 lanes at H=12 on the bending road of ``chip_smoke`` (the bench
+    loop's step 40, in the swerve), 1.3 m either side of the reference, so
+    that the boundary rows bind."""
+    lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, 12, B, device="cpu",
+                                    boundary_rows=True, **kw)
+    return lcfg.solver, cs.on_curved_road(lcfg, lp, 1.3)
+
+
+def test_fused_gn_source_with_boundary_rows(host_libs):
+    """The AL source's boundary instance (3x2 with the ladder, B=5 ragged,
+    4 threads a lane) on a bending road whose rows bind: their multipliers
+    and penalties move."""
+    cfg, ocp = corridor_ocp(al_iters=3, sqp_iters=2)
+    st = TS.init_state(cfg, batch=B)
+    bufs, ker = host_gn(host_libs, cfg, ocp, st, 4)
+    pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
+        cfg, ocp, st, follow=bufs.get("rung")))
+    assert cs.active_boundary_rows(cfg, pln.X, ocp.boundaries,
+                                   ocp.boundary_signs) > 0
+    assert bool((pln.state.lam_lo[..., TF.NR:] > 0).any())
+    assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
+    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
+                               rtol=0.0, atol=1e-3)
+
+
+def test_fused_ip_source_with_boundary_rows(host_libs):
+    """The IP source's boundary instance (2x6, warm duals, the ladder, B=5
+    at 2 lanes a block, the last block ragged) on a bending road whose
+    rows bind."""
+    cfg, ocp = corridor_ocp(method="ip", ip_sqp_iters=2, ip_iters=6,
+                            ip_warm_duals=True)
+    st = TS.init_state(cfg, batch=B)
+    bufs, ker = host_ip(host_libs, cfg, ocp, st)
+    pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
+        cfg, ocp, st, follow=bufs.get("rung")), st.mu)
+    assert cs.active_boundary_rows(cfg, pln.X, ocp.boundaries,
+                                   ocp.boundary_signs) > 0
+    assert bool((pln.state.lam_lo[..., TF.NR:] > 1.0).any())
+    assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
+    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
+                               rtol=0.0, atol=1e-3)
 
 
 def host_riccati(libs, quad, QH, qH, dyn, reg):
