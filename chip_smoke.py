@@ -8,11 +8,14 @@ Phases, each printing one JSON line (``"phase": ...``):
 
 1. device   the card's name and power limit (``nvidia-smi``);
 2. build    ``nvcc`` builds every kernel from ``mpc_tpu_torch/ops/csrc``
-            (one process per source, all at once) into the git-ignored
+            (one process per source, all at once: the KS libraries, the ST
+            model's ``fused_gn_st.cu`` and ``fused_ip_st.cu``, the sweep
+            with its nx=5 and nx=7 instances) into the git-ignored
             ``build/kernels``; registers, spills and static shared memory
             from ``-Xptxas -v`` per entry function, and the fused kernels'
             dynamic shared memory and launch geometry (fused_gn: threads a
-            lane; fused_ip: lanes a block) at the bench shape;
+            lane; fused_ip: lanes a block) at the bench shape, the ST
+            libraries' at the ST rows' shape;
 3. check    each kernel against its plain version on the card at the bench
             shape (KS, RK4, forcespro, H=30, B=2048 lanes of
             ``make_bench_loop``), then one small case each for
@@ -47,6 +50,14 @@ Phases, each printing one JSON line (``"phase": ...``):
               float64 at step 38, where the gates cannot hold; each check
               reports its active boundary rows; linearize_boundaries on the
               card against the CPU.
+            - the ST libraries (model='st', VEHICLE_2): the same cases as
+              fused_gn and fused_ip, and each boundary instance at a ragged
+              B=250 on the bending road, where rows bind (AL 1x1
+              unguarded, 1.7 m; IP at the hard-corridor budget, 1.9 m);
+              the sweep's nx=7 instance on random 7-state problems
+              (B=2048, 250) and on the ST xla engine's step-0 quadratics
+              (B=16384); the ST xla engine with the kernel sweep against
+              the plain sweep (B=2048).
             With the ladder on, the kernel records the rung each iteration
             committed and the plain version replays those choices: every
             choice must be the best rung, up to a relative merit regret of
@@ -56,8 +67,8 @@ Phases, each printing one JSON line (``"phase": ...``):
             same loop on the CPU (plain version), the tests' closed-loop
             bands: the soft and hard rows, the soft xla row plain and with
             the RTI backoffs, the hard row with the status gate on stage
-            0..1, and both corridor rows (U within the plain loop's own
-            spread when that is larger);
+            0..1, both corridor rows (U within the plain loop's own spread
+            when that is larger), and the soft-st and hard-st rows;
 5. timing   each kernel per launch at the main path's shape (B=16384,
             H=30; AL warm 1x1 and cold 3x4, IP warm 1x4 and cold 5x10, the
             sweep on the bench point's step-0 quadratics; fused_gn at 2, 4
@@ -65,7 +76,9 @@ Phases, each printing one JSON line (``"phase": ...``):
             32/64/128 threads a block, fused_ip at 1, 2, 4, 8 and the most
             lanes a block and at its own choice; the corridor rows' own
             and warm-up budgets, with the time of linearize_boundaries
-            before each launch), the plain
+            before each launch; the ST libraries at the soft and hard
+            budgets (fused_gn_st at 4 and 8 threads a lane), the sweep's
+            nx=7 instance), the plain
             version's time, and the bound: the larger of
             the bytes the call must move over 3.35 TB/s and its fp32
             operations (counted on the plain version) over 67 TFLOP/s; the
@@ -75,14 +88,19 @@ Phases, each printing one JSON line (``"phase": ...``):
             cold-start solves, for the soft row (al 1x1, ``alphas=()``), the
             hard row (ip 1x4, warm duals, ``ip_alphas=()``) and the xla row
             (the soft row on ``engine='xla'``), then hard-corridor and
-            soft-corridor inside a straight road with edges at y = +-4 m:
+            soft-corridor inside a straight road with edges at y = +-4 m,
+            then the ST rows: soft-st and hard-st (the soft and hard rows'
+            budgets, model='st') and xla-st (one cold start and
+            XLA_ST_STEPS steps on engine='xla', the nx=7 sweep's main
+            path):
             launches of every kernel counted in that run, then solves/s
             with CUDA events, best of 3 after it (one run where a loop takes
-            more than 20 s), the peak device memory, and in a corridor row
-            the lane-steps where a boundary row is active;
+            more than 20 s), the peak device memory, in a corridor row
+            the lane-steps where a boundary row is active, in an ST row
+            the largest |beta|;
 7. profile  one more loop of each row under ``torch.profiler`` (the xla
             row: steps 0..4, the corridor rows: steps 38..47, after an
-            unprofiled cold start): device time of the kernel and of the
+            unprofiled cold start; soft-st and hard-st: steps 50..59): device time of the kernel and of the
             eager glue around it, by kernel name, and of
             linearize_boundaries in the corridor rows;
 
@@ -119,6 +137,19 @@ IP_COLD = dict(method="ip", ip_sqp_iters=5, ip_iters=10, ip_alphas=())
 IP_WARM = dict(method="ip", ip_sqp_iters=1, ip_iters=4, ip_warm_duals=True,
                ip_alphas=())
 XLA_WARM = dict(engine="xla", **WARM)
+# The ST rows: the 7-state single-track model with tire dynamics
+# (model='st', VEHICLE_2, which bench_loop adds) at the bench budgets of the
+# soft and hard rows, on the same overtake workload (its starts lifted to
+# the ST state); the xla-st row runs XLA_ST_STEPS steps after one cold
+# start: its eager glue takes about a second a Gauss-Newton step on an
+# H100 (PERF.md), so its counted run takes over ONE_TIMED_RUN_S and it is
+# timed once, and this is enough to count the nx=7 sweep's launches on its
+# main path.
+ST = dict(model="st")
+SOFT_ST = dict(method="al", **WARM, **ST)
+HARD_ST = dict(**IP_WARM, **ST)
+XLA_ST = dict(**XLA_WARM, **ST, cold_start_solves=1)
+XLA_ST_STEPS = 15
 # The corridor rows: the overtake workload inside a straight two-edge road,
 # the left edge at y = +CORRIDOR_Y and the right at -CORRIDOR_Y, each a
 # CORRIDOR_POINTS-point polyline spanning the whole track.  hard-corridor is
@@ -239,9 +270,9 @@ def ptxas_entries(text):
 def main_entry(entries, instance=1, boundary=False):
     """The entry function the main path launches: the only one, or the
     template instance ``instance`` (fused_ip: one stage a thread, H + 1 <=
-    32; fused_gn: the threads a lane it takes at the bench shape), with or
-    without the road-boundary rows (the template's ``bool``, ``Lb1E`` in
-    the mangled name)."""
+    32; fused_gn: the threads a lane it takes at the bench shape; riccati:
+    the state dimension, 5 or 7), with or without the road-boundary rows
+    (the template's ``bool``, ``Lb1E`` in the mangled name)."""
     if len(entries) == 1:
         return next(iter(entries.values()))
     return next(v for k, v in entries.items()
@@ -259,29 +290,37 @@ def phase_build():
     t0 = time.perf_counter()
     logs = _build.build_all()
     seconds = time.perf_counter() - t0
-    lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **WARM)
-    geos = {"fused_gn": F.geometry(lcfg.solver, B_BENCH)}
-    lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **IP_WARM)
-    geos["fused_ip"] = FI.geometry(lcfg.solver, B_BENCH)
-    lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **SOFT_CORRIDOR)
-    bgeos = {"fused_gn": F.geometry(lcfg.solver, B_BENCH)}
-    lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **HARD_CORRIDOR)
-    bgeos["fused_ip"] = FI.geometry(lcfg.solver, B_BENCH)
+
+    def geometry(kw):
+        lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **kw)
+        geo = (FI.geometry if lcfg.solver.method == "ip" else F.geometry)
+        return geo(lcfg.solver, B_BENCH)
+    # each fused library at its row's shape; the boundary instances at the
+    # corridor rows' (KS) and at H=30 with the ST rows' budgets (ST)
+    geos = {"fused_gn": geometry(WARM), "fused_ip": geometry(IP_WARM),
+            "fused_gn_st": geometry(SOFT_ST), "fused_ip_st": geometry(HARD_ST)}
+    bgeos = {"fused_gn": geometry(SOFT_CORRIDOR),
+             "fused_ip": geometry(HARD_CORRIDOR),
+             "fused_gn_st": geometry(dict(SOFT_ST, boundary_rows=True)),
+             "fused_ip_st": geometry(dict(HARD_ST, boundary_rows=True))}
     info = {}
     for name, text in logs.items():
         _build.load(name)
         entries = ptxas_entries(text)
         geo = geos.get(name)
-        instance = geo["threads_per_lane"] if name == "fused_gn" else 1
+        instance = (geo["threads_per_lane"] if "threads_per_lane" in
+                    (geo or {}) else 5 if name == "riccati" else 1)
         info[name] = dict(main_entry(entries, instance), entries=entries)
         info[name]["smem_bytes_per_block"] = (
             geo["smem_bytes_per_block"] if geo
             else info[name]["static_smem_bytes"])
         if geo:
             info[name]["geometry"] = geo
+        if name == "riccati":   # the ST model's instance, nx=7
+            info[name]["st_instance"] = main_entry(entries, 7)
         if name in bgeos:   # the boundary rows' instance at its row's shape
             bgeo = bgeos[name]
-            instance = bgeo["threads_per_lane"] if name == "fused_gn" else 1
+            instance = bgeo.get("threads_per_lane", 1)
             info[name]["boundary_instance"] = dict(
                 main_entry(entries, instance, boundary=True),
                 smem_bytes_per_block=bgeo["smem_bytes_per_block"],
@@ -294,8 +333,11 @@ def bench_loop(horizon=H, corridor=False, **kw):
     """``make_bench_loop`` on the bench's track (T=100 steps long): a
     shorter track puts the obstacle within a horizon of the start, where
     the loop turns chaotic; with ``corridor`` inside the straight corridor
-    (:func:`with_corridor`)."""
+    (:func:`with_corridor`); the ST model with VEHICLE_2."""
+    from mpc_tpu_torch.models.vehicle import VEHICLE_2
     from mpc_tpu_torch.utils import synthetic
+    if kw.get("model") == "st":
+        kw.setdefault("vehicle", VEHICLE_2)
     lcfg, lp = synthetic.make_bench_loop(T_BENCH, horizon, **kw)
     return lcfg, with_corridor(lp) if corridor else lp
 
@@ -377,12 +419,16 @@ class Engine(NamedTuple):
 
 
 def engine(cfg) -> Engine:
-    """The kernel that solves ``cfg``'s method."""
+    """The kernel that solves ``cfg``'s method and model."""
     from mpc_tpu_torch.ops import fused_gn as F
     from mpc_tpu_torch.ops import fused_ip as FI
+    from mpc_tpu_torch.ops import sqp as S
+    st = cfg.model == "st"
     if cfg.method == "ip":
         return Engine(
-            "fused_ip", "mpc_tpu/ops/fused_ip.py:93 (_make_ip_kernel)",
+            F.kernel_name(cfg, "fused_ip"),
+            "mpc_tpu/ops/fused_ip.py:93 (_make_ip_kernel"
+            + (", model='st': :100-108)" if st else ")"),
             FI.pack_ip, FI.launch_ip, FI.unpack_ip,
             FI.solve_batch_fused_ip_plain,
             lambda c, out, st: FI.to_solution_ip(c, out, st.mu),
@@ -395,13 +441,15 @@ def engine(cfg) -> Engine:
             lambda c: ip_lane_sweep(FI.geometry(
                 c, B_BENCH)["max_lanes_per_block"]), 0)
     return Engine(
-        "fused_gn", "mpc_tpu/ops/fused_gn.py:808 (_make_kernel)",
+        F.kernel_name(cfg), "mpc_tpu/ops/fused_gn.py:808 (_make_kernel"
+        + (", model='st': :814-822)" if st else ")"),
         F.pack, F.launch, F.unpack, F.solve_batch_fused_plain,
         lambda c, out, st: F.to_solution(c, out), lambda c: bool(c.alphas),
         lambda c: f"{c.al_iters}x{c.sqp_iters}", BANDS,
         {f: (*b, MIN_LANE_AGREEMENT) for f, b in STATE_BANDS.items()},
         (F.KERNEL_INPUTS, F.KERNEL_STATE, F.KERNEL_OUTPUTS),
-        "threads_per_lane", lambda c: (0,) + F.THREADS_PER_LANE, 0)
+        "threads_per_lane",
+        lambda c: (0,) + F.threads_per_lane_of(S.solver_nx(c)), 0)
 
 
 def ip_lane_sweep(most):
@@ -524,75 +572,97 @@ def moving_obstacles(ocp, dev):
     return ocp._replace(obs_centers=ocp.obs_centers[:, None] + drift)
 
 
-def phase_check(dev):
+def _checks(dev, cases, model, prefix):
+    """compare() on each (name, cold_kw, budget_kw, lanes, mode, step,
+    moving, warm) of ``cases`` with the ``model`` kwargs: the solve of
+    ``budget_kw`` on the bench loop's OCP at ``step``, from init_state, or
+    from the state the cold budget leaves when ``warm``."""
     from mpc_tpu_torch.ops import sqp as S
-    results = {}
-    lcfg, lp = bench_loop(n_lanes=B_CHECK, device=dev, **COLD)
-    ocp = ocp_at(lcfg, lp)
-    cold_cfg = lcfg.solver
-    st0 = S.init_state(cold_cfg, device=dev, batch=B_CHECK)
-    cold, results["cold_3x4"] = compare("cold_3x4", cold_cfg, ocp, st0)
-    warm_cfg = dataclasses.replace(cold_cfg, **WARM)
-    _, results["warm_1x1"] = compare("warm_1x1", warm_cfg, ocp,
-                                     cold.state)
-    # the cold budget with the default line-search ladder
-    ladder_cfg = dataclasses.replace(cold_cfg,
-                                     alphas=S.SolverConfig(horizon=H).alphas)
-    _, results["ladder_3x4"] = compare("ladder_3x4", ladder_cfg, ocp,
-                                       st0)
-
-    # step 1: casadi's step-0 window is the current state held in place
-    lcfg, lp = bench_loop(n_lanes=B_SMALL, mode="casadi", device=dev,
-                          al_iters=2, sqp_iters=2)
-    ocp = ocp_at(lcfg, lp, step=1)
-    st = S.init_state(lcfg.solver, device=dev, batch=B_SMALL)
-    _, results["casadi_euler_2x2_ladder"] = compare(
-        "casadi_euler_2x2_ladder", lcfg.solver, ocp, st)
-
-    lcfg, lp = bench_loop(n_lanes=B_SMALL, device=dev, al_iters=2,
-                          sqp_iters=2, alphas=())
-    ocp = moving_obstacles(ocp_at(lcfg, lp), dev)
-    st = S.init_state(lcfg.solver, device=dev, batch=B_SMALL)
-    _, results["moving_2x2"] = compare("moving_2x2", lcfg.solver, ocp,
-                                       st)
+    results, cold = {}, {}
+    for name, cold_kw, kw, lanes, mode, step, moving, warm in cases:
+        lcfg, lp = bench_loop(n_lanes=lanes, device=dev, mode=mode,
+                              **cold_kw, **model)
+        ocp = ocp_at(lcfg, lp, step)
+        if moving:
+            ocp = moving_obstacles(ocp, dev)
+        cfg = dataclasses.replace(lcfg.solver, **kw)
+        st = (cold[lanes] if warm else
+              S.init_state(lcfg.solver, device=dev, batch=lanes))
+        ker, results[prefix + name] = compare(prefix + name, cfg, ocp, st)
+        if not kw:
+            cold[lanes] = ker.state
     return results
 
 
-def phase_check_ip(dev):
-    """The IP kernel's checks: the cold-start and warm bench budgets, the
-    default ladder, casadi/Euler and moving obstacles."""
+def phase_check(dev, **model):
+    """The AL kernel's checks (of ``model``'s library: KS, or ST with
+    model='st'): the cold-start and warm bench budgets, the default ladder,
+    casadi/Euler (step 1: casadi's step-0 window is the current state held
+    in place) and moving obstacles."""
     from mpc_tpu_torch.ops import sqp as S
-    results = {}
-    lcfg, lp = bench_loop(n_lanes=B_CHECK, device=dev, **IP_COLD)
-    ocp = ocp_at(lcfg, lp)
-    cold_cfg = lcfg.solver
-    st0 = S.init_state(cold_cfg, device=dev, batch=B_CHECK)
-    cold, results["ip_cold_5x10"] = compare("ip_cold_5x10", cold_cfg, ocp,
-                                            st0)
-    warm_cfg = dataclasses.replace(cold_cfg, **IP_WARM)
-    _, results["ip_warm_1x4"] = compare("ip_warm_1x4", warm_cfg, ocp,
-                                        cold.state)
-    ladder_cfg = dataclasses.replace(
-        cold_cfg, ip_sqp_iters=2, ip_iters=6, ip_warm_duals=True,
-        ip_alphas=S.SolverConfig(horizon=H).ip_alphas)
-    _, results["ip_ladder_2x6"] = compare("ip_ladder_2x6", ladder_cfg, ocp,
-                                          st0)
+    small = dict(al_iters=2, sqp_iters=2)
+    return _checks(dev, (
+        ("cold_3x4", COLD, {}, B_CHECK, "forcespro", 0, False, False),
+        ("warm_1x1", COLD, WARM, B_CHECK, "forcespro", 0, False, True),
+        ("ladder_3x4", COLD, dict(alphas=S.SolverConfig(horizon=H).alphas),
+         B_CHECK, "forcespro", 0, False, False),
+        ("casadi_euler_2x2_ladder", small, {}, B_SMALL, "casadi", 1, False,
+         False),
+        ("moving_2x2", dict(small, alphas=()), {}, B_SMALL, "forcespro", 0,
+         True, False)), model, "st_" if model else "")
 
-    lcfg, lp = bench_loop(n_lanes=B_SMALL, mode="casadi", device=dev,
-                          method="ip", ip_sqp_iters=2, ip_iters=6,
-                          ip_warm_duals=True)
-    ocp = ocp_at(lcfg, lp, step=1)
-    st = S.init_state(lcfg.solver, device=dev, batch=B_SMALL)
-    _, results["ip_casadi_euler_2x6_ladder"] = compare(
-        "ip_casadi_euler_2x6_ladder", lcfg.solver, ocp, st)
 
-    lcfg, lp = bench_loop(n_lanes=B_SMALL, device=dev, method="ip",
-                          ip_sqp_iters=2, ip_iters=6, ip_alphas=())
-    ocp = moving_obstacles(ocp_at(lcfg, lp), dev)
-    st = S.init_state(lcfg.solver, device=dev, batch=B_SMALL)
-    _, results["ip_moving_2x6"] = compare("ip_moving_2x6", lcfg.solver, ocp,
-                                          st)
-    return results
+def phase_check_ip(dev, **model):
+    """The IP kernel's checks (of ``model``'s library): the cold-start and
+    warm bench budgets, the default ladder, casadi/Euler and moving
+    obstacles."""
+    from mpc_tpu_torch.ops import sqp as S
+    ladder = dict(ip_sqp_iters=2, ip_iters=6, ip_warm_duals=True)
+    return _checks(dev, (
+        ("ip_cold_5x10", IP_COLD, {}, B_CHECK, "forcespro", 0, False, False),
+        ("ip_warm_1x4", IP_COLD, IP_WARM, B_CHECK, "forcespro", 0, False,
+         True),
+        ("ip_ladder_2x6", IP_COLD, dict(
+            ladder, ip_alphas=S.SolverConfig(horizon=H).ip_alphas), B_CHECK,
+         "forcespro", 0, False, False),
+        ("ip_casadi_euler_2x6_ladder", dict(method="ip", **ladder), {},
+         B_SMALL, "casadi", 1, False, False),
+        ("ip_moving_2x6", dict(method="ip", ip_sqp_iters=2, ip_iters=6,
+                               ip_alphas=()), {}, B_SMALL, "forcespro", 0,
+         True, False)), model, "st_" if model else "")
+
+
+def phase_check_st_roads(dev):
+    """The ST libraries' boundary-row instances at a ragged B=250 on the
+    bending road of :func:`on_curved_road`, where rows bind: the AL kernel
+    at the soft-st row's budget (al 1x1, unguarded, H=30, 1.7 m either
+    side; at 3x4, with the default ladder or without, the plain version's
+    own float32 and float64 solves part on 9% and more of the lanes in U,
+    and at 2x2 a friction row active at its bound flips the penalty growth
+    of a lane by rounding, PERF.md), the IP kernel at the hard-corridor
+    budget (ip 2x6, warm duals, the default ladder, H=14, 1.9 m).  Returns
+    (max abs errors, launches) of each check: only the boundary instance
+    launches here, so the ST library's count is its boundary instance's."""
+    from mpc_tpu_torch.ops import sqp as S
+    results, launches = {}, {}
+    for kw, half_width in ((dict(WARM, boundary_rows=True), 1.7),
+                           (HARD_CORRIDOR, 1.9)):
+        kw = {k: v for k, v in kw.items() if k != "corridor"}
+        lcfg, lp = bench_loop(n_lanes=B_SMALL, device=dev, **kw, **ST)
+        cfg = lcfg.solver
+        require(cfg.boundary_rows, "an ST road check without boundary rows")
+        name = (f"st_road{half_width}_{cfg.method}_"
+                f"{engine(cfg).budget(cfg)}")
+        ocp = on_curved_road(lcfg, lp, half_width)
+        reset_launch_counts()
+        ker, results[name] = compare(
+            name, cfg, ocp, S.init_state(cfg, device=dev, batch=B_SMALL))
+        launches[name] = launch_counts()[engine(cfg).name]
+        require(launches[name] > 0, f"{name}: the kernel never launched")
+        require(active_boundary_rows(cfg, ker.X, ocp.boundaries,
+                                     ocp.boundary_signs) > 0,
+                f"{name}: no boundary row binds")
+    return results, launches
 
 
 def loop_inputs(dev, lcfg, lp, steps):
@@ -700,11 +770,12 @@ def phase_check_linearize(dev):
     return results
 
 
-def random_lqr(rng, B, Hs, device="cpu"):
-    """B random well-conditioned LQR problems of Hs stages with a nonzero
-    defect r: the distribution of tests/test_riccati.py's generator (SPD
-    Q, R, QH; A = I + noise; r ~ 0.1 N(0, 1)), drawn for all lanes at
-    once.  Returns (StageQuad, QH, qH, LinDyn), float32, lanes leading."""
+def random_lqr(rng, B, Hs, device="cpu", nx=5):
+    """B random well-conditioned LQR problems of Hs stages and nx states
+    with a nonzero defect r: the distribution of tests/test_riccati.py's
+    generator (SPD Q, R, QH; A = I + noise; r ~ 0.1 N(0, 1)), drawn for
+    all lanes at once.  Returns (StageQuad, QH, qH, LinDyn), float32, lanes
+    leading."""
     from mpc_tpu_torch.ops.riccati import LinDyn, StageQuad
 
     def spd(*lead, n):
@@ -713,14 +784,15 @@ def random_lqr(rng, B, Hs, device="cpu"):
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
-    quad = StageQuad(Q=t(spd(B, Hs, n=5)), R=t(spd(B, Hs, n=2)),
-                     M=t(0.1 * rng.standard_normal((B, Hs, 5, 2))),
-                     qx=t(rng.standard_normal((B, Hs, 5))),
+    quad = StageQuad(Q=t(spd(B, Hs, n=nx)), R=t(spd(B, Hs, n=2)),
+                     M=t(0.1 * rng.standard_normal((B, Hs, nx, 2))),
+                     qx=t(rng.standard_normal((B, Hs, nx))),
                      qu=t(rng.standard_normal((B, Hs, 2))))
-    QH, qH = t(spd(B, n=5)), t(rng.standard_normal((B, 5)))
-    dyn = LinDyn(A=t(np.eye(5) + 0.1 * rng.standard_normal((B, Hs, 5, 5))),
-                 B=t(rng.standard_normal((B, Hs, 5, 2))),
-                 r=t(0.1 * rng.standard_normal((B, Hs, 5))))
+    QH, qH = t(spd(B, n=nx)), t(rng.standard_normal((B, nx)))
+    dyn = LinDyn(A=t(np.eye(nx) + 0.1 * rng.standard_normal((B, Hs, nx,
+                                                              nx))),
+                 B=t(rng.standard_normal((B, Hs, nx, 2))),
+                 r=t(0.1 * rng.standard_normal((B, Hs, nx))))
     return quad, QH, qH, dyn
 
 
@@ -860,41 +932,51 @@ def riccati_compare(name, problem, reg, gains=None, plain=None):
     return errs
 
 
-def phase_check_riccati(dev):
+def phase_check_riccati(dev, **model):
     """The sweep's checks: random problems with a defect, and the
     quadratics the xla engine builds at the bench point's step 0, plain
-    and with road-boundary rows."""
+    and with road-boundary rows; with model='st' its nx=7 instance on
+    random 7-state problems and on the ST xla engine's step-0
+    quadratics."""
     from mpc_tpu_torch.ops import sqp as S
-    results = {}
+    st, results = bool(model), {}
+    prefix = "st_" if st else ""
     for B in (B_CHECK, B_SMALL):
-        prob = random_lqr(np.random.default_rng(B), B, H, dev)
-        results[f"random_{B}"] = riccati_compare(f"random_{B}", prob, 1e-6)
-    for B, boundary in ((B_BENCH, False), (B_SMALL, True)):
+        prob = random_lqr(np.random.default_rng(B), B, H, dev,
+                          nx=7 if st else 5)
+        results[f"{prefix}random_{B}"] = riccati_compare(
+            f"{prefix}random_{B}", prob, 1e-6)
+    for B, boundary in ((B_BENCH, False),) + (() if st else
+                                              ((B_SMALL, True),)):
         lcfg, lp = bench_loop(n_lanes=B, device=dev, boundary_rows=boundary,
-                              **XLA_WARM)
+                              **XLA_WARM, **model)
         ocp = ocp_at(lcfg, lp)
         if boundary:
             ocp = with_road_boundaries(ocp)
-        st = S.init_state(lcfg.solver, device=dev, batch=B)
-        name = f"bench_step0_{B}" + ("_boundaries" if boundary else "")
+        state = S.init_state(lcfg.solver, device=dev, batch=B)
+        name = (f"{prefix}bench_step0_{B}"
+                + ("_boundaries" if boundary else ""))
         results[name] = riccati_compare(
-            name, gn_problem(lcfg.solver, ocp, st), lcfg.solver.reg)
+            name, gn_problem(lcfg.solver, ocp, state), lcfg.solver.reg)
     return results
 
 
-def phase_check_sqp_vec(dev):
+def phase_check_sqp_vec(dev, **model):
     """The xla engine with the kernel sweep against the same solve with the
     plain sweep, on the card, at B=2048 from the cold start: al 1x1
     unguarded, and a 2x2 ladder whose rung choices the plain-sweep solve
-    replays (each within TIE_RTOL of the best under its merits)."""
+    replays (each within TIE_RTOL of the best under its merits); of the
+    ST model with model='st'."""
     from mpc_tpu_torch.ops import riccati_vec as RV
     from mpc_tpu_torch.ops import sqp as S
     from mpc_tpu_torch.ops import sqp_vec as SV
     results = {}
-    for name, budget in (("xla_1x1", WARM),
-                         ("xla_ladder_2x2", dict(al_iters=2, sqp_iters=2))):
+    prefix = "st_" if model else ""
+    for name, budget in ((f"{prefix}xla_1x1", WARM),
+                         (f"{prefix}xla_ladder_2x2",
+                          dict(al_iters=2, sqp_iters=2))):
         lcfg, lp = bench_loop(n_lanes=B_CHECK, device=dev, engine="xla",
-                              **budget)
+                              **budget, **model)
         cfg, ocp = lcfg.solver, ocp_at(lcfg, lp)
         st = S.init_state(cfg, device=dev, batch=B_CHECK)
         ladder = bool(cfg.alphas)
@@ -1164,13 +1246,14 @@ def riccati_bound(bufs):
     """The sweep's bound at the shapes of ``bufs``: its bytes (every input
     read once, every output written once) over the card's memory rate, and
     its fp32 operations, counted on the plain version at one lane of the
-    same horizon, over its fp32 rate."""
+    same horizon and state dimension, over its fp32 rate."""
     from mpc_tpu_torch.ops import riccati_kernel as RK
     from mpc_tpu_torch.ops import riccati_vec as RV
     Hs, _, B = bufs["Q"].shape
     nbytes = sum(bufs[n].numel() * bufs[n].element_size()
                  for n in RK.KERNEL_INPUTS + RK.KERNEL_OUTPUTS)
-    problem = random_lqr(np.random.default_rng(0), 1, Hs)
+    problem = random_lqr(np.random.default_rng(0), 1, Hs,
+                         nx=bufs["qH"].shape[0])
     with _OpCount() as c:
         RV.backward_pass_vec_plain(*problem, 1e-6)
     ops = c.n * B
@@ -1181,16 +1264,17 @@ def riccati_bound(bufs):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def phase_timing_riccati(dev, reps=20):
+def phase_timing_riccati(dev, reps=20, **model):
     """The sweep per launch on the quadratics the xla engine builds at the
-    bench point's step 0 (B=16384, H=30): the median of ``reps`` launches
-    with CUDA events at 32/64/128 threads, the layout copies of ``pack``,
-    the plain version's time and the bound; the timed launch's gains held
-    against the plain version's."""
+    bench point's step 0 (B=16384, H=30; of ``model``, the nx=7 instance
+    for model='st'): the median of ``reps`` launches with CUDA events at
+    32/64/128 threads, the layout copies of ``pack``, the plain version's
+    time and the bound; the timed launch's gains held against the plain
+    version's."""
     from mpc_tpu_torch.ops import riccati_kernel as RK
     from mpc_tpu_torch.ops import riccati_vec as RV
     from mpc_tpu_torch.ops import sqp as S
-    lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **XLA_WARM)
+    lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **XLA_WARM, **model)
     cfg = lcfg.solver
     problem = gn_problem(cfg, ocp_at(lcfg, lp),
                          S.init_state(cfg, device=dev, batch=B_BENCH))
@@ -1207,14 +1291,16 @@ def phase_timing_riccati(dev, reps=20):
     plain_ms, plain = min(
         (cuda_ms(lambda: RV.backward_pass_vec_plain(*problem, cfg.reg))
          for _ in range(3)), key=lambda r: r[0])
-    errs = riccati_compare("timed_bench_step0", problem, cfg.reg,
+    prefix = "st_" if model else ""
+    errs = riccati_compare(f"{prefix}timed_bench_step0", problem, cfg.reg,
                            RK.unpack(bufs), plain)
     line = {"ms": ms, "threads": RK.THREADS,
             "ms_by_threads": {str(t): v for t, v in by_threads.items()},
             "pack_ms": pack_ms, "plain_ms": plain_ms, **riccati_bound(bufs),
             "max_abs_err": errs}
-    emit({"phase": "timing", "kernel": "riccati", "case": "bench_step0",
-          "lanes": B_BENCH, "horizon": H, **line})
+    emit({"phase": "timing", "kernel": "riccati",
+          "case": f"{prefix}bench_step0", "lanes": B_BENCH, "horizon": H,
+          "nx": S.solver_nx(cfg), **line})
     return line
 
 
@@ -1224,7 +1310,8 @@ def _launchers():
     from mpc_tpu_torch.ops import fused_ip as FI
     from mpc_tpu_torch.ops import riccati_kernel as RK
     return {"fused_gn": F.launch, "fused_ip": FI.launch_ip,
-            "riccati": RK.launch}
+            "riccati": RK.launch, "fused_gn_st": F.launch_st,
+            "fused_ip_st": FI.launch_ip_st}
 
 
 def reset_launch_counts():
@@ -1238,8 +1325,9 @@ def launch_counts():
 
 def row_kernel(lcfg):
     """(kernel, launches it makes in one loop of ``lcfg``): one fused solve
-    per cold start and step, or one sweep per Gauss-Newton step of the xla
-    engine (the cold starts at their full-strength budget)."""
+    per cold start and step (the ST model's library for model='st'), or
+    one sweep per Gauss-Newton step of the xla engine (the cold starts at
+    their full-strength budget)."""
     from mpc_tpu_torch.planner import closed_loop as cl
     scfg = lcfg.solver
     if scfg.engine != "xla":
@@ -1264,18 +1352,21 @@ def infeasible_vs_plain(dev, row, lcfg, lp, status, most=64):
                   {"lanes": lanes.tolist()})
 
 
-def phase_loop(dev, card, row, budget, **kw):
-    """One bench row: ``closed_loop_batch_vec`` at B=16384, T=100 (H=30, or
-    the row's), the launches of every kernel counted in a first run (the
-    row's kernel alone, as often as the row needs it) and its peak device
-    memory, then solves/s with CUDA events, best of 3 (one run when the
-    counted run took longer than ONE_TIMED_RUN_S).  Every step must be
-    feasible, except in a corridor row, whose infeasible steps are counted
-    and held against the plain version (:func:`infeasible_vs_plain`); a
-    corridor row also counts the lane-steps where a boundary row is
-    active."""
+def phase_loop(dev, card, row, budget, steps=T_BENCH, **kw):
+    """One bench row: ``closed_loop_batch_vec`` at B=16384, T=100 (or
+    ``steps``; H=30, or the row's), the launches of every kernel counted in
+    a first run (the row's kernel alone, as often as the row needs it) and
+    its peak device memory, then solves/s with CUDA events, best of 3 (one
+    run when the counted run took longer than ONE_TIMED_RUN_S).  Every step
+    must be feasible, except in a corridor row, whose infeasible steps are
+    counted and held against the plain version
+    (:func:`infeasible_vs_plain`); a corridor row also counts the
+    lane-steps where a boundary row is active, an ST row the largest slip
+    angle |beta|."""
+    from mpc_tpu_torch.ops import sqp as S
     from mpc_tpu_torch.planner import closed_loop as cl
     lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **kw)
+    lcfg = dataclasses.replace(lcfg, n_steps=steps)
     corridor = kw.get("corridor", False)
     kernel, want = row_kernel(lcfg)
 
@@ -1295,8 +1386,9 @@ def phase_loop(dev, card, row, budget, **kw):
     counted_s = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    total = B_BENCH * T_BENCH
-    require(tuple(res.X.shape) == (B_BENCH, T_BENCH, 5), "loop X shape")
+    total = B_BENCH * steps
+    require(tuple(res.X.shape) == (B_BENCH, steps, S.solver_nx(lcfg.solver)),
+            "loop X shape")
     require(bool(torch.isfinite(checksum)), "loop checksum is not finite")
     require(corridor or int(feasible) == total,
             f"{row}: feasible steps {int(feasible)} of {total}")
@@ -1313,6 +1405,8 @@ def phase_loop(dev, card, row, budget, **kw):
                 f"{row}: no boundary row is active in the loop")
         if int(feasible) < total:
             infeasible_vs_plain(dev, row, lcfg, lp, res.status)
+    if lcfg.solver.model == "st":
+        extra["max_abs_beta"] = float(res.X[..., 6].abs().max())
     del res
 
     best = float("inf")
@@ -1326,10 +1420,11 @@ def phase_loop(dev, card, row, budget, **kw):
     line = {"phase": "loop", "row": row, "impl": "torch-cuda",
             "metric": f"nmpc_solves_per_s_per_chip_h{Hs}",
             "value": total / best, "unit": "solves/s/chip",
-            "step_latency_ms": best / T_BENCH * 1e3, "loop_s": best,
+            "step_latency_ms": best / steps * 1e3, "loop_s": best,
             "timed_runs": timed_runs, "counted_run_s": counted_s,
             "feasible_steps": int(feasible), "total_solves": total,
-            "batch": B_BENCH, "horizon": Hs, "steps": T_BENCH, **extra,
+            "batch": B_BENCH, "horizon": Hs, "steps": steps,
+            "model": lcfg.solver.model, **extra,
             "budget": budget, "engine": lcfg.solver.engine,
             "cold_start_solves": lcfg.cold_start_solves,
             "kernel": kernel, "kernel_launches": launches[kernel],
@@ -1338,6 +1433,15 @@ def phase_loop(dev, card, row, budget, **kw):
             "gpu": name, "power_limit": limit}
     emit(line)
     return line, lcfg, lp
+
+
+def kernel_symbol(kernel, name):
+    """Whether the device kernel ``name`` the profiler saw is ``kernel``'s:
+    "fused_ip_kernel<1, false, KsModel>(IpArgs, IpBufs)" and the like; the
+    ST libraries' kernels carry StModel, the sweep's nx=7 instance a 7."""
+    st = kernel.endswith("_st")
+    return (f"{kernel.removesuffix('_st')}_kernel" in name
+            and ("StModel" in name) == st)
 
 
 def phase_profile(dev, row, lcfg, lp, window=None, start=0):
@@ -1402,8 +1506,7 @@ def phase_profile(dev, row, lcfg, lp, window=None, start=0):
         by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     require(by_name, "the profiler saw no device kernels")
     busy = sum(ms for _, ms in by_name.values())
-    # "fused_ip_kernel<1>(IpArgs, IpBufs)" and the like
-    fused = [v for k, v in by_name.items() if f"{kernel}_kernel" in k]
+    fused = [v for k, v in by_name.items() if kernel_symbol(kernel, k)]
     copies = [v for k, v in by_name.items() if "opy" in k]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     glue = {}
@@ -1490,12 +1593,40 @@ def kernel_line(eng, loop, timing, warm, cold, checks, build,
         "ok": True}
 
 
-def riccati_kernel_line(loop, timing, checks, checks_vec, build):
+def st_boundary_line(eng, checks, check_launches, build):
+    """The boundary-row instance of an ST library: no row of the main path
+    drives it, so its checks' launches and largest errors (the bending
+    road, where rows bind), registers, spills, shared memory and
+    geometry."""
+    info = build[eng.name]["boundary_instance"]
+    return {"row": None, "check_launches": sum(check_launches.values()),
+            "max_abs_err": max(e["U"] for e in checks.values()),
+            "max_abs_err_X": max(e["X"] for e in checks.values()),
+            "checks": sorted(checks), "registers": info["registers"],
+            "spill_stores": info["spill_stores"],
+            "spill_loads": info["spill_loads"],
+            "smem_bytes_per_block": info["smem_bytes_per_block"],
+            "geometry": info["geometry"]}
+
+
+def riccati_kernel_line(loop, timing, checks, checks_vec, build, st=None):
     """The kernels-line entry of the sweep: its time on the bench point's
     step-0 quadratics, its launches in the xla row, the largest gain error
-    of every sweep check (and the U error of the engine checks)."""
+    of every sweep check (and the U error of the engine checks); ``st``:
+    the same of its nx=7 instance, (loop, timing, checks, checks_vec) of
+    the xla-st row."""
     info = build["riccati"]
     errs = list(checks.values()) + [timing["max_abs_err"]]
+    extra = {}
+    if st is not None:
+        st_line = riccati_kernel_line(*st, {"riccati": dict(
+            info["st_instance"],
+            smem_bytes_per_block=info["smem_bytes_per_block"])})
+        extra["st_instance"] = dict(
+            st_line, name="riccati nx=7",
+            replaces="the nx=7 sweep of mpc_tpu/ops/riccati_vec.py::"
+                     "backward_pass_vec (engine='xla', model='st'; the "
+                     "Pallas kernel is KS-only)")
     return {
         "name": "riccati", "route": "cuda",
         "source": "mpc_tpu_torch/ops/csrc/riccati.cu",
@@ -1511,7 +1642,7 @@ def riccati_kernel_line(loop, timing, checks, checks_vec, build):
         "spill_stores": info["spill_stores"],
         "spill_loads": info["spill_loads"],
         "smem_bytes_per_block": info["smem_bytes_per_block"],
-        "ok": True}
+        **extra, "ok": True}
 
 
 def main() -> int:
@@ -1544,6 +1675,12 @@ def main() -> int:
     checks_ip = timed("check_fused_ip", phase_check_ip, dev)
     checks_ric = timed("check_riccati", phase_check_riccati, dev)
     checks_vec = timed("check_xla", phase_check_sqp_vec, dev)
+    checks_st = timed("check_fused_gn_st", phase_check, dev, **ST)
+    checks_ip_st = timed("check_fused_ip_st", phase_check_ip, dev, **ST)
+    checks_roads_st, launches_roads_st = timed(
+        "check_st_roads", phase_check_st_roads, dev)
+    checks_ric_st = timed("check_riccati_st", phase_check_riccati, dev, **ST)
+    checks_vec_st = timed("check_xla_st", phase_check_sqp_vec, dev, **ST)
     checks_sc = timed("check_soft_corridor", phase_check_corridor, dev,
                       "soft-corridor", SOFT_CORRIDOR, 1.7)
     checks_hc = timed("check_hard_corridor", phase_check_corridor, dev,
@@ -1556,7 +1693,8 @@ def main() -> int:
                                               **XLA_WARM)),
                     ("hard-gate1", dict(gate_stages=1, **IP_WARM)),
                     ("hard-corridor", HARD_CORRIDOR),
-                    ("soft-corridor", SOFT_CORRIDOR)):
+                    ("soft-corridor", SOFT_CORRIDOR),
+                    ("soft-st", SOFT_ST), ("hard-st", HARD_ST)):
         timed(f"loop_vs_plain_{row}", phase_loop_vs_plain, dev, row, **kw)
     timing = timed("timing_fused_gn", phase_timing, dev, COLD, WARM)
     timing_ip = timed("timing_fused_ip", phase_timing, dev, IP_COLD,
@@ -1568,6 +1706,12 @@ def main() -> int:
                       dict(HARD_CORRIDOR, ip_sqp_iters=5, ip_iters=10),
                       dict(ip_sqp_iters=2, ip_iters=6), 10, 3,
                       row="hard-corridor")
+    timing_st = timed("timing_fused_gn_st", phase_timing, dev,
+                      dict(COLD, **ST), WARM)
+    timing_ip_st = timed("timing_fused_ip_st", phase_timing, dev,
+                         dict(IP_COLD, **ST), IP_WARM)
+    timing_ric_st = timed("timing_riccati_st", phase_timing_riccati, dev,
+                          **ST)
     loop, lcfg, lp = timed(
         "loop_soft", phase_loop, dev, card, "soft",
         "al 1x1, alphas=() (unguarded RTI step)", method="al", **WARM)
@@ -1593,6 +1737,28 @@ def main() -> int:
         "al 3x4, default alphas, boundary rows", **SOFT_CORRIDOR)
     timed("profile_soft_corridor", phase_profile, dev, "soft-corridor",
           lcfg, lp, window=10, start=GATE_STEP)
+    loop_st, lcfg, lp = timed(
+        "loop_soft_st", phase_loop, dev, card, "soft-st",
+        "al 1x1, alphas=() (unguarded RTI step), model='st'", **SOFT_ST)
+    timed("profile_soft_st", phase_profile, dev, "soft-st", lcfg, lp,
+          window=10, start=LOOP_CHECK_STEP)
+    soft_st = engine(lcfg.solver)
+    loop_ip_st, lcfg, lp = timed(
+        "loop_hard_st", phase_loop, dev, card, "hard-st",
+        "ip 1x4, warm duals, ip_alphas=() (unguarded RTI step), model='st'",
+        **HARD_ST)
+    timed("profile_hard_st", phase_profile, dev, "hard-st", lcfg, lp,
+          window=10, start=LOOP_CHECK_STEP)
+    hard_st = engine(lcfg.solver)
+    loop_xla_st, _, _ = timed(
+        "loop_xla_st", phase_loop, dev, card, "xla-st",
+        f"al 1x1, alphas=() (unguarded RTI step), engine='xla', "
+        f"model='st', 1 cold start, {XLA_ST_STEPS} steps",
+        steps=XLA_ST_STEPS, **XLA_ST)
+
+    def roads_st(method):   # the ST road checks of one kernel
+        return ({k: v for k, v in checks_roads_st.items() if method in k},
+                {k: n for k, n in launches_roads_st.items() if method in k})
 
     kernels = [
         kernel_line(soft, loop, timing, "warm_1x1", "cold_3x4", checks,
@@ -1604,7 +1770,14 @@ def main() -> int:
                         hard, loop_hc, timing_hc, "warm_2x6", "cold_5x10",
                         checks_hc, build)),
         riccati_kernel_line(loop_xla, timing_ric, checks_ric, checks_vec,
-                            build)]
+                            build, (loop_xla_st, timing_ric_st, checks_ric_st,
+                                    checks_vec_st)),
+        kernel_line(soft_st, loop_st, timing_st, "warm_1x1", "cold_3x4",
+                    checks_st, build, st_boundary_line(
+                        soft_st, *roads_st("_al_"), build)),
+        kernel_line(hard_st, loop_ip_st, timing_ip_st, "warm_1x4",
+                    "cold_5x10", checks_ip_st, build, st_boundary_line(
+                        hard_st, *roads_st("_ip_"), build))]
     print(card, flush=True)
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/kernels/lib<name>-<hash>.so`` beside the package (``build/`` is
-git-ignored), at first use.  The hash covers the source, every shared header
-``csrc/*.cuh`` and the flags, so an edited source or header builds anew and an
-unchanged one is loaded as it is.
+git-ignored), at first use.  The hash covers the source, every source it
+includes (``fused_gn_st.cu`` is ``fused_gn.cu`` with the ST model), every
+shared header ``csrc/*.cuh`` and the flags, so an edited source or header
+builds anew and an unchanged one is loaded as it is.  The KS and ST
+libraries export the same C names; each is loaded on its own handle.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,7 +30,11 @@ SIGNATURES = {
     "fused_gn": ("fused_gn_solve", [_P] * 21),
     "fused_ip": ("fused_ip_solve", [_P] * 15),
     "riccati": ("riccati_sweep", [_P] * 15),
+    "fused_gn_st": ("fused_gn_solve", [_P] * 21),
+    "fused_ip_st": ("fused_ip_solve", [_P] * 15),
 }
+# a source that includes another source
+_INCLUDED_SOURCE = re.compile(r'#include "(\w+\.cu)"')
 
 _loaded: dict = {}
 
@@ -42,9 +49,12 @@ def nvcc() -> str:
 
 def lib_path(name: str, csrc: Path = CSRC) -> Path:
     """Where the library of ``csrc/<name>.cu`` goes: named by a hash of the
-    source, of every header in ``csrc`` (any source may include any of
-    them) and of the flags."""
-    key = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    source, of the sources it includes, of every header in ``csrc`` (any
+    source may include any of them) and of the flags."""
+    src = (csrc / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src)
+    for inc in _INCLUDED_SOURCE.findall(src.decode()):
+        key.update(inc.encode() + b"\0" + (csrc / inc).read_bytes())
     for header in sorted(csrc.glob("*.cuh")):
         key.update(header.name.encode() + b"\0" + header.read_bytes())
     key.update(" ".join(NVCC_FLAGS).encode())

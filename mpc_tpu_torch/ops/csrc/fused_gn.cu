@@ -71,8 +71,8 @@
 //   stores nothing but meets every barrier, named ones included.
 // - Threads a lane: given, or chosen with the occupancy API
 //   (fused_gn_geometry): the most whose blocks are all resident at once.
-// - No tensor cores: the products are 5x5 in float32, and TF32 would break
-//   the float32 bands.
+// - No tensor cores: the products are 5x5 (7x7 for ST) in float32, and TF32
+//   would break the float32 bands.
 // - Road-boundary rows (BND, a template parameter: the instances without
 //   them compile as before): 6 more rows a stage, whose models (18 floats
 //   a stage, fused_gn.py::linearize_boundaries) the producers read from
@@ -82,27 +82,62 @@
 //   shared memory a lane are the same in both instances; the multipliers,
 //   penalties and violations take 20 rows a stage in place of 14.
 //
+// - The model (Mdl, a template parameter: KsModel or StModel, orthogonal
+//   to T and BND).  This source builds the KS instances; fused_gn_st.cu is
+//   this source with FUSED_MODEL_ST defined, the ST instances (7 states,
+//   tire dynamics; st_model.cuh), a library of its own that nvcc builds in
+//   parallel with this one.  The model sets the ring's stage operand
+//   (Ring<Mdl>: rows 2 and 3 of A are the identity's and of B a single
+//   constant each in both models, since delta and v are pure integrators
+//   under RK4 and Euler; the other rows of A and B are dense, and the ST
+//   weights add Q55 and Q66: 43 floats a stage for KS, 71 for ST), the
+//   staging ring's stage (19 or 25 floats), the sweep's P and p (31 or 57)
+//   and so the shared memory a lane.  The ST (A, B) come from dual numbers
+//   (StModel::lin), written entry by entry into the ring.
+//
 // Semantics kept from the TPU kernel on purpose: clips, maxima and signs
 // propagate NaN (compares, not fminf/fmaxf), the unguarded step scrubs K
 // and d of NaN/inf but commits a non-finite rollout into the warm start, a
 // rung is taken on a strict "<" and recorded (0 for alpha = 0, r + 1 for
 // alphas[r]) when the caller passes a rung buffer.  Build without
 // --use_fast_math: the parity bands assume IEEE tanf, sqrtf, sinf, cosf and
-// division.  The helpers it shares with fused_ip.cu are in ks_rows.cuh.
+// division.  The helpers it shares with fused_ip.cu are in ks_rows.cuh and
+// st_model.cuh.
 
-#include "ks_rows.cuh"
+#include "st_model.cuh"
+
+#if defined(FUSED_MODEL_ST)
+using Model = StModel;
+#else
+using Model = KsModel;
+#endif
 
 #define LPB 32  // lanes a block: a warp's width
-// one stage's operands in a ring slot (field, lane)
-#define OP_Q 0    // Q00 Q01 Q11 Q04 Q14 Q44 Q22 Q23 Q33
-#define OP_R 9    // R00 R11
-#define OP_M 11   // M21 M31
-#define OP_QX 13  // qx (5)
-#define OP_QU 18  // qu (2)
-#define OP_A 20   // rows 0, 1, 4 of A (15)
-#define OP_B 35   // rows 0, 1, 4 of B (6)
-#define OP_BD 41  // B20, B31
-#define NOP 43
+
+// One stage's operands in a ring slot (field, lane), and the other shared
+// arrays whose size the model sets.
+template <class Mdl>
+struct Ring {
+  static constexpr int N = Mdl::N;
+  static constexpr int NQ = N + 4;   // Q00 Q01 Q11 Q04 Q14 Q44 Q22 Q23 Q33,
+                                     // then Q55 Q66 (ST)
+  static constexpr int NAR = N - 2;  // rows of A and B stored: all but 2, 3
+  static constexpr int OP_Q = 0;
+  static constexpr int OP_R = NQ;          // R00 R11
+  static constexpr int OP_M = NQ + 2;      // M21 M31
+  static constexpr int OP_QX = NQ + 4;     // qx (N)
+  static constexpr int OP_QU = OP_QX + N;  // qu (2)
+  static constexpr int OP_A = OP_QU + NU;  // rows 0, 1, 4[, 5, 6] of A
+  static constexpr int OP_B = OP_A + NAR * N;   // the same rows of B
+  static constexpr int OP_BD = OP_B + NAR * NU;  // B20, B31
+  static constexpr int NOP = OP_BD + 2;    // 43 (KS), 71 (ST)
+  static constexpr int NROLL = N + NU + NU * N + NU;  // X, U, K, d a stage
+  static constexpr int PSTR = (N * N + N) | 1;  // P and p, padded odd
+  // the state row of stored row r: 0, 1, 4, 5, 6
+  __host__ __device__ static constexpr int arow(int r) {
+    return r < 2 ? r : r + 2;
+  }
+};
 
 struct FgnArgs {
   int32_t B, H, al_iters, sqp_iters, n_alphas;
@@ -114,11 +149,10 @@ struct FgnArgs {
   float alphas[MAX_ALPHAS];
   int32_t boundary;  // 1: the instance with the road-boundary rows
   float r_ego;       // their bound: r_ego <= h
+  StConsts st;       // the ST model's constants (zero for KS)
 };
 
 #define NSTG 3    // stages in flight in a rollout's staging ring
-#define NROLL 19  // floats a stage of it: X, U, K, d
-#define PSTR 31   // floats of the sweep's P and p a lane (30, padded odd)
 
 // Stages of the ring from the producers to the sweep: a multiple of the
 // T - 1 producer warps, so that a slot always has the same producer (6, 6
@@ -130,8 +164,11 @@ __host__ __device__ constexpr int ring_slots(int T) {
 // Floats of one lane's shared memory: the producers' partials (T), the
 // ladder's slot, a merit (or cost) and an AL term a stage, a rollout's
 // staging ring, the ring of stage operands, and the sweep's P and p.
+template <class Mdl>
 __host__ __device__ __forceinline__ int lane_floats(int H, int T) {
-  return T + 1 + 2 * (H + 1) + NSTG * NROLL + ring_slots(T) * NOP + PSTR;
+  using RG = Ring<Mdl>;
+  return T + 1 + 2 * (H + 1) + NSTG * RG::NROLL + ring_slots(T) * RG::NOP +
+         RG::PSTR;
 }
 
 // Named barriers (bar.arrive / bar.sync with an id and a thread count):
@@ -237,9 +274,12 @@ struct Bufs {
 };
 
 // One thread's share of a lane's solve: the stages it owns, and for warp 0
-// the lane's chains.  BND: with the 6 road-boundary rows a stage.
-template <int T, bool BND>
+// the lane's chains.  BND: with the 6 road-boundary rows a stage; Mdl: the
+// model.
+template <int T, bool BND, class Mdl>
 struct Solve {
+  static constexpr int N = Mdl::N;  // states
+  using RG = Ring<Mdl>;
   const FgnArgs& a;
   const Bufs& b;
   Lane L;
@@ -249,8 +289,8 @@ struct Solve {
   int* const slot;     // (LPB) the ladder's trial / best slot
   float* const sm_m;   // (H + 1, LPB) stage merits, or the stage costs
   float* const sm_p;   // (H + 1, LPB) the stages' AL terms
-  float* const stg;    // (NSTG, NROLL, LPB) warp 0's staging ring
-  float* const ring;   // (R, NOP, LPB) the ring of stage operands
+  float* const stg;    // (NSTG, RG::NROLL, LPB) warp 0's staging ring
+  float* const ring;   // (R, RG::NOP, LPB) the ring of stage operands
   float* const pm;     // (LPB, PSTR) the sweep's P and p, lane by lane
   static constexpr int R = ring_slots(T);
   static constexpr int NRB = nrows<BND>();  // rows a stage
@@ -264,22 +304,23 @@ struct Solve {
         sm_m(smem + (T + 1) * LPB),
         sm_p(smem + (T + 1 + a_.H + 1) * LPB),
         stg(smem + (T + 1 + 2 * (a_.H + 1)) * LPB),
-        ring(smem + (T + 1 + 2 * (a_.H + 1) + NSTG * NROLL) * LPB),
-        pm(smem + (T + 1 + 2 * (a_.H + 1) + NSTG * NROLL + R * NOP) * LPB +
-           l_ * PSTR) {
+        ring(smem + (T + 1 + 2 * (a_.H + 1) + NSTG * RG::NROLL) * LPB),
+        pm(smem +
+           (T + 1 + 2 * (a_.H + 1) + NSTG * RG::NROLL + R * RG::NOP) * LPB +
+           l_ * RG::PSTR) {
     L.B = a.B;
     L.lane = lane;
     mind = b.mind[L.at(0, 0, 1)];
   }
 
   // per-lane weights, read where used (they stay in L1, not registers)
-  __device__ __forceinline__ void weights(bool is_term, float wx[NX],
+  __device__ __forceinline__ void weights(bool is_term, float wx[N],
                                           float wr[NU]) const {
 #pragma unroll
-    for (int i = 0; i < NX; ++i)
-      wx[i] = b.w[L.at(0, (is_term ? NX + NU : 0) + i, 1)];
+    for (int i = 0; i < N; ++i)
+      wx[i] = b.w[L.at(0, (is_term ? N + NU : 0) + i, 1)];
 #pragma unroll
-    for (int i = 0; i < NU; ++i) wr[i] = b.w[L.at(0, NX + i, 1)];
+    for (int i = 0; i < NU; ++i) wr[i] = b.w[L.at(0, N + i, 1)];
   }
   __device__ void obs_at(int k, float o[6]) const {
 #pragma unroll
@@ -353,15 +394,15 @@ struct Solve {
   }
   // (x, u) of stage k of a chain; u = 0 at the terminal stage
   __device__ __forceinline__ void xu(const float* Xs, const float* Us, int k,
-                                     float x[NX], float u[NU]) const {
-    load(Xs, k, NX, x);
+                                     float x[N], float u[NU]) const {
+    load(Xs, k, N, x);
     if (k < a.H) {
       load(Us, k, NU, u);
     } else {
       u[0] = u[1] = 0.f;
     }
   }
-  __device__ void fresh_rows(int k, const float x[NX], const float u[NU],
+  __device__ void fresh_rows(int k, const float x[N], const float u[NU],
                              bool is_term, RowsT& r) const {
     float o[6];
     obs_at(k, o);
@@ -375,40 +416,55 @@ struct Solve {
 
   // ---- a stage's operands (field f of slot s of the ring)
   __device__ __forceinline__ float& rg(int s, int f) const {
-    return ring[(s * NOP + f) * LPB + l];
+    return ring[(s * RG::NOP + f) * LPB + l];
   }
-  __device__ void put_quad(int s, const float Q[NX][NX],
-                           const float R[NU][NU], const float M[NX][NU],
-                           const float qx[NX], const float qu[NU]) const {
+  __device__ void put_quad(int s, const float Q[N][N],
+                           const float R[NU][NU], const float M[N][NU],
+                           const float qx[N], const float qu[NU]) const {
     const float qv[9] = {Q[0][0], Q[0][1], Q[1][1], Q[0][4], Q[1][4],
                          Q[4][4], Q[2][2], Q[2][3], Q[3][3]};
 #pragma unroll
-    for (int i = 0; i < 9; ++i) rg(s, OP_Q + i) = qv[i];
-    rg(s, OP_R) = R[0][0];
-    rg(s, OP_R + 1) = R[1][1];
-    rg(s, OP_M) = M[2][1];
-    rg(s, OP_M + 1) = M[3][1];
+    for (int i = 0; i < 9; ++i) rg(s, RG::OP_Q + i) = qv[i];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) rg(s, OP_QX + i) = qx[i];
+    for (int i = 5; i < N; ++i) rg(s, RG::OP_Q + 4 + i) = Q[i][i];
+    rg(s, RG::OP_R) = R[0][0];
+    rg(s, RG::OP_R + 1) = R[1][1];
+    rg(s, RG::OP_M) = M[2][1];
+    rg(s, RG::OP_M + 1) = M[3][1];
 #pragma unroll
-    for (int i = 0; i < NU; ++i) rg(s, OP_QU + i) = qu[i];
+    for (int i = 0; i < N; ++i) rg(s, RG::OP_QX + i) = qx[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) rg(s, RG::OP_QU + i) = qu[i];
   }
-  __device__ void put_ab(int s, const float A[NX][NX],
-                         const float Bm[NX][NU]) const {
-    const int rows[3] = {0, 1, 4};
+  __device__ void put_ab(int s, const float A[N][N],
+                         const float Bm[N][NU]) const {
 #pragma unroll
-    for (int r = 0; r < 3; ++r) {
+    for (int r = 0; r < RG::NAR; ++r) {
 #pragma unroll
-      for (int j = 0; j < NX; ++j) rg(s, OP_A + r * NX + j) = A[rows[r]][j];
+      for (int j = 0; j < N; ++j)
+        rg(s, RG::OP_A + r * N + j) = A[RG::arow(r)][j];
 #pragma unroll
-      for (int j = 0; j < NU; ++j) rg(s, OP_B + r * NU + j) = Bm[rows[r]][j];
+      for (int j = 0; j < NU; ++j)
+        rg(s, RG::OP_B + r * NU + j) = Bm[RG::arow(r)][j];
     }
-    rg(s, OP_BD) = Bm[2][0];
-    rg(s, OP_BD + 1) = Bm[3][1];
+    rg(s, RG::OP_BD) = Bm[2][0];
+    rg(s, RG::OP_BD + 1) = Bm[3][1];
+  }
+  // entry (i, j) of [A | B] into ring slot s (StModel::lin's put): rows 2
+  // and 3 only through B20 and B31, the other entries of those rows being
+  // the identity's and zero
+  __device__ __forceinline__ void put_ab_entry(int s, int i, int j,
+                                               float v) const {
+    if (i == 2 || i == 3) {
+      if (j == N + i - 2) rg(s, RG::OP_BD + i - 2) = v;
+      return;
+    }
+    const int r = i < 2 ? i : i - 2;
+    rg(s, j < N ? RG::OP_A + r * N + j : RG::OP_B + r * NU + j - N) = v;
   }
   // field f of stage k in the staging ring, and a stage's fetch into it
   __device__ __forceinline__ float& st(int k, int f) const {
-    return stg[((k % NSTG) * NROLL + f) * LPB + l];
+    return stg[((k % NSTG) * RG::NROLL + f) * LPB + l];
   }
   __device__ __forceinline__ void fetch(int k, int f, const float* src,
                                         int i, int n) const {
@@ -417,28 +473,28 @@ struct Solve {
   // X, U, K and d of stage k < H (the feedback rollout's)
   __device__ void fetch_roll(int k) const {
 #pragma unroll
-    for (int i = 0; i < NX; ++i) fetch(k, i, b.X, i, NX);
+    for (int i = 0; i < N; ++i) fetch(k, i, b.X, i, N);
 #pragma unroll
-    for (int i = 0; i < NU; ++i) fetch(k, NX + i, b.U, i, NU);
+    for (int i = 0; i < NU; ++i) fetch(k, N + i, b.U, i, NU);
 #pragma unroll
-    for (int i = 0; i < NU * NX; ++i) fetch(k, NX + NU + i, b.K, i, NU * NX);
+    for (int i = 0; i < NU * N; ++i) fetch(k, N + NU + i, b.K, i, NU * N);
 #pragma unroll
     for (int i = 0; i < NU; ++i)
-      fetch(k, NX + NU + NU * NX + i, b.d, i, NU);
+      fetch(k, N + NU + NU * N + i, b.d, i, NU);
     copy_commit();
   }
 
   // Q and qx of a stage, field i read by g(i) (the full symmetric Q, zeros
   // where assemble_quad leaves them)
   template <class G>
-  __device__ void get_qx(G g, float Q[NX][NX], float qx[NX]) const {
-    float qv[9];
+  __device__ void get_qx(G g, float Q[N][N], float qx[N]) const {
+    float qv[RG::NQ];
 #pragma unroll
-    for (int i = 0; i < 9; ++i) qv[i] = g(OP_Q + i);
+    for (int i = 0; i < RG::NQ; ++i) qv[i] = g(RG::OP_Q + i);
 #pragma unroll
-    for (int i = 0; i < NX; ++i)
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int j = 0; j < NX; ++j) Q[i][j] = 0.f;
+      for (int j = 0; j < N; ++j) Q[i][j] = 0.f;
     Q[0][0] = qv[0];
     Q[0][1] = Q[1][0] = qv[1];
     Q[1][1] = qv[2];
@@ -449,32 +505,35 @@ struct Solve {
     Q[2][3] = Q[3][2] = qv[7];
     Q[3][3] = qv[8];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) qx[i] = g(OP_QX + i);
+    for (int i = 5; i < N; ++i) Q[i][i] = qv[4 + i];
+#pragma unroll
+    for (int i = 0; i < N; ++i) qx[i] = g(RG::OP_QX + i);
   }
   // qu, A and B of a stage k < H (rows 2 and 3 of A are the identity's and
-  // of B a single constant each, as lin_step leaves them)
+  // of B a single constant each, as both models' steps leave them)
   template <class G>
-  __device__ void get_ab(G g, float qu[NU], float A[NX][NX],
-                         float Bm[NX][NU]) const {
+  __device__ void get_ab(G g, float qu[NU], float A[N][N],
+                         float Bm[N][NU]) const {
 #pragma unroll
-    for (int i = 0; i < NU; ++i) qu[i] = g(OP_QU + i);
-    const int rows[3] = {0, 1, 4};
+    for (int i = 0; i < NU; ++i) qu[i] = g(RG::OP_QU + i);
 #pragma unroll
-    for (int r = 0; r < 3; ++r) {
+    for (int r = 0; r < RG::NAR; ++r) {
 #pragma unroll
-      for (int j = 0; j < NX; ++j) A[rows[r]][j] = g(OP_A + r * NX + j);
+      for (int j = 0; j < N; ++j)
+        A[RG::arow(r)][j] = g(RG::OP_A + r * N + j);
 #pragma unroll
-      for (int j = 0; j < NU; ++j) Bm[rows[r]][j] = g(OP_B + r * NU + j);
+      for (int j = 0; j < NU; ++j)
+        Bm[RG::arow(r)][j] = g(RG::OP_B + r * NU + j);
     }
 #pragma unroll
-    for (int j = 0; j < NX; ++j) {
+    for (int j = 0; j < N; ++j) {
       A[2][j] = j == 2 ? 1.f : 0.f;
       A[3][j] = j == 3 ? 1.f : 0.f;
     }
-    Bm[2][0] = g(OP_BD);
+    Bm[2][0] = g(RG::OP_BD);
     Bm[2][1] = 0.f;
     Bm[3][0] = 0.f;
-    Bm[3][1] = g(OP_BD + 1);
+    Bm[3][1] = g(RG::OP_BD + 1);
   }
 
   // ---- separable work: stage by stage on the producers or the owners
@@ -488,32 +547,37 @@ struct Solve {
   template <bool DIAG, bool UPDATE>
   __device__ void stage_ops(int k, int s, float& v) const {
     const bool is_term = k == a.H;
-    float x[NX], u[NU], xref[NX], wx[NX], wr[NU];
+    float x[N], u[NU], xref[N], wx[N], wr[NU];
     xu(b.X, b.U, k, x, u);
-    load(b.xref, k, NX, xref);
+    load(b.xref, k, N, xref);
     weights(is_term, wx, wr);
     RowsT r;
     fresh_rows(k, x, u, is_term && !UPDATE, r);
     float psum, gh[NRB], gn[NRB];
     terms<UPDATE>(r, k, is_term, psum, gh, gn);
-    float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU];
+    float Q[N][N], R[NU][NU], M[N][NU], qx[N], qu[NU];
     assemble_quad(r, gh, gn, x, u, xref, wx, wr, is_term,
                   is_term ? a.use_term != 0 : true, Q, R, M, qx, qu);
     put_quad(s, Q, R, M, qx, qu);
     if (DIAG) {
       float c;
       if (is_term)
-        c = a.use_term ? term_cost(x, xref, wx) : 0.f;
+        c = a.use_term ? term_cost<N>(x, xref, wx) : 0.f;
       else
-        c = stage_cost(x, u, xref, wx, wr);
+        c = stage_cost<N>(x, u, xref, wx, wr);
       sm_m[k * LPB + l] = c;
       sm_p[k * LPB + l] = psum;
       v = scaled_viol(r, is_term, v);
     }
     if (!is_term) {
-      float A[NX][NX], Bm[NX][NU];
-      lin_step(a, x, u, A, Bm);
-      put_ab(s, A, Bm);
+      if constexpr (Mdl::ST) {
+        Mdl::lin(a, x, u,
+                 [&](int i, int j, float v) { put_ab_entry(s, i, j, v); });
+      } else {
+        float A[N][N], Bm[N][NU];
+        lin_step(a, x, u, A, Bm);
+        put_ab(s, A, Bm);
+      }
     }
   }
 
@@ -549,18 +613,18 @@ struct Solve {
     if (!live) return;
     for (int k = w; k <= a.H; k += T) {
       const bool is_term = k == a.H;
-      float x[NX], u[NU], xref[NX], p, gh[NRB], gn[NRB], wx[NX], wr[NU];
+      float x[N], u[NU], xref[N], p, gh[NRB], gn[NRB], wx[N], wr[NU];
       xu(Xs, Us, k, x, u);
-      load(b.xref, k, NX, xref);
+      load(b.xref, k, N, xref);
       weights(is_term, wx, wr);
       RowsT r;
       fresh_rows(k, x, u, is_term, r);
       terms<false>(r, k, is_term, p, gh, gn);
       float c;
       if (is_term)
-        c = a.use_term ? term_cost(x, xref, wx) : 0.f;
+        c = a.use_term ? term_cost<N>(x, xref, wx) : 0.f;
       else
-        c = stage_cost(x, u, xref, wx, wr);
+        c = stage_cost<N>(x, u, xref, wx, wr);
       sm_m[k * LPB + l] = c + p;
     }
   }
@@ -569,9 +633,9 @@ struct Solve {
   __device__ void commit(const float* Xs, const float* Us) const {
     if (!live) return;
     for (int k = w; k <= a.H; k += T) {
-      float v[NX];
-      load(Xs, k, NX, v);
-      store(b.X, k, NX, v);
+      float v[N];
+      load(Xs, k, N, v);
+      store(b.X, k, N, v);
       if (k < a.H) {
         load(Us, k, NU, v);
         store(b.U, k, NU, v);
@@ -611,20 +675,20 @@ struct Solve {
       for (int i = 0; i < NU; ++i) fetch(k, i, b.U, i, NU);
       copy_commit();
     };
-    float x[NX], u[NU], xn[NX];
-    load(b.x0, 0, NX, x);
+    float x[N], u[NU], xn[N];
+    load(b.x0, 0, N, x);
     if (a.H > 0) fetch_u(0);
     for (int k = 0; k < a.H; ++k) {
       if (k + 1 < a.H) fetch_u(k + 1);
       next(k + 1 < a.H);
-      store(b.X, k, NX, x);
+      store(b.X, k, N, x);
 #pragma unroll
       for (int i = 0; i < NU; ++i) u[i] = st(k, i);
-      step_fn(a, x, u, xn);
+      Mdl::step(a, x, u, xn);
 #pragma unroll
-      for (int i = 0; i < NX; ++i) x[i] = xn[i];
+      for (int i = 0; i < N; ++i) x[i] = xn[i];
     }
-    store(b.X, a.H, NX, x);
+    store(b.X, a.H, N, x);
   }
 
   // The Riccati backward sweep over the ring -> K, d (scrubbed of NaN/inf
@@ -634,32 +698,32 @@ struct Solve {
   __device__ void backward_sweep(bool scrub, bool update) const {
     // P and p in shared memory, not registers: the step's own operands
     // and products then fit 128 registers
-    float(*P)[NX] = reinterpret_cast<float(*)[NX]>(pm);
-    float* p = pm + NX * NX;
+    float(*P)[N] = reinterpret_cast<float(*)[N]>(pm);
+    float* p = pm + N * N;
     const auto use = [&](int k, auto g) {
       if (k == a.H) {
         get_qx(g, P, p);
         return;
       }
-      float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU], A[NX][NX],
-          Bm[NX][NU];
+      float Q[N][N], R[NU][NU], M[N][NU], qx[N], qu[NU], A[N][N],
+          Bm[N][NU];
       get_qx(g, Q, qx);
       get_ab(g, qu, A, Bm);
-      R[0][0] = g(OP_R);
-      R[1][1] = g(OP_R + 1);
+      R[0][0] = g(RG::OP_R);
+      R[1][1] = g(RG::OP_R + 1);
       R[0][1] = R[1][0] = 0.f;
 #pragma unroll
-      for (int i = 0; i < NX; ++i) M[i][0] = M[i][1] = 0.f;
-      M[2][1] = g(OP_M);
-      M[3][1] = g(OP_M + 1);
-      float Kk[NU][NX], dk[NU];
+      for (int i = 0; i < N; ++i) M[i][0] = M[i][1] = 0.f;
+      M[2][1] = g(RG::OP_M);
+      M[3][1] = g(RG::OP_M + 1);
+      float Kk[NU][N], dk[NU];
       riccati_step(a.reg, P, p, Q, R, M, qx, qu, A, Bm, Kk, dk);
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
 #pragma unroll
-        for (int j = 0; j < NX; ++j) {
+        for (int j = 0; j < N; ++j) {
           const float kv = Kk[i][j];
-          b.K[L.at(k, i * NX + j, NU * NX)] =
+          b.K[L.at(k, i * N + j, NU * N)] =
               (scrub && !finite_f32(kv)) ? 0.f : kv;
         }
         b.d[L.at(k, i, NU)] = (scrub && !finite_f32(dk[i])) ? 0.f : dk[i];
@@ -676,39 +740,39 @@ struct Solve {
   // themselves (the unguarded step, alpha unused: ub + d + K dx).
   __device__ void feedback_rollout(float alpha, bool unguarded, float* Xo,
                                    float* Uo) const {
-    float x[NX], xn[NX], xb[NX], ub[NU], u[NU], Kk[NU * NX], dk[NU];
-    load(b.x0, 0, NX, x);
+    float x[N], xn[N], xb[N], ub[NU], u[NU], Kk[NU * N], dk[NU];
+    load(b.x0, 0, N, x);
     if (a.H > 0) fetch_roll(0);
     for (int k = 0; k < a.H; ++k) {
       if (k + 1 < a.H) fetch_roll(k + 1);
       next(k + 1 < a.H);
 #pragma unroll
-      for (int i = 0; i < NX; ++i) xb[i] = st(k, i);
+      for (int i = 0; i < N; ++i) xb[i] = st(k, i);
 #pragma unroll
-      for (int i = 0; i < NU; ++i) ub[i] = st(k, NX + i);
+      for (int i = 0; i < NU; ++i) ub[i] = st(k, N + i);
 #pragma unroll
-      for (int i = 0; i < NU * NX; ++i) Kk[i] = st(k, NX + NU + i);
+      for (int i = 0; i < NU * N; ++i) Kk[i] = st(k, N + NU + i);
 #pragma unroll
-      for (int i = 0; i < NU; ++i) dk[i] = st(k, NX + NU + NU * NX + i);
-      float dx[NX];
+      for (int i = 0; i < NU; ++i) dk[i] = st(k, N + NU + NU * N + i);
+      float dx[N];
 #pragma unroll
-      for (int i = 0; i < NX; ++i) dx[i] = x[i] - xb[i];
+      for (int i = 0; i < N; ++i) dx[i] = x[i] - xb[i];
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
         float fb = 0.f;
 #pragma unroll
-        for (int j = 0; j < NX; ++j) fb += Kk[i * NX + j] * dx[j];
+        for (int j = 0; j < N; ++j) fb += Kk[i * N + j] * dx[j];
         u[i] = (unguarded ? ub[i] + dk[i] : ub[i] + alpha * dk[i]) + fb;
       }
       u[0] = clipf(u[0], a.u_lo0, a.u_hi0);
       u[1] = clipf(u[1], a.u_lo1, a.u_hi1);
-      step_fn(a, x, u, xn);
-      store(Xo, k, NX, x);
+      Mdl::step(a, x, u, xn);
+      store(Xo, k, N, x);
       store(Uo, k, NU, u);
 #pragma unroll
-      for (int i = 0; i < NX; ++i) x[i] = xn[i];
+      for (int i = 0; i < N; ++i) x[i] = xn[i];
     }
-    store(Xo, a.H, NX, x);
+    store(Xo, a.H, N, x);
   }
 
   // the merit of a chain: its stage merits summed over k = 0..H in order
@@ -722,7 +786,7 @@ struct Solve {
   // a trial chain per rung rolled out by warp 0, its stage merits on the
   // owners, its sum on warp 0; the best chain committed by the owners.
   __device__ void ladder(int it) const {
-    const size_t xs = (size_t)(a.H + 1) * NX * a.B;
+    const size_t xs = (size_t)(a.H + 1) * N * a.B;
     const size_t us = (size_t)a.H * NU * a.B;
     const bool chain = live && w == 0;
     int best = 0, best_rung = 0;
@@ -764,37 +828,37 @@ struct Solve {
   // merit from stage H down; then the violation from the producers'
   // partials.
   __device__ void diagnostics() const {
-    float lam[NX], cost = 0.f, merit = 0.f, stat = 0.f;
+    float lam[N], cost = 0.f, merit = 0.f, stat = 0.f;
     const auto use = [&](int k, auto g) {
       const float c = sm_m[k * LPB + l];
       if (k == a.H) {
-        float Q[NX][NX];
+        float Q[N][N];
         get_qx(g, Q, lam);
         cost = c;
         merit = c + sm_p[k * LPB + l];
         return;
       }
-      float qx[NX], qu[NU], A[NX][NX], Bm[NX][NU];
+      float qx[N], qu[NU], A[N][N], Bm[N][NU];
 #pragma unroll
-      for (int i = 0; i < NX; ++i) qx[i] = g(OP_QX + i);
+      for (int i = 0; i < N; ++i) qx[i] = g(RG::OP_QX + i);
       get_ab(g, qu, A, Bm);
-      float g_u[NU], lam_new[NX];
+      float g_u[NU], lam_new[N];
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
         float s = 0.f;
 #pragma unroll
-        for (int t = 0; t < NX; ++t) s += Bm[t][i] * lam[t];
+        for (int t = 0; t < N; ++t) s += Bm[t][i] * lam[t];
         g_u[i] = qu[i] + s;
       }
 #pragma unroll
-      for (int i = 0; i < NX; ++i) {
+      for (int i = 0; i < N; ++i) {
         float s = 0.f;
 #pragma unroll
-        for (int t = 0; t < NX; ++t) s += A[t][i] * lam[t];
+        for (int t = 0; t < N; ++t) s += A[t][i] * lam[t];
         lam_new[i] = qx[i] + s;
       }
 #pragma unroll
-      for (int i = 0; i < NX; ++i) lam[i] = lam_new[i];
+      for (int i = 0; i < N; ++i) lam[i] = lam_new[i];
       stat = nmax(stat, nmax(fabsf(g_u[0]), fabsf(g_u[1])));
       cost = cost + c;
       merit = merit + c + sm_p[k * LPB + l];
@@ -819,7 +883,7 @@ struct Solve {
 // warps fit an SM.  __grid_constant__: the Solve object keeps references
 // to the parameters, which then stay in the constant bank instead of a
 // local copy.
-template <int T, bool BND>
+template <int T, bool BND, class Mdl>
 __global__ void __launch_bounds__(LPB * T, 16 / T)
 fused_gn_kernel(const __grid_constant__ FgnArgs a,
                 const __grid_constant__ Bufs b) {
@@ -827,7 +891,8 @@ fused_gn_kernel(const __grid_constant__ FgnArgs a,
   const int w = threadIdx.x / LPB, l = threadIdx.x % LPB;
   const int lane = blockIdx.x * LPB + l;
   const bool live = lane < a.B;
-  const Solve<T, BND> s(a, b, live ? lane : a.B - 1, live, w, l, smem_dyn);
+  const Solve<T, BND, Mdl> s(a, b, live ? lane : a.B - 1, live, w, l,
+                             smem_dyn);
   const bool chain = live && w == 0;
   if (chain) s.initial_rollout();
   __syncthreads();
@@ -854,17 +919,18 @@ fused_gn_kernel(const __grid_constant__ FgnArgs a,
 }
 
 // The geometry of a launch (fused_gn_geometry fills out[] with it): threads
-// a lane given, or the most of 2, 4, 8 whose blocks are all resident at
-// once (occupancy API), else 2; lanes a block; shared bytes a lane and a
-// block; blocks resident an SM; registers a thread; of the instance with
-// or without the boundary rows (args->boundary).
+// a lane given, or the most of 2, 4, 8 (4, 8 for ST) whose blocks are all
+// resident at once (occupancy API), else 4; lanes a block; shared bytes a
+// lane and a block; blocks resident an SM; registers a thread; of the
+// instance with or without the boundary rows (args->boundary), of this
+// source's model.
 // The attribute and occupancy calls are made once per device and shared
 // memory size, and kept.
 template <int T, bool BND>
 static int occupancy(const FgnArgs* args, int32_t out[6]) {
   static int dev_c = -1, smem_c = -1, nb = 0, regs = 0;
-  auto kernel = fused_gn_kernel<T, BND>;
-  const int lane_bytes = lane_floats(args->H, T) * (int)sizeof(float);
+  auto kernel = fused_gn_kernel<T, BND, Model>;
+  const int lane_bytes = lane_floats<Model>(args->H, T) * (int)sizeof(float);
   const int smem = LPB * lane_bytes;
   int dev = 0, err;
   if ((err = cudaGetDevice(&dev))) return err;
@@ -893,7 +959,9 @@ static int occupancy(const FgnArgs* args, int32_t out[6]) {
 template <bool BND>
 static int occupancy_at(const FgnArgs* args, int T, int32_t out[6]) {
   switch (T) {
+#if !defined(FUSED_MODEL_ST)  // the ST instances take 4 and 8 threads a lane
     case 2: return occupancy<2, BND>(args, out);
+#endif
     case 4: return occupancy<4, BND>(args, out);
     case 8: return occupancy<8, BND>(args, out);
     default: return (int)cudaErrorInvalidValue;
@@ -918,16 +986,21 @@ static int geometry(const FgnArgs* args, int32_t out[6]) {
     dev_c = dev;
   }
   const int blocks = (args->B + LPB - 1) / LPB;
-  for (int T = 8; T >= 2; T /= 2) {
+  // The fewest threads a lane this library has (the ST one builds 4 and 8):
+  // when no instance holds every block at once, it runs in waves.
+  constexpr int T_MIN = Model::ST ? 4 : 2;
+  for (int T = 8; T >= T_MIN; T /= 2) {
     if ((err = occupancy_at(args, T, out))) return err;
-    if ((long)out[4] * sms >= blocks || T == 2) return 0;
+    if ((long)out[4] * sms >= blocks || T == T_MIN) return 0;
   }
   return 0;
 }
 
-// Floats of one lane's shared memory at horizon H and T threads a lane
-// (the Python side's eligibility mirrors it).
-extern "C" int fused_gn_lane_floats(int H, int T) { return lane_floats(H, T); }
+// Floats of one lane's shared memory at horizon H and T threads a lane, for
+// this source's model (the Python side's eligibility mirrors it).
+extern "C" int fused_gn_lane_floats(int H, int T) {
+  return lane_floats<Model>(H, T);
+}
 
 extern "C" int fused_gn_geometry(const FgnArgs* args, int32_t* out) {
   return geometry(args, out);
@@ -938,8 +1011,8 @@ static int launch(const FgnArgs* args, const Bufs& b, size_t smem,
                   void* stream) {
   const int blocks = (args->B + LPB - 1) / LPB;
   const int threads = LPB * T;
-  auto kernel = args->boundary ? fused_gn_kernel<T, true>
-                               : fused_gn_kernel<T, false>;
+  auto kernel = args->boundary ? fused_gn_kernel<T, true, Model>
+                               : fused_gn_kernel<T, false, Model>;
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(*args, b);
   return (int)cudaGetLastError();
 }
@@ -960,7 +1033,9 @@ extern "C" int fused_gn_solve(const FgnArgs* args, const float* x0,
   if (err) return err;
   if (g[4] < 1) return (int)cudaErrorInvalidValue;
   switch (g[0]) {
+#if !defined(FUSED_MODEL_ST)
     case 2: return launch<2>(args, b, (size_t)g[3], stream);
+#endif
     case 4: return launch<4>(args, b, (size_t)g[3], stream);
     case 8: return launch<8>(args, b, (size_t)g[3], stream);
     default: return (int)cudaErrorInvalidValue;

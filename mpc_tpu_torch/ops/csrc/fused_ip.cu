@@ -70,8 +70,8 @@
 //   __launch_bounds__ caps the registers at 168 so that 12 warps fit an SM;
 //   a spare warp of the ragged last block solves a copy of the last lane
 //   and stores nothing, so that every warp meets the same __syncthreads.
-// - No tensor cores: the products are 5x5 in float32, and TF32 would break
-//   the float32 bands.
+// - No tensor cores: the products are 5x5 (7x7 for ST) in float32, and TF32
+//   would break the float32 bands.
 // - Road-boundary rows (BND, a template parameter: the instances without
 //   them compile as before): 6 more rows a stage, built by each stage's
 //   owner from the stage's 18 floats of models in device memory
@@ -81,14 +81,31 @@
 //   shared memory, so a lane takes more shared memory and a block fewer
 //   lanes.
 //
+// - The model (Mdl, a template parameter: KsModel or StModel, orthogonal
+//   to SPT and BND).  This source builds the KS instances; fused_ip_st.cu
+//   is this source with FUSED_MODEL_ST defined, the ST instances (7 states,
+//   tire dynamics; st_model.cuh) in a library of their own.  The model
+//   sets the sizes of a lane's arrays (IpDims, Layout: (A, B) 63 floats a
+//   stage, K 14, the quadratic 55, X, ddX and xref 7, P 49; ~26 KB a lane
+//   at H=30 against 19,228 B for KS, so fewer lanes a block).  The ST
+//   rollouts run on thread 0 of the lane's warp, stage after stage: the
+//   tire dynamics couple heading, yaw rate and slip, so the increments
+//   that split the KS step by stage do not exist.  The ST (A, B) come from
+//   dual numbers (StModel::lin), written entry by entry into the cache.
+//
 // Semantics kept from the TPU kernel on purpose: maxima, minima and clips
 // propagate NaN; the unguarded step commits a non-finite rollout; a
 // non-finite merit counts as 1e30 and a rung is taken on a strict "<".
 // Build without --use_fast_math.
 
-#include "ks_rows.cuh"
+#include "st_model.cuh"
 
-#define NAB (NX * NX + NX * NU)
+#if defined(FUSED_MODEL_ST)
+using Model = StModel;
+#else
+using Model = KsModel;
+#endif
+
 #define TPL 32         // threads per lane: one warp
 #define MAX_SPT 2      // stages a thread holds, at most
 // Lanes a block, at most: caps the registers at 65536 / (32 * 12) = 168 a
@@ -98,22 +115,29 @@
 #define MAX_LPB 12
 #define ROW_LD 45      // floats a stage in the rows cache (44, padded odd)
 #define ROW_LD_B 69    // the same with the boundary rows (68, padded odd)
-#define QUAD_LD 37     // floats a stage of the quadratics (36, padded odd)
 #define OBS_LD 7       // floats a stage of the obstacles (6, padded odd)
 #define FULL_MASK 0xffffffffu
 
-// one stage quadratic: Q's upper triangle (15), R (4), M (10), qx, qu
-#define QO_R 15
-#define QO_M 19
-#define QO_QX 29
-#define QO_QU 34
-// a lane's constants: wq, wr, wqN, x0, min_dist
-#define C_WQ 0
-#define C_WR 5
-#define C_WQN 7
-#define C_X0 12
-#define C_MIND 17
-#define NCST 18
+// The sizes a lane's arrays take for the model Mdl.
+template <class Mdl>
+struct IpDims {
+  static constexpr int N = Mdl::N;
+  static constexpr int NAB = N * N + N * NU;  // (A, B) a stage
+  // one stage quadratic: Q's upper triangle, R, M, qx, qu (36 floats,
+  // padded odd to 37, for KS; 55 for ST)
+  static constexpr int QO_R = N * (N + 1) / 2;
+  static constexpr int QO_M = QO_R + NU * NU;
+  static constexpr int QO_QX = QO_M + N * NU;
+  static constexpr int QO_QU = QO_QX + N;
+  static constexpr int QUAD_LD = (QO_QU + NU) | 1;
+  // a lane's constants: wq, wr, wqN, x0, min_dist
+  static constexpr int C_WQ = 0;
+  static constexpr int C_WR = N;
+  static constexpr int C_WQN = N + NU;
+  static constexpr int C_X0 = 2 * N + NU;
+  static constexpr int C_MIND = 3 * N + NU;
+  static constexpr int NCST = C_MIND + 1;
+};
 
 // ipqp constants (mpc_tpu_torch/ops/ipqp.py)
 #define S_FLOOR 1e-10f
@@ -135,6 +159,7 @@ struct IpArgs {
   float alphas[MAX_ALPHAS];
   int32_t boundary;  // 1: the instance with the road-boundary rows
   float r_ego;       // their bound: r_ego <= h
+  StConsts st;       // the ST model's constants (zero for KS)
 };
 
 // Every buffer lanes leading: (B, ...), one lane contiguous.
@@ -146,49 +171,54 @@ struct IpBufs {
   const float* bnd;         // (B, H + 1, NBND) boundary models or null
 };
 
-// Offsets (floats) of one lane's arrays in shared memory; ``bnd``: the rows
-// cache of the boundary rows' instance.
+// Offsets (floats) of one lane's arrays in shared memory for the model
+// Mdl; ``bnd``: the rows cache of the boundary rows' instance.
+template <class Mdl>
 struct Layout {
+  static constexpr int NX_ = Mdl::N;  // states
+  using D = IpDims<Mdl>;
   int rows, quad, ab, K, d, ddX, ddU, X, Xt, inc, U, Ut, xref, obs, P, p,
       stat, cst, total;
   __host__ __device__ explicit Layout(int H, bool bnd = false) {
     const int S = H + 1;
     int o = 0;
     rows = o;  o += (bnd ? ROW_LD_B : ROW_LD) * S;
-    quad = o;  o += QUAD_LD * S;
+    quad = o;  o += D::QUAD_LD * S;
     // a rollout's scratch shares the quadratics' space: the rollouts run
     // between the last Newton step of an RTI iteration and the next
     // quadratics
     Xt = quad;               // a ladder trial's states
-    inc = Xt + NX * S;       // a rollout's per-stage increments
-    Ut = inc + NX * H;       // a ladder trial's inputs
-    ab = o;    o += NAB * H;
-    K = o;     o += NU * NX * H;
+    inc = Xt + NX_ * S;       // a rollout's per-stage increments
+    Ut = inc + NX_ * H;       // a ladder trial's inputs
+    ab = o;    o += D::NAB * H;
+    K = o;     o += NU * NX_ * H;
     d = o;     o += NU * H;
-    ddX = o;   o += NX * S;     // the Newton direction
+    ddX = o;   o += NX_ * S;     // the Newton direction
     ddU = o;   o += NU * S;     // (zero at the terminal stage)
-    X = o;     o += NX * S;
+    X = o;     o += NX_ * S;
     U = o;     o += NU * S;     // (zero at the terminal stage)
-    xref = o;  o += NX * S;
+    xref = o;  o += NX_ * S;
     obs = o;   o += OBS_LD * S;
-    P = o;     o += NX * NX;    // the terminal cost-to-go
-    p = o;     o += NX;
+    P = o;     o += NX_ * NX_;    // the terminal cost-to-go
+    p = o;     o += NX_;
     stat = o;  o += 1;          // the adjoint's stationarity
-    cst = o;   o += NCST;
+    cst = o;   o += D::NCST;
     total = o;
   }
 };
 
-// Index of Q[i][j] in its stored upper triangle.
+// Index of Q[i][j] in its stored upper triangle (N states).
+template <int N>
 __host__ __device__ __forceinline__ int ut(int i, int j) {
-  return i <= j ? i * NX - i * (i - 1) / 2 + j - i
-                : j * NX - j * (j - 1) / 2 + i - j;
+  return i <= j ? i * N - i * (i - 1) / 2 + j - i
+                : j * N - j * (j - 1) / 2 + i - j;
 }
 
-// Linearized value c_i = h_i + J_i . (dX, dU) of row i (sparse gradient),
-// one row at a time so that no row array stays live.
+// Linearized value c_i = h_i + J_i . (dX, dU) of row i (sparse gradient;
+// the rows read the first five states), one row at a time so that no row
+// array stays live.
 __device__ __forceinline__ float row_lin(const Rows& r, int i,
-                                         const float dX[NX],
+                                         const float* dX,
                                          const float dU[NU]) {
   if (i == 0) return r.hf + r.gf[0] * dX[2] + r.gf[1] * dX[3] + r.gf[2] * dU[1];
   if (i < 10) {
@@ -200,7 +230,7 @@ __device__ __forceinline__ float row_lin(const Rows& r, int i,
 }
 // the same with the boundary rows, whose gradient is a circle row's
 __device__ __forceinline__ float row_lin(const BndRows& r, int i,
-                                         const float dX[NX],
+                                         const float* dX,
                                          const float dU[NU]) {
   if (i < NR) return row_lin(static_cast<const Rows&>(r), i, dX, dU);
   const float* c = r.bnd[i - NR];
@@ -245,11 +275,12 @@ __device__ __forceinline__ float warp_max(float v) {
   return __shfl_sync(FULL_MASK, v, 0);
 }
 
-// One stage's Newton state, in its owner's registers (NRB rows a stage).
-template <int NRB>
+// One stage's Newton state, in its owner's registers (NRB rows a stage, N
+// states).
+template <int NRB, int N>
 struct StageState {
   float sl[NRB], sh[NRB], zl[NRB], zh[NRB];  // slacks and duals, both sides
-  float dx[NX], du[NU];
+  float dx[N], du[NU];
 };
 
 // The Riccati sweep and the linear forward pass of the lane whose shared
@@ -258,111 +289,118 @@ struct StageState {
 // one riccati_step (ks_rows.cuh) a stage; K and d, then ddX and ddU
 // (ddx_0 = 0, x0 pinned; ddu_k = d_k + K_k ddx_k; ddx_{k+1} = A ddx +
 // B ddu) into shared memory.
-template <class Args>
-__device__ void sweep_lane(const Args& a, float* sm, const Layout& L) {
+template <class Mdl, class Args>
+__device__ void sweep_lane(const Args& a, float* sm, const Layout<Mdl>& L) {
+  constexpr int N = Mdl::N;
+  using D = IpDims<Mdl>;
   const int H = a.H;
-  float P[NX][NX], p[NX];
+  float P[N][N], p[N];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
+  for (int i = 0; i < N; ++i) {
 #pragma unroll
-    for (int c = 0; c < NX; ++c) P[i][c] = sm[L.P + i * NX + c];
+    for (int c = 0; c < N; ++c) P[i][c] = sm[L.P + i * N + c];
     p[i] = sm[L.p + i];
   }
   for (int k = H - 1; k >= 0; --k) {
-    const float* q = sm + L.quad + k * QUAD_LD;
-    const float* abk = sm + L.ab + k * NAB;
-    float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU], A[NX][NX],
-        Bm[NX][NU];
+    const float* q = sm + L.quad + k * D::QUAD_LD;
+    const float* abk = sm + L.ab + k * D::NAB;
+    float Q[N][N], R[NU][NU], M[N][NU], qx[N], qu[NU], A[N][N],
+        Bm[N][NU];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
+    for (int i = 0; i < N; ++i) {
 #pragma unroll
-      for (int c = 0; c < NX; ++c) {
-        Q[i][c] = q[ut(i, c)];
-        A[i][c] = abk[i * NX + c];
+      for (int c = 0; c < N; ++c) {
+        Q[i][c] = q[ut<N>(i, c)];
+        A[i][c] = abk[i * N + c];
       }
 #pragma unroll
       for (int c = 0; c < NU; ++c) {
-        M[i][c] = q[QO_M + i * NU + c];
-        Bm[i][c] = abk[NX * NX + i * NU + c];
+        M[i][c] = q[D::QO_M + i * NU + c];
+        Bm[i][c] = abk[N * N + i * NU + c];
       }
-      qx[i] = q[QO_QX + i];
+      qx[i] = q[D::QO_QX + i];
     }
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
 #pragma unroll
-      for (int c = 0; c < NU; ++c) R[i][c] = q[QO_R + i * NU + c];
-      qu[i] = q[QO_QU + i];
+      for (int c = 0; c < NU; ++c) R[i][c] = q[D::QO_R + i * NU + c];
+      qu[i] = q[D::QO_QU + i];
     }
-    float Kk[NU][NX], dk[NU];
+    float Kk[NU][N], dk[NU];
     riccati_step(a.reg, P, p, Q, R, M, qx, qu, A, Bm, Kk, dk);
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
 #pragma unroll
-      for (int c = 0; c < NX; ++c) sm[L.K + k * NU * NX + i * NX + c] = Kk[i][c];
+      for (int c = 0; c < N; ++c) sm[L.K + k * NU * N + i * N + c] = Kk[i][c];
       sm[L.d + k * NU + i] = dk[i];
     }
   }
-  float ddx[NX] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  float ddx[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) ddx[i] = 0.f;
   for (int k = 0; k < H; ++k) {
-    const float* Kk = sm + L.K + k * NU * NX;
+    const float* Kk = sm + L.K + k * NU * N;
     const float* dk = sm + L.d + k * NU;
-    const float* abk = sm + L.ab + k * NAB;
+    const float* abk = sm + L.ab + k * D::NAB;
     float ddu[NU];
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
       float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < NX; ++c) s += Kk[i * NX + c] * ddx[c];
+      for (int c = 0; c < N; ++c) s += Kk[i * N + c] * ddx[c];
       ddu[i] = dk[i] + s;
       sm[L.ddU + k * NU + i] = ddu[i];
     }
-    float nxt[NX];
+    float nxt[N];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      sm[L.ddX + k * NX + i] = ddx[i];
+    for (int i = 0; i < N; ++i) {
+      sm[L.ddX + k * N + i] = ddx[i];
       float sa = 0.f, sb = 0.f;
 #pragma unroll
-      for (int c = 0; c < NX; ++c) sa += abk[i * NX + c] * ddx[c];
+      for (int c = 0; c < N; ++c) sa += abk[i * N + c] * ddx[c];
 #pragma unroll
-      for (int c = 0; c < NU; ++c) sb += abk[NX * NX + i * NU + c] * ddu[c];
+      for (int c = 0; c < NU; ++c) sb += abk[N * N + i * NU + c] * ddu[c];
       nxt[i] = sa + sb;
     }
 #pragma unroll
-    for (int i = 0; i < NX; ++i) ddx[i] = nxt[i];
+    for (int i = 0; i < N; ++i) ddx[i] = nxt[i];
   }
 #pragma unroll
-  for (int i = 0; i < NX; ++i) sm[L.ddX + H * NX + i] = ddx[i];
+  for (int i = 0; i < N; ++i) sm[L.ddX + H * N + i] = ddx[i];
 }
 
 // The adjoint recursion of the diagnostics for the lane whose shared
 // memory is ``sm``, on one thread: lam_H = qx_H, g_u = qu_k + B' lam,
 // lam <- qx_k + A' lam, with qx, qu (lam = z_hi - z_lo) and (A, B) of the
 // final iterate in shared memory; the largest |g_u| into ``stat``.
-template <class Args>
-__device__ void adjoint_lane(const Args& a, float* sm, const Layout& L) {
-  float lam[NX], stat = 0.f;
+template <class Mdl, class Args>
+__device__ void adjoint_lane(const Args& a, float* sm, const Layout<Mdl>& L) {
+  constexpr int N = Mdl::N;
+  using D = IpDims<Mdl>;
+  float lam[N], stat = 0.f;
 #pragma unroll
-  for (int i = 0; i < NX; ++i) lam[i] = sm[L.quad + a.H * QUAD_LD + QO_QX + i];
+  for (int i = 0; i < N; ++i)
+    lam[i] = sm[L.quad + a.H * D::QUAD_LD + D::QO_QX + i];
   for (int k = a.H - 1; k >= 0; --k) {
-    const float* q = sm + L.quad + k * QUAD_LD;
-    const float* abk = sm + L.ab + k * NAB;
-    float g_u[NU], lam_new[NX];
+    const float* q = sm + L.quad + k * D::QUAD_LD;
+    const float* abk = sm + L.ab + k * D::NAB;
+    float g_u[NU], lam_new[N];
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
       float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < NX; ++c) s += abk[NX * NX + c * NU + i] * lam[c];
-      g_u[i] = q[QO_QU + i] + s;
+      for (int c = 0; c < N; ++c) s += abk[N * N + c * NU + i] * lam[c];
+      g_u[i] = q[D::QO_QU + i] + s;
     }
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
+    for (int i = 0; i < N; ++i) {
       float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < NX; ++c) s += abk[c * NX + i] * lam[c];
-      lam_new[i] = q[QO_QX + i] + s;
+      for (int c = 0; c < N; ++c) s += abk[c * N + i] * lam[c];
+      lam_new[i] = q[D::QO_QX + i] + s;
     }
 #pragma unroll
-    for (int i = 0; i < NX; ++i) lam[i] = lam_new[i];
+    for (int i = 0; i < N; ++i) lam[i] = lam_new[i];
     stat = nmax(stat, nmax(fabsf(g_u[0]), fabsf(g_u[1])));
   }
   sm[L.stat] = stat;
@@ -370,9 +408,12 @@ __device__ void adjoint_lane(const Args& a, float* sm, const Layout& L) {
 
 // One lane's solve, run by the 32 threads of its warp; the lanes of a
 // block meet at __syncthreads around the recursions that thread l of
-// warp 0 runs for lane l.  BND: with the 6 road-boundary rows a stage.
-template <int SPT, bool BND>
+// warp 0 runs for lane l.  BND: with the 6 road-boundary rows a stage; Mdl:
+// the model.
+template <int SPT, bool BND, class Mdl>
 struct IpLane {
+  static constexpr int N = Mdl::N;          // states
+  using D = IpDims<Mdl>;
   static constexpr int NRB = nrows<BND>();  // rows a stage
   static constexpr int RLD = BND ? ROW_LD_B : ROW_LD;  // the rows cache's
   using RowsT = RowsOf<BND>;
@@ -383,13 +424,13 @@ struct IpLane {
                            // nothing (the ragged block's spare warps)
   float* const block_sm;   // the block's shared memory
   float* const sm;         // this lane's
-  const Layout L;
-  StageState<NRB> st[SPT];
+  const Layout<Mdl> L;
+  StageState<NRB, N> st[SPT];
 
   __device__ __forceinline__ IpLane(const IpArgs& a_, const IpBufs& b_,
                                     int lane_, bool live_, int t_, int w_,
                                     int lpb_, float* block_sm_,
-                                    const Layout& L_)
+                                    const Layout<Mdl>& L_)
       : a(a_), b(b_), lane(lane_), t(t_), w(w_), lpb(lpb_), H(a_.H),
         S(a_.H + 1), live(live_), block_sm(block_sm_),
         sm(block_sm_ + (size_t)w_ * L_.total), L(L_) {}
@@ -399,25 +440,25 @@ struct IpLane {
     return *reinterpret_cast<RowsT*>(sm + L.rows + k * RLD);
   }
   __device__ __forceinline__ float* quad(int k) const {
-    return sm + L.quad + k * QUAD_LD;
+    return sm + L.quad + k * D::QUAD_LD;
   }
   __device__ __forceinline__ float* ab(int k) const {
-    return sm + L.ab + k * NAB;
+    return sm + L.ab + k * D::NAB;
   }
   __device__ __forceinline__ float* xref(int k) const {
-    return sm + L.xref + k * NX;
+    return sm + L.xref + k * N;
   }
   __device__ __forceinline__ const float* cst(int i) const {
     return sm + L.cst + i;
   }
-  __device__ __forceinline__ float mind() const { return *cst(C_MIND); }
+  __device__ __forceinline__ float mind() const { return *cst(D::C_MIND); }
   // stage k of slot j, or -1 past the horizon
   __device__ __forceinline__ int stage(int j) const {
     const int k = t + TPL * j;
     return k <= H ? k : -1;
   }
 
-  __device__ void fresh_rows(int k, const float x[NX], const float u[NU],
+  __device__ void fresh_rows(int k, const float x[N], const float u[NU],
                              RowsT& r) const {
     const float* o = sm + L.obs + (a.moving ? k * OBS_LD : 0);
     float ob[6];
@@ -436,8 +477,8 @@ struct IpLane {
   // ---- the lane's inputs into shared memory and registers
   __device__ void load() {
     const size_t l = (size_t)lane;
-    for (int e = t; e < NX * S; e += TPL)
-      sm[L.xref + e] = b.xref[l * NX * S + e];
+    for (int e = t; e < N * S; e += TPL)
+      sm[L.xref + e] = b.xref[l * N * S + e];
     for (int e = t; e < NU * H; e += TPL) sm[L.U + e] = b.U[l * NU * H + e];
     if (t < NU) {   // the terminal stage's inputs and input step: zero
       sm[L.U + H * NU + t] = 0.f;
@@ -449,11 +490,11 @@ struct IpLane {
     } else if (t < 6) {
       sm[L.obs + t] = b.obs[l * 6 + t];
     }
-    if (t < C_X0) {
-      sm[L.cst + t] = b.w[l * C_X0 + t];           // wq, wr, wqN
-    } else if (t < C_MIND) {
-      sm[L.cst + t] = b.x0[l * NX + t - C_X0];
-    } else if (t == C_MIND) {
+    if (t < D::C_X0) {
+      sm[L.cst + t] = b.w[l * D::C_X0 + t];           // wq, wr, wqN
+    } else if (t < D::C_MIND) {
+      sm[L.cst + t] = b.x0[l * N + t - D::C_X0];
+    } else if (t == D::C_MIND) {
       sm[L.cst + t] = b.mind[l];
     }
 #pragma unroll
@@ -469,7 +510,7 @@ struct IpLane {
         st[j].sl[i] = st[j].sh[i] = 1.f;
       }
 #pragma unroll
-      for (int i = 0; i < NX; ++i) st[j].dx[i] = 0.f;
+      for (int i = 0; i < N; ++i) st[j].dx[i] = 0.f;
 #pragma unroll
       for (int i = 0; i < NU; ++i) st[j].du[i] = 0.f;
     }
@@ -480,7 +521,7 @@ struct IpLane {
   __device__ void store() const {
     if (!live) return;
     const size_t l = (size_t)lane;
-    for (int e = t; e < NX * S; e += TPL) b.X[l * NX * S + e] = sm[L.X + e];
+    for (int e = t; e < N * S; e += TPL) b.X[l * N * S + e] = sm[L.X + e];
     for (int e = t; e < NU * H; e += TPL) b.U[l * NU * H + e] = sm[L.U + e];
 #pragma unroll
     for (int j = 0; j < SPT; ++j) {
@@ -502,12 +543,12 @@ struct IpLane {
   // (thread 0): x_{k+1} = x_k + inc_k, the additions of step_fn in order.
   __device__ __forceinline__ void running_sum(float* Xs, int i) const {
     const float* inc = sm + L.inc;
-    float x = *cst(C_X0 + i);
+    float x = *cst(D::C_X0 + i);
     for (int k = 0; k < H; ++k) {
-      Xs[k * NX + i] = x;
-      x = x + inc[k * NX + i];
+      Xs[k * N + i] = x;
+      x = x + inc[k * N + i];
     }
-    Xs[H * NX + i] = x;
+    Xs[H * N + i] = x;
   }
 
   // States from x0 under the inputs Us (no feedback) into Xs.  A step's
@@ -519,6 +560,12 @@ struct IpLane {
   // evaluations, with step_fn's own arithmetic) and then its running sum
   // on thread 0: steering and speed, heading, position.
   __device__ void rollout(const float* Us, float* Xs) const {
+    if constexpr (Mdl::ST)
+      rollout_chain(Us, Xs);
+    else
+      rollout_ks(Us, Xs);
+  }
+  __device__ void rollout_ks(const float* Us, float* Xs) const {
     float* inc = sm + L.inc;
     float kp[SPT][3];   // heading rates of k1, k2, k3 at each own stage
 #pragma unroll
@@ -526,9 +573,9 @@ struct IpLane {
       const int k = stage(j);
       if (k < 0 || k == H) continue;
       const float u0 = Us[k * NU], u1 = Us[k * NU + 1];
-      inc[k * NX + 2] = a.rk4 ? a.dt6 * (u0 + 2.f * u0 + 2.f * u0 + u0)
+      inc[k * N + 2] = a.rk4 ? a.dt6 * (u0 + 2.f * u0 + 2.f * u0 + u0)
                               : a.dt * u0;
-      inc[k * NX + 3] = a.rk4 ? a.dt6 * (u1 + 2.f * u1 + 2.f * u1 + u1)
+      inc[k * N + 3] = a.rk4 ? a.dt6 * (u1 + 2.f * u1 + 2.f * u1 + u1)
                               : a.dt * u1;
     }
     __syncwarp();
@@ -541,12 +588,12 @@ struct IpLane {
     for (int j = 0; j < SPT; ++j) {
       const int k = stage(j);
       if (k < 0 || k == H) continue;
-      const float delta = Xs[k * NX + 2], v = Xs[k * NX + 3];
+      const float delta = Xs[k * N + 2], v = Xs[k * N + 3];
       const float u0 = Us[k * NU], u1 = Us[k * NU + 1];
       const float k1 = v * tanf(delta) * a.inv_l;
       kp[j][0] = k1;
       if (!a.rk4) {
-        inc[k * NX + 4] = a.dt * k1;
+        inc[k * N + 4] = a.dt * k1;
         continue;
       }
       // x2 and x3 share (delta, v): k3's heading rate is k2's
@@ -555,7 +602,7 @@ struct IpLane {
       const float v4 = v + a.dt * u1;
       const float k4 = v4 * tanf(delta + a.dt * u0) * a.inv_l;
       kp[j][1] = kp[j][2] = k2;
-      inc[k * NX + 4] = a.dt6 * (k1 + 2.f * k2 + 2.f * k2 + k4);
+      inc[k * N + 4] = a.dt6 * (k1 + 2.f * k2 + 2.f * k2 + k4);
     }
     __syncwarp();
     if (t == 0) running_sum(Xs, 4);
@@ -564,10 +611,10 @@ struct IpLane {
     for (int j = 0; j < SPT; ++j) {
       const int k = stage(j);
       if (k < 0 || k == H) continue;
-      const float v = Xs[k * NX + 3], psi = Xs[k * NX + 4];
+      const float v = Xs[k * N + 3], psi = Xs[k * N + 4];
       if (!a.rk4) {
-        inc[k * NX + 0] = a.dt * (v * cosf(psi));
-        inc[k * NX + 1] = a.dt * (v * sinf(psi));
+        inc[k * N + 0] = a.dt * (v * cosf(psi));
+        inc[k * N + 1] = a.dt * (v * sinf(psi));
         continue;
       }
       const float u1 = Us[k * NU + 1];
@@ -575,15 +622,35 @@ struct IpLane {
       const float p2 = psi + a.half_dt * kp[j][0];
       const float p3 = psi + a.half_dt * kp[j][1];
       const float p4 = psi + a.dt * kp[j][2];
-      inc[k * NX + 0] = a.dt6 * (v * cosf(psi) + 2.f * (v2 * cosf(p2)) +
+      inc[k * N + 0] = a.dt6 * (v * cosf(psi) + 2.f * (v2 * cosf(p2)) +
                                  2.f * (v2 * cosf(p3)) + v4 * cosf(p4));
-      inc[k * NX + 1] = a.dt6 * (v * sinf(psi) + 2.f * (v2 * sinf(p2)) +
+      inc[k * N + 1] = a.dt6 * (v * sinf(psi) + 2.f * (v2 * sinf(p2)) +
                                  2.f * (v2 * sinf(p3)) + v4 * sinf(p4));
     }
     __syncwarp();
     if (t == 0) {
       running_sum(Xs, 0);
       running_sum(Xs, 1);
+    }
+    __syncwarp();
+  }
+
+  // States from x0 under the inputs Us into Xs, stage after stage on
+  // thread 0 (the ST model: its step couples every state it moves).
+  __device__ void rollout_chain(const float* Us, float* Xs) const {
+    if (t == 0) {
+      float x[N], xn[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) x[i] = *cst(D::C_X0 + i);
+      for (int k = 0; k < H; ++k) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) Xs[k * N + i] = x[i];
+        Mdl::step(a, x, Us + k * NU, xn);
+#pragma unroll
+        for (int i = 0; i < N; ++i) x[i] = xn[i];
+      }
+#pragma unroll
+      for (int i = 0; i < N; ++i) Xs[H * N + i] = x[i];
     }
     __syncwarp();
   }
@@ -622,18 +689,19 @@ struct IpLane {
       const int k = stage(j);
       if (k < 0) continue;
       const bool is_term = k == H;
-      const float* x = Xs + k * NX;
+      const float* x = Xs + k * N;
       const float* u = Us + k * NU;
       RowsT r;
       fresh_rows(k, x, u, r);
       if (write) rows(k) = r;
       if (merit) {
         if (!is_term) {
-          acc = acc + (stage_cost(x, u, xref(k), cst(C_WQ), cst(C_WR)) +
-                       a.rho * penalty_viol(r, false));
+          acc = acc +
+                (stage_cost<N>(x, u, xref(k), cst(D::C_WQ), cst(D::C_WR)) +
+                 a.rho * penalty_viol(r, false));
         } else {
           const float tc =
-              a.use_term ? term_cost(x, xref(k), cst(C_WQN)) : 0.f;
+              a.use_term ? term_cost<N>(x, xref(k), cst(D::C_WQN)) : 0.f;
           acc = acc + (tc + a.rho * penalty_viol(r, true));
         }
       }
@@ -696,7 +764,7 @@ struct IpLane {
         st[j].zh[i] = zh;
       }
 #pragma unroll
-      for (int i = 0; i < NX; ++i) st[j].dx[i] = 0.f;
+      for (int i = 0; i < N; ++i) st[j].dx[i] = 0.f;
 #pragma unroll
       for (int i = 0; i < NU; ++i) st[j].du[i] = 0.f;
     }
@@ -713,7 +781,7 @@ struct IpLane {
       const int k = stage(j);
       if (k < 0) continue;
       const bool is_term = k == H;
-      const StageState<NRB>& s = st[j];
+      const StageState<NRB, N>& s = st[j];
       const RowsT& r = rows(k);
       float gh[NRB], gn[NRB];
       {
@@ -740,40 +808,40 @@ struct IpLane {
           gn[i] = sig;
         }
       }
-      const float* xk = sm + L.X + k * NX;
+      const float* xk = sm + L.X + k * N;
       const float* uk = sm + L.U + k * NU;
-      float xc[NX], uc[NU];
+      float xc[N], uc[NU];
 #pragma unroll
-      for (int i = 0; i < NX; ++i) xc[i] = xk[i] + s.dx[i];
+      for (int i = 0; i < N; ++i) xc[i] = xk[i] + s.dx[i];
 #pragma unroll
       for (int i = 0; i < NU; ++i) uc[i] = is_term ? 0.f : uk[i] + s.du[i];
-      float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU];
+      float Q[N][N], R[NU][NU], M[N][NU], qx[N], qu[NU];
       assemble_quad(r, gh, gn, xc, uc, xref(k),
-                    is_term ? cst(C_WQN) : cst(C_WQ), cst(C_WR), is_term,
-                    is_term ? a.use_term != 0 : true, Q, R, M, qx, qu);
+                    is_term ? cst(D::C_WQN) : cst(D::C_WQ), cst(D::C_WR),
+                    is_term, is_term ? a.use_term != 0 : true, Q, R, M, qx, qu);
       if (is_term) {
 #pragma unroll
-        for (int i = 0; i < NX; ++i) {
+        for (int i = 0; i < N; ++i) {
 #pragma unroll
-          for (int c = 0; c < NX; ++c) sm[L.P + i * NX + c] = Q[i][c];
+          for (int c = 0; c < N; ++c) sm[L.P + i * N + c] = Q[i][c];
           sm[L.p + i] = qx[i];
         }
         continue;
       }
       float* q = quad(k);
 #pragma unroll
-      for (int i = 0; i < NX; ++i) {
+      for (int i = 0; i < N; ++i) {
 #pragma unroll
-        for (int c = i; c < NX; ++c) q[ut(i, c)] = Q[i][c];
+        for (int c = i; c < N; ++c) q[ut<N>(i, c)] = Q[i][c];
 #pragma unroll
-        for (int c = 0; c < NU; ++c) q[QO_M + i * NU + c] = M[i][c];
-        q[QO_QX + i] = qx[i];
+        for (int c = 0; c < NU; ++c) q[D::QO_M + i * NU + c] = M[i][c];
+        q[D::QO_QX + i] = qx[i];
       }
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
 #pragma unroll
-        for (int c = 0; c < NU; ++c) q[QO_R + i * NU + c] = R[i][c];
-        q[QO_QU + i] = qu[i];
+        for (int c = 0; c < NU; ++c) q[D::QO_R + i * NU + c] = R[i][c];
+        q[D::QO_QU + i] = qu[i];
       }
       if (fill_ab) store_ab(k, xk, uk);
     }
@@ -781,22 +849,28 @@ struct IpLane {
   }
 
   __device__ void store_ab(int k, const float* xk, const float* uk) const {
-    float A[NX][NX], Bm[NX][NU];
-    lin_step(a, xk, uk, A, Bm);
     float* o = ab(k);
+    if constexpr (Mdl::ST) {
+      Mdl::lin(a, xk, uk, [&](int i, int j, float v) {
+        o[j < N ? i * N + j : N * N + i * NU + j - N] = v;
+      });
+    } else {
+      float A[N][N], Bm[N][NU];
+      lin_step(a, xk, uk, A, Bm);
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
+      for (int i = 0; i < N; ++i) {
 #pragma unroll
-      for (int c = 0; c < NX; ++c) o[i * NX + c] = A[i][c];
+        for (int c = 0; c < N; ++c) o[i * N + c] = A[i][c];
 #pragma unroll
-      for (int c = 0; c < NU; ++c) o[NX * NX + i * NU + c] = Bm[i][c];
+        for (int c = 0; c < NU; ++c) o[N * N + i * NU + c] = Bm[i][c];
+      }
     }
   }
 
   // Slack and dual steps of row i from the current (dX, dU) and the
   // Newton direction; a missing side steps by 0.
-  __device__ __forceinline__ void side_steps(const StageState<NRB>& s, int i,
-                                             bool has_lo, float lo,
+  __device__ __forceinline__ void side_steps(const StageState<NRB, N>& s,
+                                             int i, bool has_lo, float lo,
                                              bool has_hi, float hi, float c,
                                              float jd, float mu_b, float& dsl,
                                              float& dzl, float& dsh,
@@ -828,9 +902,9 @@ struct IpLane {
       const int k = stage(j);
       if (k < 0) continue;
       const bool is_term = k == H;
-      StageState<NRB>& s = st[j];
+      StageState<NRB, N>& s = st[j];
       const RowsT& r = rows(k);
-      const float* ddx = sm + L.ddX + k * NX;
+      const float* ddx = sm + L.ddX + k * N;
       const float* ddu = sm + L.ddU + k * NU;
 #pragma unroll
       for (int i = 0; i < NRB; ++i) {
@@ -871,7 +945,7 @@ struct IpLane {
       }
       if (!apply) continue;
 #pragma unroll
-      for (int i = 0; i < NX; ++i) s.dx[i] = s.dx[i] + alpha * ddx[i];
+      for (int i = 0; i < N; ++i) s.dx[i] = s.dx[i] + alpha * ddx[i];
       if (!is_term) {
 #pragma unroll
         for (int i = 0; i < NU; ++i) s.du[i] = s.du[i] + alpha * ddu[i];
@@ -884,7 +958,7 @@ struct IpLane {
   __device__ float newton(float mu_b, bool fill_ab) {
     stage_quads(mu_b, fill_ab);
     __syncthreads();
-    if (w == 0 && t < lpb) sweep_lane(a, block_sm + t * L.total, L);
+    if (w == 0 && t < lpb) sweep_lane<Mdl>(a, block_sm + t * L.total, L);
     __syncthreads();
     const float amin = warp_min(dual_pass<false>(mu_b, 0.f));
     const float alpha = nmin(1.f, TAU * amin);
@@ -935,17 +1009,17 @@ struct IpLane {
       float lr[NRB];
 #pragma unroll
       for (int i = 0; i < NRB; ++i) lr[i] = st[j].zh[i] - st[j].zl[i];
-      const float* x = sm + L.X + k * NX;
+      const float* x = sm + L.X + k * N;
       const float* u = sm + L.U + k * NU;
-      float Q[NX][NX], R[NU][NU], M[NX][NU], qx[NX], qu[NU];
+      float Q[N][N], R[NU][NU], M[N][NU], qx[N], qu[NU];
       assemble_quad(r, lr, zero, x, u, xref(k),
-                    is_term ? cst(C_WQN) : cst(C_WQ), cst(C_WR), is_term,
-                    is_term ? a.use_term != 0 : true, Q, R, M, qx, qu);
+                    is_term ? cst(D::C_WQN) : cst(D::C_WQ), cst(D::C_WR),
+                    is_term, is_term ? a.use_term != 0 : true, Q, R, M, qx, qu);
       float* q = quad(k);
 #pragma unroll
-      for (int i = 0; i < NX; ++i) q[QO_QX + i] = qx[i];
+      for (int i = 0; i < N; ++i) q[D::QO_QX + i] = qx[i];
 #pragma unroll
-      for (int i = 0; i < NU; ++i) q[QO_QU + i] = qu[i];
+      for (int i = 0; i < NU; ++i) q[D::QO_QU + i] = qu[i];
       if (!is_term) store_ab(k, x, u);
       float* pv = b.pviol + (l * S + k) * NRB;
 #pragma unroll
@@ -955,16 +1029,16 @@ struct IpLane {
         viol = nmax(viol, scaled(i, vi));
       }
       if (!is_term) {
-        cost = cost + stage_cost(x, u, xref(k), cst(C_WQ), cst(C_WR));
+        cost = cost + stage_cost<N>(x, u, xref(k), cst(D::C_WQ), cst(D::C_WR));
       } else if (a.use_term) {
-        cost = cost + term_cost(x, xref(k), cst(C_WQN));
+        cost = cost + term_cost<N>(x, xref(k), cst(D::C_WQN));
       }
     }
     __syncwarp();
     viol = warp_max(viol);
     cost = warp_sum(cost);
     __syncthreads();
-    if (w == 0 && t < lpb) adjoint_lane(a, block_sm + t * L.total, L);
+    if (w == 0 && t < lpb) adjoint_lane<Mdl>(a, block_sm + t * L.total, L);
     __syncthreads();
     const float stat = sm[L.stat];
     if (t == 0 && live) {
@@ -979,7 +1053,7 @@ struct IpLane {
 // One warp a lane, lanes_per_block warps a block.  __grid_constant__: the
 // IpLane object keeps references to the parameters, which then stay in the
 // constant bank instead of a local copy.
-template <int SPT, bool BND>
+template <int SPT, bool BND, class Mdl>
 __global__ void __launch_bounds__(TPL * MAX_LPB)
 fused_ip_kernel(const __grid_constant__ IpArgs a,
                                 const __grid_constant__ IpBufs b) {
@@ -988,8 +1062,8 @@ fused_ip_kernel(const __grid_constant__ IpArgs a,
   const int lane = blockIdx.x * lpb + w;
   // a warp past the last lane solves a copy of it and stores nothing, so
   // that every warp of the block meets the same __syncthreads
-  const Layout L(a.H, BND);
-  IpLane<SPT, BND> s(a, b, lane < a.B ? lane : a.B - 1, lane < a.B,
+  const Layout<Mdl> L(a.H, BND);
+  IpLane<SPT, BND, Mdl> s(a, b, lane < a.B ? lane : a.B - 1, lane < a.B,
                 threadIdx.x % TPL, w, lpb, smem_dyn, L);
   s.load();
   s.rollout(s.sm + L.U, s.sm + L.X);
@@ -1012,7 +1086,7 @@ fused_ip_kernel(const __grid_constant__ IpArgs a,
 // most lanes a block is the most whose block fits an SM at all.
 template <int SPT, bool BND>
 static int geometry(const IpArgs* args, int32_t out[6]) {
-  auto kernel = fused_ip_kernel<SPT, BND>;
+  auto kernel = fused_ip_kernel<SPT, BND, Model>;
   int dev = 0, optin = 0, err;
   if ((err = cudaGetDevice(&dev))) return err;
   if ((err = cudaDeviceGetAttribute(
@@ -1021,7 +1095,8 @@ static int geometry(const IpArgs* args, int32_t out[6]) {
   if ((err = cudaFuncSetAttribute(
            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)))
     return err;
-  const int lane_bytes = Layout(args->H, BND).total * (int)sizeof(float);
+  const int lane_bytes =
+      Layout<Model>(args->H, BND).total * (int)sizeof(float);
   int smem_lpb = optin / lane_bytes;
   if (smem_lpb > MAX_LPB) smem_lpb = MAX_LPB;
   int best = 0, best_per_sm = 0, max_lpb = 0, given_per_sm = 0;
@@ -1065,7 +1140,7 @@ static int launch(const IpArgs* args, const IpBufs& b, void* stream) {
   const long need = (long)g[3] * (g[2] + 1024);
   int pct = (int)((100 * need + sm_bytes - 1) / sm_bytes);
   if (pct > 100) pct = 100;
-  auto kernel = fused_ip_kernel<SPT, BND>;
+  auto kernel = fused_ip_kernel<SPT, BND, Model>;
   if ((err = cudaFuncSetAttribute(
            kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct)))
     return err;
@@ -1077,9 +1152,10 @@ static int launch(const IpArgs* args, const IpBufs& b, void* stream) {
 }
 
 // Floats of one lane's shared memory at horizon H, with (boundary != 0) or
-// without the boundary rows (the Python side's eligibility mirrors it).
+// without the boundary rows, for this source's model (the Python side's
+// eligibility mirrors it).
 extern "C" int fused_ip_lane_floats(int H, int boundary) {
-  return Layout(H, boundary != 0).total;
+  return Layout<Model>(H, boundary != 0).total;
 }
 
 // The template instance of args: 2 (SPT - 1) + BND, for SPT =

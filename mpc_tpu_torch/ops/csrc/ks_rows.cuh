@@ -9,6 +9,12 @@
 // that reads per-config constants is a template over the kernel's argument
 // block, which names them the same in both kernels.
 //
+// The helpers that do not depend on the model (the rows, which read the
+// first five states only, the stage costs, the quadratic, the Riccati
+// step) are templates over the state count N, so that the ST model's
+// instances (st_model.cuh, N = 7) share them; KsModel is the KS model's
+// policy type, which the kernels take as a template parameter.
+//
 // Road-boundary rows: a stage of a kernel's boundary instance has 6 more
 // rows (NR + NB_ROWS), each the model nx cx + ny cy + c0 of a signed
 // distance on an ego circle centre, from the stage's 18 floats of
@@ -27,7 +33,7 @@
 
 #include <type_traits>
 
-#define NX 5
+#define NX 5  // the KS model's states
 #define NU 2
 #define NR 14
 #define MAX_ALPHAS 16
@@ -231,13 +237,14 @@ __device__ void lin_step(const Args& a, const float x[NX], const float u[NU],
 // --------------------------------------------------------------------------
 
 // friction h_f, gf = (g_delta, g_v, g_a); 9 circles (d, ux, uy, g_psi);
-// boxes (u0, u1, delta, v).
+// boxes (u0, u1, delta, v).  The rows read the first five states of x
+// (px, py, delta, v, psi), the same in both models.
 struct Rows {
   float hf, gf[3], circ[9][4], box[4];
 };
 
 template <class Args>
-__device__ void compute_rows(const Args& a, const float x[NX],
+__device__ void compute_rows(const Args& a, const float* x,
                              const float ue[NU], const float obs[6],
                              bool is_term, bool k_is0, Rows& r) {
   const float px = x[0], py = x[1], delta = x[2], v = x[3], psi = x[4];
@@ -307,7 +314,7 @@ __host__ __device__ constexpr int nrows() {
 // The boundary rows at x from the stage's models m[18] ([nx, ny, c0] a row),
 // with the circle rows' (px, py, psi) gradient.
 template <class Args>
-__device__ void boundary_rows(const Args& a, const float x[NX],
+__device__ void boundary_rows(const Args& a, const float* x,
                               const float m[NBND], BndRows& r) {
   const float px = x[0], py = x[1], psi = x[4];
   const float cp = cosf(psi), sp = sinf(psi);
@@ -377,25 +384,28 @@ __device__ __forceinline__ void row_bounds_of(const Args& a, int i,
   row_bounds(a, i, is_term, mind, has_lo, lo, has_hi, hi);
 }
 
-__device__ __forceinline__ float stage_cost(const float x[NX],
+template <int N>
+__device__ __forceinline__ float stage_cost(const float x[N],
                                             const float u[NU],
-                                            const float xref[NX],
-                                            const float wq[NX],
+                                            const float xref[N],
+                                            const float wq[N],
                                             const float wr[NU]) {
   float c = wq[0] * (x[0] - xref[0]) * (x[0] - xref[0]);
 #pragma unroll
-  for (int i = 1; i < NX; ++i) c = c + wq[i] * (x[i] - xref[i]) * (x[i] - xref[i]);
+  for (int i = 1; i < N; ++i)
+    c = c + wq[i] * (x[i] - xref[i]) * (x[i] - xref[i]);
 #pragma unroll
   for (int i = 0; i < NU; ++i) c = c + wr[i] * u[i] * u[i];
   return c;
 }
 
-__device__ __forceinline__ float term_cost(const float x[NX],
-                                           const float xref[NX],
-                                           const float wqN[NX]) {
+template <int N>
+__device__ __forceinline__ float term_cost(const float x[N],
+                                           const float xref[N],
+                                           const float wqN[N]) {
   float c = wqN[0] * (x[0] - xref[0]) * (x[0] - xref[0]);
 #pragma unroll
-  for (int i = 1; i < NX; ++i)
+  for (int i = 1; i < N; ++i)
     c = c + wqN[i] * (x[i] - xref[i]) * (x[i] - xref[i]);
   return c;
 }
@@ -405,20 +415,20 @@ __device__ __forceinline__ float term_cost(const float x[NX],
 // and GN diagonal, or the IP's barrier weight and z / s).  Non-terminal: Q,
 // R, M, qx, qu with the stage weights; terminal: Q, qx only, with wqN when
 // use_cost.  RowsT: Rows, or BndRows, whose boundary rows enter after the
-// box rows.
-template <class RowsT>
+// box rows.  N states: the rows touch the first five, the weights all.
+template <class RowsT, int N>
 __device__ void assemble_quad(const RowsT& r, const float* gh,
-                              const float* gn, const float x[NX],
-                              const float ue[NU], const float xref[NX],
-                              const float w[NX], const float wr[NU],
-                              bool is_term, bool use_cost, float Q[NX][NX],
-                              float R[NU][NU], float M[NX][NU], float qx[NX],
+                              const float* gn, const float x[N],
+                              const float ue[NU], const float xref[N],
+                              const float w[N], const float wr[NU],
+                              bool is_term, bool use_cost, float Q[N][N],
+                              float R[NU][NU], float M[N][NU], float qx[N],
                               float qu[NU]) {
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
+  for (int i = 0; i < N; ++i) {
     qx[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NX; ++j) Q[i][j] = 0.f;
+    for (int j = 0; j < N; ++j) Q[i][j] = 0.f;
 #pragma unroll
     for (int j = 0; j < NU; ++j) M[i][j] = 0.f;
   }
@@ -482,7 +492,7 @@ __device__ void assemble_quad(const RowsT& r, const float* gh,
 
   if (!is_term || use_cost) {  // quadratic cost: exact Hessian
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
+    for (int i = 0; i < N; ++i) {
       Q[i][i] = Q[i][i] + 2.f * w[i];
       qx[i] = qx[i] + 2.f * w[i] * (x[i] - xref[i]);
     }
@@ -507,49 +517,50 @@ __device__ void assemble_quad(const RowsT& r, const float* gh,
 // Given the cost-to-go (P, p) of stage k+1, the stage quadratic (Q, R, M,
 // qx, qu) and the dynamics (A, Bm) of stage k: the gains Kk, dk (closed-form
 // 2x2 Quu inverse) and, in place, P <- sym(Qxx + Qux' K), p <- gx + Qux' d.
+template <int N>
 __device__ __forceinline__ void riccati_step(
-    float reg, float P[NX][NX], float p[NX], const float Q[NX][NX],
-    const float R[NU][NU], const float M[NX][NU], const float qx[NX],
-    const float qu[NU], const float A[NX][NX], const float Bm[NX][NU],
-    float Kk[NU][NX], float dk[NU]) {
-  float PA[NX][NX], PB[NX][NU];
+    float reg, float P[N][N], float p[N], const float Q[N][N],
+    const float R[NU][NU], const float M[N][NU], const float qx[N],
+    const float qu[NU], const float A[N][N], const float Bm[N][NU],
+    float Kk[NU][N], float dk[NU]) {
+  float PA[N][N], PB[N][NU];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
+  for (int i = 0; i < N; ++i) {
 #pragma unroll
-    for (int j = 0; j < NX; ++j) {
+    for (int j = 0; j < N; ++j) {
       float s = 0.f;
 #pragma unroll
-      for (int t = 0; t < NX; ++t) s += P[i][t] * A[t][j];
+      for (int t = 0; t < N; ++t) s += P[i][t] * A[t][j];
       PA[i][j] = s;
     }
 #pragma unroll
     for (int j = 0; j < NU; ++j) {
       float s = 0.f;
 #pragma unroll
-      for (int t = 0; t < NX; ++t) s += P[i][t] * Bm[t][j];
+      for (int t = 0; t < N; ++t) s += P[i][t] * Bm[t][j];
       PB[i][j] = s;
     }
   }
-  float Quu[NU][NU], Qux[NU][NX], gu[NU];
+  float Quu[NU][NU], Qux[NU][N], gu[NU];
 #pragma unroll
   for (int i = 0; i < NU; ++i) {
 #pragma unroll
     for (int j = 0; j < NU; ++j) {
       float s = 0.f;
 #pragma unroll
-      for (int t = 0; t < NX; ++t) s += Bm[t][i] * PB[t][j];
+      for (int t = 0; t < N; ++t) s += Bm[t][i] * PB[t][j];
       Quu[i][j] = R[i][j] + s;
     }
 #pragma unroll
-    for (int j = 0; j < NX; ++j) {
+    for (int j = 0; j < N; ++j) {
       float s = 0.f;
 #pragma unroll
-      for (int t = 0; t < NX; ++t) s += Bm[t][i] * PA[t][j];
+      for (int t = 0; t < N; ++t) s += Bm[t][i] * PA[t][j];
       Qux[i][j] = M[j][i] + s;
     }
     float s = 0.f;
 #pragma unroll
-    for (int t = 0; t < NX; ++t) s += Bm[t][i] * p[t];
+    for (int t = 0; t < N; ++t) s += Bm[t][i] * p[t];
     gu[i] = qu[i] + s;
   }
   const float aa = Quu[0][0] + reg, bb = Quu[0][1], cc = Quu[1][0],
@@ -560,29 +571,47 @@ __device__ __forceinline__ void riccati_step(
 #pragma unroll
   for (int i = 0; i < NU; ++i) {
 #pragma unroll
-    for (int j = 0; j < NX; ++j)
+    for (int j = 0; j < N; ++j)
       Kk[i][j] = -(Qi[i][0] * Qux[0][j] + Qi[i][1] * Qux[1][j]);
     dk[i] = -(Qi[i][0] * gu[0] + Qi[i][1] * gu[1]);
   }
-  float Pn[NX][NX], pn[NX];
+  float Pn[N][N], pn[N];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
+  for (int i = 0; i < N; ++i) {
 #pragma unroll
-    for (int j = 0; j < NX; ++j) {
+    for (int j = 0; j < N; ++j) {
       float s = 0.f;
 #pragma unroll
-      for (int t = 0; t < NX; ++t) s += A[t][i] * PA[t][j];
+      for (int t = 0; t < N; ++t) s += A[t][i] * PA[t][j];
       Pn[i][j] = Q[i][j] + s + Qux[0][i] * Kk[0][j] + Qux[1][i] * Kk[1][j];
     }
     float s = 0.f;
 #pragma unroll
-    for (int t = 0; t < NX; ++t) s += A[t][i] * p[t];
+    for (int t = 0; t < N; ++t) s += A[t][i] * p[t];
     pn[i] = qx[i] + s + Qux[0][i] * dk[0] + Qux[1][i] * dk[1];
   }
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
+  for (int i = 0; i < N; ++i) {
     p[i] = pn[i];
 #pragma unroll
-    for (int j = 0; j < NX; ++j) P[i][j] = 0.5f * (Pn[i][j] + Pn[j][i]);
+    for (int j = 0; j < N; ++j) P[i][j] = 0.5f * (Pn[i][j] + Pn[j][i]);
   }
 }
+
+// --------------------------------------------------------------------------
+// the KS model's policy type
+// --------------------------------------------------------------------------
+
+// What a kernel asks of its model: the state count N and the discrete step;
+// the KS kernels build (A, B) with lin_step's analytic chain rule, the ST
+// ones with StModel::lin (st_model.cuh).
+struct KsModel {
+  static constexpr int N = NX;
+  static constexpr bool ST = false;
+  template <class Args>
+  static __device__ __forceinline__ void step(const Args& a, const float x[N],
+                                              const float u[NU],
+                                              float out[N]) {
+    step_fn(a, x, u, out);
+  }
+};

@@ -14,18 +14,24 @@
 // dV2 = sum_k d'(Quu + reg I) d.  The plain PyTorch version of the same
 // function is riccati_vec.py::backward_pass_vec_plain.
 //
+// The state dimension RX is a template parameter: 5 for the KS model, 7
+// for the ST model (args.nx picks the instance).
+//
 // What bounds it on an H100.  Per lane and stage it reads Q, R, M, qx, qu,
-// A, B, r (86 floats) and writes K, d (12); per lane it reads QH, qH (30)
-// and writes dV1, dV2.  That is ~0.2 GB at the bench point (B=16384, H=30)
-// for ~1,000 fp32 operations a lane and stage, so by the roofline it is
+// A, B, r (86 floats at RX = 5, 150 at RX = 7) and writes K, d (12 or 16);
+// per lane it reads QH, qH (30 or 56) and writes dV1, dV2.  That is ~0.2
+// GB at the bench point (B=16384, H=30, RX = 5) for ~1,000 fp32
+// operations a lane and stage, so by the roofline it is
 // bound by bytes (~0.06 ms).  In practice it is bound by latency: the
 // stages are a sequential chain within a lane, and at 16384 lanes one
 // thread per lane gives 512 warps, about one per scheduler on 132 SMs, so
 // each stage's loads and its dependent 5x5 products are exposed.
 //
 // What the design does about it.  One thread per lane and a loop over the
-// stages in reverse: no synchronisation, P (25 floats) and p (5) stay in
-// registers for the whole sweep, and every stage's operands are read once
+// stages in reverse: no synchronisation, P (25 floats, 49 at RX = 7) and p
+// stay in registers for the whole sweep (the nx=7 instance takes 255
+// registers and spills nothing, PERF.md), and every stage's operands are
+// read once
 // from a structure-of-arrays layout, (stage, field, lane) with the lane
 // fastest, so the 32 threads of a warp load neighbouring addresses.  All
 // of a stage's loads are independent of its arithmetic, so the compiler can
@@ -38,12 +44,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define RX 5  // state dimension (KS)
 #define RU 2  // input dimension
 
 struct RicArgs {
   int32_t B, H, threads;
   float reg;
+  int32_t nx;  // state dimension: 5 (KS) or 7 (ST)
 };
 
 struct RicBufs {
@@ -51,6 +57,7 @@ struct RicBufs {
   float *K, *d, *dV;
 };
 
+template <int RX>
 __global__ void riccati_kernel(const __grid_constant__ RicArgs a,
                                const __grid_constant__ RicBufs b) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -186,8 +193,8 @@ __global__ void riccati_kernel(const __grid_constant__ RicArgs a,
 #undef AT
 }
 
-// C entry point: one launch on `stream`; returns the CUDA error of the
-// launch (0 when it was accepted).  Arrays are (stage, field, lane) and
+// C entry point: one launch on `stream` of the instance of args->nx;
+// returns the CUDA error of the launch (0 when it was accepted).  Arrays are (stage, field, lane) and
 // (field, lane), float32, lanes fastest.
 extern "C" int riccati_sweep(const RicArgs* args, const float* Q,
                              const float* R, const float* M, const float* qx,
@@ -195,8 +202,10 @@ extern "C" int riccati_sweep(const RicArgs* args, const float* Q,
                              const float* r, const float* QH, const float* qH,
                              float* K, float* d, float* dV, void* stream) {
   RicBufs b{Q, R, M, qx, qu, A, Bm, r, QH, qH, K, d, dV};
+  if (args->nx != 5 && args->nx != 7) return (int)cudaErrorInvalidValue;
   const int threads = args->threads > 0 ? args->threads : 64;
   const int blocks = (args->B + threads - 1) / threads;
-  riccati_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, b);
+  auto kernel = args->nx == 7 ? riccati_kernel<7> : riccati_kernel<5>;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, b);
   return (int)cudaGetLastError();
 }

@@ -30,13 +30,18 @@ Two implementations of the same function:
 :func:`solve_batch_fused` takes a CPU tensor to the plain version and a CUDA
 tensor to the kernel; nothing falls back from one to the other.
 
-Envelope (:func:`eligible`): KS model, method 'al', forcespro or casadi
-rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1, 3, 2) obstacles,
-with or without the 6 road-boundary rows (given the boundaries), any
-iteration budget, ``alphas=()`` or a ladder of at most ``MAX_ALPHAS`` rungs,
-a horizon whose block of 32 lanes fits a block's shared memory
-(``MAX_HORIZON``).  Other KS AL problems go to ``sqp_vec.solve_batch_vec``,
-as in the JAX package.
+Envelope (:func:`eligible`): the KS or the ST model, method 'al',
+forcespro or casadi rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1,
+3, 2) obstacles, with or without the 6 road-boundary rows (given the
+boundaries), any iteration budget, ``alphas=()`` or a ladder of at most
+``MAX_ALPHAS`` rungs, a horizon whose block of 32 lanes fits a block's
+shared memory (``MAX_HORIZON``, ``MAX_HORIZON_ST``).  Other AL problems go
+to ``sqp_vec.solve_batch_vec``, as in the JAX package.
+
+The ST model (7 states, tire dynamics) has a library of its own,
+``csrc/fused_gn_st.cu``: the same source with the model's policy type, whose
+(A, B) come from forward-mode dual numbers through the RK4 / Euler step
+(``csrc/st_model.cuh``; here :class:`_Dual`, :func:`_st_lin_step`).
 
 Road-boundary rows: as in the JAX package, each signed-distance row of an
 ego circle to a boundary polyline is replaced by its first-order model at
@@ -55,22 +60,43 @@ import torch
 
 from mpc_tpu_torch.device import resolve_device
 from mpc_tpu_torch.models import constraints as C
+from mpc_tpu_torch.models import dynamics
 from mpc_tpu_torch.ops import sqp as S
 
-NX = 5
+NX = 5             # KS state count
+NX_ST = 7          # ST state count (adds psiDot, beta)
 NU = 2
 NR = 14            # 1 friction + 9 circles + 4 box rows
 NB_ROWS = 6        # road-boundary rows: 3 ego circles x 2 boundaries
 NBND = 18          # floats of their linear models a stage: [nx, ny, c0] x 6
 MAX_ALPHAS = 16    # ladder rungs the kernel's argument block holds
-NOP = 43           # floats of one stage's operands in the kernel's ring
 LANES_PER_BLOCK = 32          # csrc/fused_gn.cu LPB: a warp's width
 THREADS_PER_LANE = (2, 4, 8)  # the kernel's instances (0: it chooses)
+THREADS_PER_LANE_ST = (4, 8)  # the ST library's instances
 SMEM_PER_BLOCK = 232448       # bytes of shared memory an H100 block may use
 
 
-NSTG, NROLL = 3, 19           # a rollout's staging ring: stages, floats
-PSTR = 31                     # the sweep's P and p a lane, padded odd
+NSTG = 3                      # a rollout's staging ring: stages
+
+
+def ring_operand_floats(nx: int = NX) -> int:
+    """Floats of one stage's operands in the kernel's ring (``NOP`` of the
+    model's policy in csrc): Q's entries off the structural zeros (9 of
+    the rows and weights, and Q55, Q66 of the ST weights), R00, R11, M21,
+    M31, qx, qu, the rows of A and B other than those of delta and v (3 for
+    KS, 5 for ST), and B20, B31: 43 for KS, 71 for ST."""
+    dense = nx - 2                 # rows of A and B off the integrators
+    return (nx + 4) + 2 + 2 + nx + NU + dense * nx + dense * NU + 2
+
+
+def roll_floats(nx: int = NX) -> int:
+    """Floats a stage of a rollout's staging ring: X, U, K, d."""
+    return nx + NU + NU * nx + NU
+
+
+def sweep_floats(nx: int = NX) -> int:
+    """The sweep's P and p a lane, padded odd (``PSTR``): 31 or 57."""
+    return (nx * nx + nx) | 1
 
 
 def ring_slots(threads_per_lane: int) -> int:
@@ -79,33 +105,64 @@ def ring_slots(threads_per_lane: int) -> int:
     return producers * ((6 + producers - 1) // producers)
 
 
-def lane_smem_bytes(H: int, threads_per_lane: int) -> int:
-    """Shared memory of one lane at horizon H: ``lane_floats`` in
-    csrc/fused_gn.cu (the owners' violation partials, the ladder's slot,
-    a merit and an AL term a stage, a rollout's staging ring, the ring of
-    stage operands, the sweep's P and p)."""
-    return 4 * (threads_per_lane + 1 + 2 * (H + 1) + NSTG * NROLL
-                + ring_slots(threads_per_lane) * NOP + PSTR)
+def lane_smem_bytes(H: int, threads_per_lane: int, nx: int = NX) -> int:
+    """Shared memory of one lane at horizon H for the model of state count
+    nx: ``lane_floats`` in csrc/fused_gn.cu (the owners' violation
+    partials, the ladder's slot, a merit and an AL term a stage, a
+    rollout's staging ring, the ring of stage operands, the sweep's P and
+    p)."""
+    return 4 * (threads_per_lane + 1 + 2 * (H + 1) + NSTG * roll_floats(nx)
+                + ring_slots(threads_per_lane) * ring_operand_floats(nx)
+                + sweep_floats(nx))
 
 
-def _max_horizon() -> int:
+def threads_per_lane_of(nx: int = NX) -> tuple:
+    """The threads a lane of the model's instances (by its state count)."""
+    return THREADS_PER_LANE_ST if nx == NX_ST else THREADS_PER_LANE
+
+
+def _max_horizon(nx: int = NX) -> int:
     """The longest horizon whose block (32 lanes, at any threads a lane)
     fits a block's shared memory; a thread loops over its stages, so the
     stages a thread are no bound of their own."""
     H = 0
-    while all(LANES_PER_BLOCK * lane_smem_bytes(H + 1, t) <= SMEM_PER_BLOCK
-              for t in THREADS_PER_LANE):
+    while all(LANES_PER_BLOCK * lane_smem_bytes(H + 1, t, nx)
+              <= SMEM_PER_BLOCK for t in threads_per_lane_of(nx)):
         H += 1
     return H
 
 
-MAX_HORIZON = _max_horizon()
+MAX_HORIZON = _max_horizon(NX)
+MAX_HORIZON_ST = _max_horizon(NX_ST)
+
+# the ST model's constants (struct StConsts of csrc/st_model.cuh)
+ST_CONSTS = ("lr_l", "inv_l", "lr", "l", "h", "g_lr", "g_lf", "c5_lf",
+             "c5_lr", "c5_r", "c5_f", "mu_l", "sr_lr", "sf_lf", "c_sr", "c_sf")
+
+
+def st_consts(veh) -> dict:
+    """The ST model's constants, in the order of ``struct StConsts`` of
+    csrc/st_model.cuh: each product of vehicle parameters that
+    ``_st_ode_d`` forms in double precision before it meets a tensor."""
+    g, mu, C_Sf, C_Sr, lf, lr, l, h, m, I = dynamics.st_params(veh)
+    return {
+        "lr_l": lr / l, "inv_l": 1.0 / l, "lr": lr, "l": l, "h": h,
+        "g_lr": g * lr, "g_lf": g * lf,
+        "c5_lf": (-(mu * m) / (I * l)) * (lf * lf * C_Sf),
+        "c5_lr": (-(mu * m) / (I * l)) * (lr * lr * C_Sr),
+        "c5_r": ((mu * m) / (I * l)) * (lr * C_Sr),
+        "c5_f": ((mu * m) / (I * l)) * (lf * C_Sf),
+        "mu_l": mu / l, "sr_lr": C_Sr * lr, "sf_lf": C_Sf * lf,
+        "c_sr": C_Sr, "c_sf": C_Sf}
 
 
 def make_consts(cfg: S.SolverConfig) -> dict:
     """Static per-config scalars of the fused kernels."""
     r_ego, spacing = C.approx_circle_radius(cfg.ego_length, cfg.ego_width)
     return {
+        "model": cfg.model,
+        "nx": S.solver_nx(cfg),
+        "st": st_consts(cfg.vehicle) if cfg.model == "st" else None,
         "boundary": bool(cfg.boundary_rows),
         "r_ego": r_ego,
         "formulation": cfg.formulation,
@@ -124,9 +181,6 @@ def ineligible_reason(cfg: S.SolverConfig, params: S.OcpParams):
     if cfg.method != "al":
         return (f"method '{cfg.method}': this is the AL kernel; the IP "
                 "solve is ops.fused_ip")
-    if cfg.model != "ks":
-        return (f"model '{cfg.model}': the ST model in the AL kernel is "
-                "ROADMAP queue A, item 1 (ST)")
     if cfg.boundary_rows and (params.boundaries is None
                               or params.boundary_signs is None):
         return ("boundary_rows without boundary data (params.boundaries "
@@ -134,17 +188,21 @@ def ineligible_reason(cfg: S.SolverConfig, params: S.OcpParams):
     if params.obs_centers.dim() not in (3, 4):
         return (f"obs_centers of shape {tuple(params.obs_centers.shape)}: "
                 "want (B, 3, 2) or (B, H+1, 3, 2)")
-    if params.x_ref.shape[-1] != NX:
-        return f"x_ref has {params.x_ref.shape[-1]} state columns, want {NX}"
+    nx = S.solver_nx(cfg)
+    if params.x_ref.shape[-1] not in (NX, nx):
+        return (f"x_ref has {params.x_ref.shape[-1]} state columns, want "
+                f"{NX} or {nx}")
     if len(cfg.alphas) > MAX_ALPHAS:
         return f"{len(cfg.alphas)} ladder rungs, the kernel takes {MAX_ALPHAS}"
     H = cfg.horizon
-    T = max(THREADS_PER_LANE, key=lambda t: lane_smem_bytes(H, t))
-    if LANES_PER_BLOCK * lane_smem_bytes(H, T) > SMEM_PER_BLOCK:
-        return (f"horizon {H}: a block of {LANES_PER_BLOCK} lanes needs "
-                f"{LANES_PER_BLOCK * lane_smem_bytes(H, T)} bytes of shared "
-                f"memory ({lane_smem_bytes(H, T)} a lane at {T} threads a "
-                f"lane), a block holds {SMEM_PER_BLOCK}: H <= {MAX_HORIZON}")
+    T = max(threads_per_lane_of(nx), key=lambda t: lane_smem_bytes(H, t, nx))
+    lane = lane_smem_bytes(H, T, nx)
+    if LANES_PER_BLOCK * lane > SMEM_PER_BLOCK:
+        return (f"horizon {H}: a block of {LANES_PER_BLOCK} lanes of the "
+                f"{cfg.model.upper()} model needs {LANES_PER_BLOCK * lane} "
+                f"bytes of shared memory ({lane} a lane at {T} threads a "
+                f"lane), a block holds {SMEM_PER_BLOCK}: H <= "
+                f"{_max_horizon(nx)}")
     return None
 
 
@@ -331,6 +389,218 @@ def _lin_step(x, u, dt, inv_l, integrator):
     return A, Bm
 
 
+# ---------------------------------------------------------------------------
+# the ST model: forward-mode dual numbers (``mpc_tpu.ops.fused_gn``'s _Dual)
+# ---------------------------------------------------------------------------
+#
+# Each scalar is a value and its tangents along the nx + nu seed directions;
+# the ODE is written once, so that values alone give the rollouts and duals
+# give the exact (A, B) of the RK4 / Euler step.  The formulas, the order
+# of their operations and the constants (products of vehicle parameters
+# formed in double precision) are those of the kernels' helpers,
+# csrc/st_model.cuh.  The low-speed slip rate is that of the JAX kernels:
+# 1 + (tan(delta) lr / l)^2, where ``models.dynamics.st_ode`` has
+# 1 + (tan(delta)^2 lr / l)^2.
+
+
+class _Dual:
+    """A value (a tensor or a float) and its tangents: a tensor (..., ns)
+    of the seed directions, or None for values only.  A float operand is a
+    constant (no tangent); a quotient's value is a * (1 / b), as in the
+    kernels."""
+
+    __slots__ = ("v", "t")
+
+    def __init__(self, v, t=None):
+        self.v = v
+        self.t = t
+
+    @staticmethod
+    def _of(o):
+        return o if isinstance(o, _Dual) else _Dual(o)
+
+    @staticmethod
+    def _scaled(t, scale):
+        """Tangents scaled by a value (a tensor or a float)."""
+        return t * (scale[..., None] if torch.is_tensor(scale) else scale)
+
+    def __add__(self, o):
+        o = _Dual._of(o)
+        t = (self.t if o.t is None else o.t if self.t is None
+             else self.t + o.t)
+        return _Dual(self.v + o.v, t)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self + (-_Dual._of(o))
+
+    def __rsub__(self, o):
+        return _Dual._of(o) + (-self)
+
+    def __neg__(self):
+        return _Dual(-self.v, None if self.t is None else -self.t)
+
+    def __mul__(self, o):
+        o = _Dual._of(o)
+        if self.t is None and o.t is None:
+            t = None
+        elif o.t is None:
+            t = _Dual._scaled(self.t, o.v)
+        elif self.t is None:
+            t = _Dual._scaled(o.t, self.v)
+        else:
+            t = _Dual._scaled(self.t, o.v) + _Dual._scaled(o.t, self.v)
+        return _Dual(self.v * o.v, t)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        o = _Dual._of(o)
+        inv = 1.0 / o.v
+        q = self.v * inv
+        if self.t is None and o.t is None:
+            return _Dual(q)
+        a = self.t if self.t is not None else 0.0
+        b = _Dual._scaled(o.t, q) if o.t is not None else 0.0
+        return _Dual(q, _Dual._scaled(a - b, inv))
+
+    def __rtruediv__(self, o):
+        return _Dual._of(o) / self
+
+
+def _dchain(val, dval, x: _Dual) -> _Dual:
+    return _Dual(val, None if x.t is None else _Dual._scaled(x.t, dval))
+
+
+def _dcos(x):
+    return _dchain(torch.cos(x.v), -torch.sin(x.v), x)
+
+
+def _dsin(x):
+    return _dchain(torch.sin(x.v), torch.cos(x.v), x)
+
+
+def _dtan(x):
+    t = torch.tan(x.v)
+    return _dchain(t, 1.0 + t * t, x)
+
+
+def _dsqrt(x):
+    r = torch.sqrt(x.v)
+    return _dchain(r, 0.5 / r, x)
+
+
+def _dwhere(cond, a: _Dual, b: _Dual) -> _Dual:
+    """Value and tangents of a where ``cond``, else of b (both branches
+    are evaluated)."""
+    t = None
+    if a.t is not None or b.t is not None:
+        ta = a.t if a.t is not None else torch.zeros_like(b.t)
+        tb = b.t if b.t is not None else torch.zeros_like(a.t)
+        t = torch.where(cond[..., None], ta, tb)
+    return _Dual(torch.where(cond, a.v, b.v), t)
+
+
+def _dguard(x: _Dual, lo: float) -> _Dual:
+    """|v| floored at lo (``st_ode``'s v_safe): a value-only clamp, the
+    tangents kept."""
+    return _Dual(torch.where(torch.abs(x.v) < lo, lo, x.v), x.t)
+
+
+def _st_ode_d(x, u, c):
+    """The 7-state ST ODE on duals; x 7 duals [px, py, delta, v, psi,
+    psiDot, beta], u 2 duals, c the model's constants (:func:`st_consts`).
+    Both branches are evaluated and blended on |v| < 0.1."""
+    delta, v, psi, psi_dot, beta = x[2], x[3], x[4], x[5], x[6]
+    u0, u1 = u[0], u[1]
+
+    td = _dtan(delta)
+    # low-speed kinematic branch: beta_kin = arctan(tan(delta) lr / l) only
+    # through cos(arctan t) = 1 / sqrt(1 + t^2), sin(arctan t) = t cos
+    tb0 = td * c["lr_l"]
+    inv_hyp = 1.0 / _dsqrt(tb0 * tb0 + 1.0)
+    cbk = inv_hyp
+    sbk = tb0 * inv_hyp
+    cpsi = _dcos(psi)
+    spsi = _dsin(psi)
+    f0_lo = v * (cbk * cpsi - sbk * spsi)
+    f1_lo = v * (sbk * cpsi + cbk * spsi)
+    f4_lo = v * cbk * td * c["inv_l"]
+    cd = _dcos(delta)
+    cd2 = cd * cd
+    tb = td * c["lr_l"]
+    d_beta = (u0 * c["lr"]) / ((cd2 * (1.0 + tb * tb)) * c["l"])
+    cb = _dcos(beta)
+    sb = _dsin(beta)
+    dd_psi = (u1 * cb * td - v * sb * d_beta * td
+              + v * cb * u0 / cd2) * c["inv_l"]
+
+    # high-speed tire branch
+    v_safe = _dguard(v, 1e-3)
+    f0_hi = v * _dcos(beta + psi)
+    f1_hi = v * _dsin(beta + psi)
+    glr_uh = c["g_lr"] - u1 * c["h"]
+    glf_uh = c["g_lf"] + u1 * c["h"]
+    f5_hi = (c["c5_lf"] * glr_uh / v_safe * psi_dot
+             + c["c5_lr"] * glf_uh / v_safe * psi_dot
+             + c["c5_r"] * glf_uh * beta
+             - c["c5_f"] * glr_uh * beta
+             + c["c5_f"] * glr_uh * delta)
+    f6_hi = ((c["mu_l"] * (c["sr_lr"] * glf_uh - c["sf_lf"] * glr_uh)
+              / (v_safe * v_safe) - 1.0) * psi_dot
+             - c["mu_l"] * (c["c_sr"] * glf_uh + c["c_sf"] * glr_uh)
+             / v_safe * beta
+             + c["mu_l"] * (c["c_sf"] * glr_uh) / v_safe * delta)
+
+    low = torch.abs(v.v) < 0.1
+    return [_dwhere(low, f0_lo, f0_hi), _dwhere(low, f1_lo, f1_hi), u0, u1,
+            _dwhere(low, f4_lo, psi_dot), _dwhere(low, dd_psi, f5_hi),
+            _dwhere(low, d_beta, f6_hi)]
+
+
+def _st_step_d(x, u, dt, c, integrator):
+    """The discrete ST step (RK4 / Euler) on duals."""
+    nx = len(x)
+
+    def add(a, s, k):
+        return [a[i] + s * k[i] for i in range(nx)]
+
+    k1 = _st_ode_d(x, u, c)
+    if integrator == "euler":
+        return add(x, dt, k1)
+    k2 = _st_ode_d(add(x, 0.5 * dt, k1), u, c)
+    k3 = _st_ode_d(add(x, 0.5 * dt, k2), u, c)
+    k4 = _st_ode_d(add(x, dt, k3), u, c)
+    return [x[i] + (dt / 6.0) * (k1[i] + 2.0 * k2[i] + 2.0 * k3[i] + k4[i])
+            for i in range(nx)]
+
+
+def _st_step_rows(x, u, dt, c, integrator):
+    """The discrete ST step on row-lists, values only."""
+    out = _st_step_d([_Dual(xi) for xi in x], [_Dual(ui) for ui in u], dt,
+                     c, integrator)
+    return [o.v for o in out]
+
+
+def _st_lin_step(x, u, dt, c, integrator):
+    """Exact (A, B) of the discrete ST step by the dual-number RK4 / Euler
+    (``jacfwd`` of ``models.dynamics.make_step_fn(..., 'st')`` up to the
+    slip-rate formula above); row-lists A (7x7), Bm (7x2)."""
+    nx = len(x)
+    eye = torch.eye(nx + NU, dtype=x[0].dtype, device=x[0].device)
+
+    def seeded(v, i):
+        return _Dual(v, eye[i].expand(v.shape + (nx + NU,)))
+
+    out = _st_step_d([seeded(x[i], i) for i in range(nx)],
+                     [seeded(u[i], nx + i) for i in range(NU)], dt, c,
+                     integrator)
+    A = [[out[i].t[..., j] for j in range(nx)] for i in range(nx)]
+    Bm = [[out[i].t[..., nx + j] for j in range(NU)] for i in range(nx)]
+    return A, Bm
+
+
 class _Rows:
     """Per-stage rows with their sparse gradients.
 
@@ -349,7 +619,7 @@ def _compute_rows(x, u_eff, obs, consts, is_term, k_is0, bnd=None):
     registers [nx, ny, c0] x 6 of the boundary rows' models when
     ``consts['boundary']``: the value nx cx + ny cy + c0 on the ego circle
     centre (cx, cy), with the circle rows' (px, py, psi) gradient."""
-    px, py, delta, v, psi = x
+    px, py, delta, v, psi = x[:5]
     a = u_eff[1]
     inv_l = consts["inv_l"]
     r = _Rows()
@@ -475,7 +745,7 @@ def _stage_psi(terms):
 
 def _stage_cost(x, u, xref, wq, wr):
     c = wq[0] * (x[0] - xref[0]) * (x[0] - xref[0])
-    for i in range(1, NX):
+    for i in range(1, len(x)):
         c = c + wq[i] * (x[i] - xref[i]) * (x[i] - xref[i])
     for i in range(NU):
         c = c + wr[i] * u[i] * u[i]
@@ -484,7 +754,7 @@ def _stage_cost(x, u, xref, wq, wr):
 
 def _term_cost(x, xref, wqN):
     c = wqN[0] * (x[0] - xref[0]) * (x[0] - xref[0])
-    for i in range(1, NX):
+    for i in range(1, len(x)):
         c = c + wqN[i] * (x[i] - xref[i]) * (x[i] - xref[i])
     return c
 
@@ -497,14 +767,15 @@ def _assemble_quad(r, terms, x, u_eff, xref, wq, wr, is_term, wqN=None,
     its curvature gn (the AL terms' d psi / d h and GN diagonal, or the IP's
     barrier weight and z / s; psi is not read).
 
-    Returns row-lists (Q 5x5, R 2x2, M 5x2, qx 5, qu 2), or (QH, qH) when
-    is_term.
+    Returns row-lists (Q nx x nx, R 2x2, M nx x 2, qx nx, qu 2), or (QH,
+    qH) when is_term; the rows touch the first five states only.
     """
+    nx = len(x)
     z = torch.zeros_like(x[0])
-    Q = [[z for _ in range(NX)] for _ in range(NX)]
-    qx = [z for _ in range(NX)]
+    Q = [[z for _ in range(nx)] for _ in range(nx)]
+    qx = [z for _ in range(nx)]
     R = [[z for _ in range(NU)] for _ in range(NU)]
-    M = [[z for _ in range(NU)] for _ in range(NX)]
+    M = [[z for _ in range(NU)] for _ in range(nx)]
     qu = [z for _ in range(NU)]
 
     _, gh, gn = terms[0]                       # friction -> (delta, v, a)
@@ -556,11 +827,11 @@ def _assemble_quad(r, terms, x, u_eff, xref, wq, wr, is_term, wqN=None,
 
     if is_term:
         if use_terminal:
-            for i in range(NX):
+            for i in range(nx):
                 Q[i][i] = Q[i][i] + 2.0 * wqN[i]
                 qx[i] = qx[i] + 2.0 * wqN[i] * (x[i] - xref[i])
     else:
-        for i in range(NX):
+        for i in range(nx):
             Q[i][i] = Q[i][i] + 2.0 * wq[i]
             qx[i] = qx[i] + 2.0 * wq[i] * (x[i] - xref[i])
         for i in range(NU):
@@ -613,20 +884,35 @@ def _clip(x, lo, hi):
 
 class _Problem:
     """Per-lane data of one solve as registers (lanes leading); ``bnd`` the
-    boundary rows' models (B, H+1, 18) or None."""
+    boundary rows' models (B, H+1, 18) or None; ``step`` and ``lin`` the
+    discrete step and its (A, B) on row-lists, of the KS or ST model."""
 
     def __init__(self, cfg, params, bnd=None):
         self.H = cfg.horizon
         self.consts = make_consts(cfg)
+        self.nx = nx = self.consts["nx"]
         self.nr = S.nrows(cfg)
         self.bnd = bnd
+        dt = float(cfg.dt)
+        if cfg.model == "st":
+            st = self.consts["st"]
+            self.step = lambda x, u: _st_step_rows(x, u, dt, st,
+                                                   cfg.integrator)
+            self.lin = lambda x, u: _st_lin_step(x, u, dt, st,
+                                                 cfg.integrator)
+        else:
+            inv_l = self.consts["inv_l"]
+            self.step = lambda x, u: _step_rows(x, u, dt, inv_l,
+                                                cfg.integrator)
+            self.lin = lambda x, u: _lin_step(x, u, dt, inv_l,
+                                              cfg.integrator)
         B = params.x0.shape[0]
         w = params.weights
-        self.wq = _cols(w.q.reshape(B, 1, NX), NX)       # (B, 1) registers
+        self.wq = _cols(w.q.reshape(B, 1, nx), nx)       # (B, 1) registers
         self.wr = _cols(w.r.reshape(B, 1, NU), NU)
-        self.wqN = _cols(w.qN.reshape(B, NX), NX)         # (B,) registers
+        self.wqN = _cols(w.qN.reshape(B, nx), nx)         # (B,) registers
         self.x0 = params.x0
-        self.xref = params.x_ref                          # (B, H+1, NX)
+        self.xref = params.x_ref                          # (B, H+1, nx)
         obs = params.obs_centers
         self.moving = obs.dim() == 4
         self.obs = (obs.reshape(B, self.H + 1, 6) if self.moving
@@ -650,13 +936,14 @@ class _Problem:
 
 def _stage_rows(pb, X, U):
     """Rows of stages 0..H-1, registers (B, H)."""
-    return _compute_rows(_cols(X[:, :-1], NX), _cols(U, NU), pb.obs_stages(),
+    return _compute_rows(_cols(X[:, :-1], pb.nx), _cols(U, NU),
+                         pb.obs_stages(),
                          pb.consts, False, pb.k_is0,
                          pb.bnd_at(slice(0, pb.H)))
 
 
 def _term_rows(pb, X):
-    xT = _cols(X[:, -1], NX)
+    xT = _cols(X[:, -1], pb.nx)
     zero = torch.zeros_like(xT[0])
     return _compute_rows(xT, [zero, zero], pb.obs_term(), pb.consts, True,
                          torch.zeros_like(xT[0], dtype=torch.bool),
@@ -670,25 +957,25 @@ def _stage_merits(cfg, pb, X, U, lam_lo, lam_hi, mu):
     terms = _row_terms(rs, _row_bounds(pb.consts, pb.mind, False),
                        _cols(lam_lo[:, :H], nr), _cols(lam_hi[:, :H], nr),
                        _cols(mu[:, :H], nr))
-    m_k = (_stage_cost(_cols(X[:, :H], NX), _cols(U, NU),
-                       _cols(pb.xref[:, :H], NX), pb.wq, pb.wr)
+    nx = pb.nx
+    m_k = (_stage_cost(_cols(X[:, :H], nx), _cols(U, NU),
+                       _cols(pb.xref[:, :H], nx), pb.wq, pb.wr)
            + _stage_psi(terms))
     rT = _term_rows(pb, X)
     termsT = _row_terms(rT, _row_bounds(pb.consts, pb.mind[:, 0], True),
                         _cols(lam_lo[:, H], nr), _cols(lam_hi[:, H], nr),
                         _cols(mu[:, H], nr))
     psiT = _stage_psi(termsT)
-    cT = (_term_cost(_cols(X[:, H], NX), _cols(pb.xref[:, H], NX), pb.wqN)
+    cT = (_term_cost(_cols(X[:, H], nx), _cols(pb.xref[:, H], nx), pb.wqN)
           if cfg.use_terminal_cost else torch.zeros_like(psiT))
     return m_k, cT + psiT
 
 
 def _rollout(cfg, pb, U):
-    x = _cols(pb.x0, NX)
+    x = _cols(pb.x0, pb.nx)
     xs = [torch.stack(x, -1)]
     for k in range(pb.H):
-        x = _step_rows(x, _cols(U[:, k], NU), float(cfg.dt),
-                       pb.consts["inv_l"], cfg.integrator)
+        x = pb.step(x, _cols(U[:, k], NU))
         xs.append(torch.stack(x, -1))
     return torch.stack(xs, 1)
 
@@ -706,34 +993,32 @@ def _feedback_rollout(cfg, pb, X, U, K, d, alpha):
         u = torch.stack([_clip(u[:, 0], c["u_lo0"], c["u_hi0"]),
                          _clip(u[:, 1], c["u_lo1"], c["u_hi1"])], -1)
         us.append(u)
-        x = torch.stack(_step_rows(_cols(x, NX), _cols(u, NU), float(cfg.dt),
-                                   c["inv_l"], cfg.integrator), -1)
+        x = torch.stack(pb.step(_cols(x, pb.nx), _cols(u, NU)), -1)
         xs.append(x)
     return torch.stack(xs, 1), torch.stack(us, 1)
 
 
 def _quadratics(cfg, pb, X, U, lam_lo, lam_hi, mu):
     """Stage quadratics (B, H, ...), terminal (QH, qH) and the Jacobians."""
-    H, nr = pb.H, pb.nr
-    xk, uk = _cols(X[:, :H], NX), _cols(U, NU)
+    H, nr, nx = pb.H, pb.nr, pb.nx
+    xk, uk = _cols(X[:, :H], nx), _cols(U, NU)
     rs = _stage_rows(pb, X, U)
     terms = _row_terms(rs, _row_bounds(pb.consts, pb.mind, False),
                        _cols(lam_lo[:, :H], nr), _cols(lam_hi[:, :H], nr),
                        _cols(mu[:, :H], nr))
     Q, R, M, qx, qu = _assemble_quad(rs, terms, xk, uk,
-                                     _cols(pb.xref[:, :H], NX), pb.wq, pb.wr,
+                                     _cols(pb.xref[:, :H], nx), pb.wq, pb.wr,
                                      False)
     like = xk[0]
-    A, Bm = _lin_step(xk, uk, float(cfg.dt), pb.consts["inv_l"],
-                      cfg.integrator)
-    xT = _cols(X[:, H], NX)
+    A, Bm = pb.lin(xk, uk)
+    xT = _cols(X[:, H], nx)
     zero = torch.zeros_like(xT[0])
     rT = _term_rows(pb, X)
     termsT = _row_terms(rT, _row_bounds(pb.consts, pb.mind[:, 0], True),
                         _cols(lam_lo[:, H], nr), _cols(lam_hi[:, H], nr),
                         _cols(mu[:, H], nr))
     QH, qH = _assemble_quad(rT, termsT, xT, [zero, zero],
-                            _cols(pb.xref[:, H], NX), pb.wq, pb.wr, True,
+                            _cols(pb.xref[:, H], nx), pb.wq, pb.wr, True,
                             pb.wqN, cfg.use_terminal_cost)
     return dict(Q=_mat(Q, like), R=_mat(R, like), M=_mat(M, like),
                 qx=_vec(qx, like), qu=_vec(qu, like),
@@ -784,7 +1069,7 @@ def _multiplier_update(cfg, pb, X, U, lam_lo, lam_hi, mu, prev_viol):
     U_eff = torch.cat([U, torch.zeros_like(U[:, :1])], 1)     # (B, H+1, 2)
     obs = _cols(pb.obs, 6)
     k_is0 = (torch.arange(H + 1, device=X.device) == 0).unsqueeze(0)
-    r = _compute_rows(_cols(X, NX), _cols(U_eff, NU), obs, pb.consts, False,
+    r = _compute_rows(_cols(X, pb.nx), _cols(U_eff, NU), obs, pb.consts, False,
                       k_is0, pb.bnd_at(slice(None)))
     hs = _row_values(r)
     is_last = (torch.arange(H + 1, device=X.device) == H).unsqueeze(0)
@@ -838,7 +1123,8 @@ def _diagnostics(cfg, pb, X, U, lam_lo, lam_hi, mu):
     inv_scale = [1.0 / fr_scale] + [1.0] * (pb.nr - 1)
     qd = _quadratics(cfg, pb, X, U, lam_lo, lam_hi, mu)
     psiT = _stage_psi(qd["termsT"])
-    costT = (_term_cost(_cols(X[:, H], NX), _cols(pb.xref[:, H], NX), pb.wqN)
+    nx = pb.nx
+    costT = (_term_cost(_cols(X[:, H], nx), _cols(pb.xref[:, H], nx), pb.wqN)
              if cfg.use_terminal_cost else torch.zeros_like(psiT))
     zero = torch.zeros_like(psiT)
     violT = _scaled_viol(_row_values(qd["rowsT"]),
@@ -846,8 +1132,8 @@ def _diagnostics(cfg, pb, X, U, lam_lo, lam_hi, mu):
     viol_k = _scaled_viol(_row_values(qd["rows"]),
                           _row_bounds(c, pb.mind, False), inv_scale,
                           torch.zeros_like(X[:, :H, 0]))
-    cost_k = _stage_cost(_cols(X[:, :H], NX), _cols(U, NU),
-                         _cols(pb.xref[:, :H], NX), pb.wq, pb.wr)
+    cost_k = _stage_cost(_cols(X[:, :H], nx), _cols(U, NU),
+                         _cols(pb.xref[:, :H], nx), pb.wq, pb.wr)
     psi_k = _stage_psi(qd["terms"])
 
     lam = qd["qH"]
@@ -877,8 +1163,10 @@ def solve_batch_fused_plain(cfg: S.SolverConfig, params: S.OcpParams,
     r + 1 for ``alphas[r]``, as in the kernel's rung buffer) and the merit
     of every rung.  ``follow`` (al_iters * sqp_iters, B) makes iteration i
     commit the rungs ``follow[i]`` instead of the best ones, which replays
-    the kernel's choices.
+    the kernel's choices.  KS-schema params of an ST problem are widened
+    (``sqp.normalize_params``).
     """
+    params = S.normalize_params(cfg, params)
     pb = _Problem(cfg, params, boundary_models(cfg, params, state))
     U = state.U
     lam_lo, lam_hi, prev_viol = state.lam_lo, state.lam_hi, state.prev_viol
@@ -936,6 +1224,13 @@ def _prepared_mu(cfg, mu):
 # ---------------------------------------------------------------------------
 
 
+class StConsts(ctypes.Structure):
+    """Mirror of ``struct StConsts`` in csrc/st_model.cuh (:func:`st_consts`;
+    zero for the KS model)."""
+
+    _fields_ = [(n, ctypes.c_float) for n in ST_CONSTS]
+
+
 class FgnArgs(ctypes.Structure):
     """Mirror of ``struct FgnArgs`` in csrc/fused_gn.cu (all 4-byte)."""
 
@@ -948,16 +1243,26 @@ class FgnArgs(ctypes.Structure):
             "viol_improve", "lam_max", "tol_feas", "tol_stat",
             "tol_infeas")] + [
         ("alphas", ctypes.c_float * MAX_ALPHAS),
-        ("boundary", ctypes.c_int32), ("r_ego", ctypes.c_float)]
+        ("boundary", ctypes.c_int32), ("r_ego", ctypes.c_float),
+        ("st", StConsts)]
+
+
+def kernel_name(cfg: S.SolverConfig, name: str = "fused_gn") -> str:
+    """The library of ``cfg``'s model: ``name`` (KS) or ``name + '_st'``
+    (csrc/<name>_st.cu, the ST instances)."""
+    return name + "_st" if cfg.model == "st" else name
 
 
 def kernel_args(cfg: S.SolverConfig, B: int, moving: bool,
                 threads_per_lane: int = 0) -> FgnArgs:
     """The argument block; ``threads_per_lane`` 0 lets the kernel choose
-    (the most threads a lane whose blocks are all resident at once)."""
-    if threads_per_lane and threads_per_lane not in THREADS_PER_LANE:
-        raise ValueError(f"threads_per_lane {threads_per_lane}: the kernel "
-                         f"has {THREADS_PER_LANE} (0: it chooses)")
+    (the most threads a lane whose blocks are all resident at once, else
+    the fewest the model's library has: 2 for KS, 4 for ST)."""
+    tpl = threads_per_lane_of(S.solver_nx(cfg))
+    if threads_per_lane and threads_per_lane not in tpl:
+        raise ValueError(f"threads_per_lane {threads_per_lane}: the "
+                         f"{cfg.model.upper()} kernel has {tpl} (0: it "
+                         "chooses)")
     c = make_consts(cfg)
     dt = float(cfg.dt)
     fr = c["a_max"] ** 2 if c["formulation"] == "forcespro" else c["a_max"]
@@ -979,6 +1284,8 @@ def kernel_args(cfg: S.SolverConfig, B: int, moving: bool,
         r_ego=c["r_ego"])
     for i, v in enumerate(cfg.alphas):
         a.alphas[i] = v
+    if c["st"] is not None:
+        a.st = StConsts(**c["st"])
     return a
 
 
@@ -1060,11 +1367,15 @@ def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
     trial chains are allocated only when the ladder is on, and the rung
     trace (al_iters * sqp_iters, B) only when it is on and ``trace_rungs``
     asks for it.  With boundary rows their models at the rollout of the
-    warm start (:func:`boundary_models`) go into the same buffer."""
+    warm start (:func:`boundary_models`) go into the same buffer.
+    KS-schema params of an ST problem are widened first
+    (``sqp.normalize_params``)."""
     reason = ineligible_reason(cfg, params)
     if reason is not None:
         raise NotImplementedError(reason)
+    params = S.normalize_params(cfg, params)
     B, H, nr = params.x0.shape[0], cfg.horizon, S.nrows(cfg)
+    nx = S.solver_nx(cfg)
     dev, f32 = params.x0.device, torch.float32
     moving = params.obs_centers.dim() == 4
     w = params.weights
@@ -1073,13 +1384,13 @@ def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
     mu = (state.mu.clamp_min(cfg.mu0) if cfg.mu0 > 0
           else _prepared_mu(cfg, state.mu))
     parts = [
-        ("x0", params.x0, (B, NX)),
-        ("xref", params.x_ref, (B, H + 1, NX)),
+        ("x0", params.x0, (B, nx)),
+        ("xref", params.x_ref, (B, H + 1, nx)),
         ("obs", params.obs_centers.reshape(B, -1, 6) if moving
          else params.obs_centers.reshape(B, 6),
          (B, H + 1, 6) if moving else (B, 6)),
         ("mind", params.min_dist.reshape(B), (B,)),
-        ("w", [w.q, w.r, w.qN], (B, 2 * NX + NU)),
+        ("w", [w.q, w.r, w.qN], (B, 2 * nx + NU)),
         ("lam_lo", state.lam_lo, (B, H + 1, nr)),
         ("lam_hi", state.lam_hi, (B, H + 1, nr)),
         ("mu", mu, (B, H + 1, nr)),
@@ -1092,13 +1403,13 @@ def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
         # a buffer of its own: a caller keeps views of the solution's U
         # (the applied input), which must not hold the whole copy alive
         U=_packed(state.U, (B, H, NU)),
-        X=torch.empty((H + 1, NX, B), dtype=f32, device=dev),
+        X=torch.empty((H + 1, nx, B), dtype=f32, device=dev),
         diag=torch.empty((4, B), dtype=f32, device=dev),
         status=torch.empty((B,), dtype=torch.int32, device=dev),
-        K=torch.empty((H, NU * NX, B), dtype=f32, device=dev),
+        K=torch.empty((H, NU * nx, B), dtype=f32, device=dev),
         d=torch.empty((H, NU, B), dtype=f32, device=dev))
     if cfg.alphas:
-        bufs["Xc"] = torch.empty((2, H + 1, NX, B), dtype=f32, device=dev)
+        bufs["Xc"] = torch.empty((2, H + 1, nx, B), dtype=f32, device=dev)
         bufs["Uc"] = torch.empty((2, H, NU, B), dtype=f32, device=dev)
         if trace_rungs:
             bufs["rung"] = torch.empty((cfg.al_iters * cfg.sqp_iters, B),
@@ -1124,23 +1435,41 @@ def call_kernel(name: str, args: ctypes.Structure, bufs: dict, order):
         return fn(ctypes.byref(args), *ptrs, stream)
 
 
+def _launch(name: str, cfg: S.SolverConfig, bufs: dict,
+            threads_per_lane: int) -> None:
+    args = _launch_args(cfg, bufs["x0"].shape[-1], bufs["obs"].dim() == 3,
+                        threads_per_lane)
+    err = call_kernel(name, args, bufs, KERNEL_ORDER)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def launch(cfg: S.SolverConfig, bufs: dict, threads_per_lane: int = 0):
-    """Launch the kernel once on the current stream over packed ``bufs``.
+    """Launch the kernel of ``cfg``'s model once on the current stream over
+    packed ``bufs`` (the ST model: :func:`launch_st`).
 
     The kernel updates the warm-start buffers (U, lam_lo, lam_hi, mu,
     pviol) in place, where the TPU kernel aliased inputs to outputs, and
     writes X and diag.  ``threads_per_lane`` 0 lets the kernel choose.
-    ``launch.launches`` counts the launches.
+    ``launch.launches`` counts the launches of the KS kernel.
     """
-    args = _launch_args(cfg, bufs["x0"].shape[-1], bufs["obs"].dim() == 3,
-                        threads_per_lane)
-    err = call_kernel("fused_gn", args, bufs, KERNEL_ORDER)
+    if cfg.model == "st":
+        return launch_st(cfg, bufs, threads_per_lane)
     launch.launches += 1
-    if err != 0:
-        raise RuntimeError(f"fused_gn kernel launch failed: CUDA error {err}")
+    return _launch("fused_gn", cfg, bufs, threads_per_lane)
+
+
+def launch_st(cfg: S.SolverConfig, bufs: dict, threads_per_lane: int = 0):
+    """:func:`launch` of the ST model's kernel (csrc/fused_gn_st.cu);
+    ``launch_st.launches`` counts its launches."""
+    if cfg.model != "st":
+        raise ValueError(f"model '{cfg.model}': fused_gn_st solves 'st'")
+    launch_st.launches += 1
+    return _launch("fused_gn_st", cfg, bufs, threads_per_lane)
 
 
 launch.launches = 0
+launch_st.launches = 0
 
 
 def geometry(cfg: S.SolverConfig, B: int, moving: bool = False,
@@ -1152,7 +1481,7 @@ def geometry(cfg: S.SolverConfig, B: int, moving: bool = False,
     from mpc_tpu_torch.ops import _build
     args = kernel_args(cfg, B, moving, threads_per_lane)
     out = (ctypes.c_int32 * 6)()
-    fn = _build.load("fused_gn").fused_gn_geometry
+    fn = _build.load(kernel_name(cfg)).fused_gn_geometry
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(ctypes.byref(args), out)
@@ -1193,15 +1522,15 @@ def solve_batch_fused(cfg: S.SolverConfig, params: S.OcpParams,
     ``fused_gn.solve_batch_fused``.
 
     Runs on ``device`` (default: the GPU, see ``resolve_device``): CUDA
-    tensors go to the kernel, CPU tensors to the plain version.  A KS AL
-    problem outside the kernel's envelope goes to
+    tensors go to the kernel of the model (KS or ST), CPU tensors to the
+    plain version.  An AL problem outside the kernel's envelope goes to
     ``sqp_vec.solve_batch_vec`` on every device, as the JAX package falls
-    back; the IP method and the ST model raise ``NotImplementedError``.
+    back; the IP method raises ``NotImplementedError``.
     """
     dev = resolve_device(device)
     reason = ineligible_reason(cfg, params)
     if reason is not None:
-        if cfg.method != "al" or cfg.model != "ks":
+        if cfg.method != "al":
             raise NotImplementedError(reason)
         from mpc_tpu_torch.ops import sqp_vec
         return sqp_vec.solve_batch_vec(cfg, params, state, device=dev)

@@ -34,8 +34,9 @@ Two implementations of the same function:
 :func:`solve_batch_fused_ip` takes a CPU tensor to the plain version and a
 CUDA tensor to the kernel; nothing falls back from one to the other.
 
-Envelope (:func:`eligible_ip`): KS model, method 'ip', forcespro or casadi
-rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1, 3, 2) obstacles,
+Envelope (:func:`eligible_ip`): the KS or the ST model (the ST
+instances in a library of their own, ``csrc/fused_ip_st.cu``), method 'ip',
+forcespro or casadi rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1, 3, 2) obstacles,
 with or without the 6 road-boundary rows (given the boundaries; their
 per-stage models are ``fused_gn.boundary_models``), cold or warm duals, any
 ``ip_sqp_iters x ip_iters`` budget, ``ip_alphas=()`` or a ladder of at most
@@ -52,9 +53,8 @@ from mpc_tpu_torch.device import resolve_device
 from mpc_tpu_torch.ops import fused_gn as F
 from mpc_tpu_torch.ops import sqp as S
 from mpc_tpu_torch.ops.fused_gn import (
-    MAX_ALPHAS, NU, NX, _assemble_quad, _cols,
-    _lin_step, _mat, _mv, _row_bounds, _row_lin, _row_values, _vec,
-    make_consts)
+    MAX_ALPHAS, NU, NX, StConsts, _assemble_quad, _cols, _mat, _mv,
+    _row_bounds, _row_lin, _row_values, _vec, kernel_name, make_consts)
 from mpc_tpu_torch.ops.ipqp import (
     _MU0, _MU_MIN, _S_FLOOR, _S_MIN, _SIGMA_B, _TAU, _WARM_KAPPA, _Z_MAX)
 
@@ -66,16 +66,24 @@ MAX_HORIZON = TPL * MAX_SPT - 1
 SMEM_PER_BLOCK = 232448   # bytes of shared memory an H100 block may use
 
 
-def lane_smem_bytes(H: int, boundary: bool = False) -> int:
-    """Shared memory of one lane at horizon H: ``Layout`` in
-    csrc/fused_ip.cu (rows cache, 45 floats a stage or 69 with the boundary
-    rows, quadratics (whose space a rollout's scratch shares), (A, B), K,
-    d, ddX, ddU, X, U, xref, obstacles, the terminal P and p, the
-    stationarity, the lane's constants)."""
+def quad_floats(nx: int = NX) -> int:
+    """Floats a stage of the stored quadratics (``QUAD_LD``): Q's upper
+    triangle, R, M, qx, qu, padded odd; 37 for KS, 55 for ST."""
+    return (nx * (nx + 1) // 2 + NU * NU + nx * NU + nx + NU) | 1
+
+
+def lane_smem_bytes(H: int, boundary: bool = False, nx: int = NX) -> int:
+    """Shared memory of one lane at horizon H for the model of state count
+    nx: ``Layout`` in csrc/fused_ip.cu (rows cache, 45 floats a stage or 69
+    with the boundary rows, quadratics (whose space a rollout's scratch
+    shares), (A, B), K, d, ddX, ddU, X, U, xref, obstacles, the terminal P
+    and p, the stationarity, the lane's constants: weights, x0 and the
+    clearance)."""
     S = H + 1
     rows = 69 if boundary else 45
-    floats = (rows * S + 37 * S + 35 * H + 10 * H + 2 * H + 5 * S + 2 * S
-              + 5 * S + 2 * S + 5 * S + 7 * S + 25 + 5 + 1 + 18)
+    floats = (rows * S + quad_floats(nx) * S + (nx * nx + nx * NU) * H
+              + NU * nx * H + NU * H + nx * S + NU * S + nx * S + NU * S
+              + nx * S + 7 * S + nx * nx + nx + 1 + (3 * nx + 3))
     return 4 * floats
 
 
@@ -84,9 +92,6 @@ def ineligible_reason_ip(cfg: S.SolverConfig, params: S.OcpParams):
     if cfg.method != "ip":
         return (f"method '{cfg.method}': this is the IP kernel; the AL "
                 "solve is ops.fused_gn")
-    if cfg.model != "ks":
-        return (f"model '{cfg.model}': the ST model in the fused kernels is "
-                "ROADMAP queue A, item 1 (ST)")
     if cfg.boundary_rows and (params.boundaries is None
                               or params.boundary_signs is None):
         return ("boundary_rows without boundary data (params.boundaries "
@@ -94,8 +99,10 @@ def ineligible_reason_ip(cfg: S.SolverConfig, params: S.OcpParams):
     if params.obs_centers.dim() not in (3, 4):
         return (f"obs_centers of shape {tuple(params.obs_centers.shape)}: "
                 "want (B, 3, 2) or (B, H+1, 3, 2)")
-    if params.x_ref.shape[-1] != NX:
-        return f"x_ref has {params.x_ref.shape[-1]} state columns, want {NX}"
+    nx = S.solver_nx(cfg)
+    if params.x_ref.shape[-1] not in (NX, nx):
+        return (f"x_ref has {params.x_ref.shape[-1]} state columns, want "
+                f"{NX} or {nx}")
     if len(cfg.ip_alphas) > MAX_ALPHAS:
         return (f"{len(cfg.ip_alphas)} ladder rungs, the kernel takes "
                 f"{MAX_ALPHAS}")
@@ -104,10 +111,11 @@ def ineligible_reason_ip(cfg: S.SolverConfig, params: S.OcpParams):
         return (f"horizon {H}: the kernel's warp holds at most "
                 f"{TPL * MAX_SPT} stages a lane ({MAX_SPT} a thread), "
                 f"H <= {MAX_HORIZON}")
-    lane = lane_smem_bytes(H, cfg.boundary_rows)
+    lane = lane_smem_bytes(H, cfg.boundary_rows, nx)
     if lane > SMEM_PER_BLOCK:
-        return (f"horizon {H}: a lane needs {lane} bytes of shared memory, "
-                f"a block holds {SMEM_PER_BLOCK}")
+        return (f"horizon {H}: a lane of the {cfg.model.upper()} model "
+                f"needs {lane} bytes of shared memory, a block holds "
+                f"{SMEM_PER_BLOCK}")
     return None
 
 
@@ -281,18 +289,19 @@ def _newton(cfg, pb, X, U, AB, rows, sz, dX, dU, mu_b):
     H = pb.H
     zero = torch.zeros_like(mu_b)
     mus = (mu_b[:, None], mu_b)
-    dXg = _split(dX, H, NX)
+    nx = pb.nx
+    dXg = _split(dX, H, nx)
     dUg = (_cols(dU, NU), [zero, zero])
     cs = [_row_lin(rows[g], dXg[g], dUg[g]) for g in (0, 1)]
     terms = [_ip_terms(pb.bounds[g], cs[g], sz[g], mus[g]) for g in (0, 1)]
     xc, uc = X + dX, U + dU
     like = xc[:, :H, 0]
     Q, R, M, qx, qu = _assemble_quad(
-        rows[0], terms[0], _cols(xc[:, :H], NX), _cols(uc, NU),
-        _cols(pb.xref[:, :H], NX), pb.wq, pb.wr, False)
+        rows[0], terms[0], _cols(xc[:, :H], nx), _cols(uc, NU),
+        _cols(pb.xref[:, :H], nx), pb.wq, pb.wr, False)
     QH, qH = _assemble_quad(
-        rows[1], terms[1], _cols(xc[:, H], NX), [zero, zero],
-        _cols(pb.xref[:, H], NX), pb.wq, pb.wr, True, pb.wqN,
+        rows[1], terms[1], _cols(xc[:, H], nx), [zero, zero],
+        _cols(pb.xref[:, H], nx), pb.wq, pb.wr, True, pb.wqN,
         cfg.use_terminal_cost)
     A, Bm = AB
     K, d = F._backward_sweep(cfg, pb, dict(
@@ -312,7 +321,7 @@ def _newton(cfg, pb, X, U, AB, rows, sz, dX, dU, mu_b):
     ddX, ddU = torch.stack(ddxs, 1), torch.stack(ddus, 1)
 
     # slack / dual steps and the fraction-to-boundary step length
-    ddXg = _split(ddX, H, NX)
+    ddXg = _split(ddX, H, nx)
     ddUg = (_cols(ddU, NU), [zero, zero])
     steps, amin = [], torch.full_like(mu_b, _BIG)
     for g in (0, 1):
@@ -367,14 +376,15 @@ def _dU_rollout(cfg, pb, U, dU, alpha, merit):
     H, rho = pb.H, float(cfg.ip_ls_rho)
     rs, rT = pb.rows(Xa, Ua)
     v_k = sum(_scaled(_row_viols(_row_values(rs), pb.bounds[0]), pb.inv_fr))
-    cost_k = F._stage_cost(_cols(Xa[:, :H], NX), _cols(Ua, NU),
-                           _cols(pb.xref[:, :H], NX), pb.wq, pb.wr)
+    nx = pb.nx
+    cost_k = F._stage_cost(_cols(Xa[:, :H], nx), _cols(Ua, NU),
+                           _cols(pb.xref[:, :H], nx), pb.wq, pb.wr)
     acc = torch.zeros_like(alpha)
     for k in range(H):
         acc = acc + cost_k[:, k] + rho * v_k[:, k]
     if cfg.use_terminal_cost:
-        acc = acc + F._term_cost(_cols(Xa[:, H], NX),
-                                 _cols(pb.xref[:, H], NX), pb.wqN)
+        acc = acc + F._term_cost(_cols(Xa[:, H], nx),
+                                 _cols(pb.xref[:, H], nx), pb.wqN)
     acc = acc + rho * sum(_scaled(_row_viols(_row_values(rT), pb.bounds[1]),
                                   pb.inv_fr))
     return Xa, Ua, torch.where(torch.isfinite(acc), acc, _BIG)
@@ -387,27 +397,27 @@ def _diagnostics_ip(cfg, pb, X, U, z_lo, z_hi):
     H = pb.H
     rs, rT = pb.rows(X, U)
     lam_k, lam_T = _split(z_hi - z_lo, H, pb.nr)
-    xk, uk = _cols(X[:, :H], NX), _cols(U, NU)
+    nx = pb.nx
+    xk, uk = _cols(X[:, :H], nx), _cols(U, NU)
     like = xk[0]
     zk = torch.zeros_like(like)
     _, _, _, qx, qu = _assemble_quad(
         rs, [(None, lm, zk) for lm in lam_k], xk, uk,
-        _cols(pb.xref[:, :H], NX), pb.wq, pb.wr, False)
+        _cols(pb.xref[:, :H], nx), pb.wq, pb.wr, False)
     zero = torch.zeros_like(X[:, 0, 0])
     _, qH = _assemble_quad(
-        rT, [(None, lm, zero) for lm in lam_T], _cols(X[:, H], NX),
-        [zero, zero], _cols(pb.xref[:, H], NX), pb.wq, pb.wr, True, pb.wqN,
+        rT, [(None, lm, zero) for lm in lam_T], _cols(X[:, H], nx),
+        [zero, zero], _cols(pb.xref[:, H], nx), pb.wq, pb.wr, True, pb.wqN,
         cfg.use_terminal_cost)
-    A, Bm = _lin_step(xk, uk, float(cfg.dt), pb.consts["inv_l"],
-                      cfg.integrator)
+    A, Bm = pb.lin(xk, uk)
     A, Bm, qx, qu = _mat(A, like), _mat(Bm, like), _vec(qx, like), \
         _vec(qu, like)
     pv_T = _row_viols(_row_values(rT), pb.bounds[1])
     pv_k = _row_viols(_row_values(rs), pb.bounds[0])
     viol = torch.stack(_scaled(pv_T, pb.inv_fr)).amax(0)
     viol_k = torch.stack(_scaled(pv_k, pb.inv_fr)).amax(0)
-    cost_k = F._stage_cost(xk, uk, _cols(pb.xref[:, :H], NX), pb.wq, pb.wr)
-    cost = (F._term_cost(_cols(X[:, H], NX), _cols(pb.xref[:, H], NX),
+    cost_k = F._stage_cost(xk, uk, _cols(pb.xref[:, :H], nx), pb.wq, pb.wr)
+    cost = (F._term_cost(_cols(X[:, H], nx), _cols(pb.xref[:, H], nx),
                          pb.wqN) if cfg.use_terminal_cost else zero)
     lam, stat = _vec(qH, zero), zero
     for k in range(H - 1, -1, -1):
@@ -431,8 +441,10 @@ def solve_batch_fused_ip_plain(cfg: S.SolverConfig, params: S.OcpParams,
     r + 1 for ``ip_alphas[r]``, as in the kernel's rung buffer) and the
     merit of every rung.  ``follow`` (ip_sqp_iters, B) makes iteration i
     commit the rungs ``follow[i]`` instead of the best ones, which replays
-    the kernel's choices.
+    the kernel's choices.  KS-schema params of an ST problem are widened
+    (``sqp.normalize_params``).
     """
+    params = S.normalize_params(cfg, params)
     pb = _IpProblem(cfg, params, F.boundary_models(cfg, params, state))
     H = pb.H
     U, z_lo, z_hi = state.U, state.lam_lo, state.lam_hi
@@ -445,9 +457,7 @@ def solve_batch_fused_ip_plain(cfg: S.SolverConfig, params: S.OcpParams,
                           cfg.ip_warm_duals) for g in (0, 1)]
         dX, dU = torch.zeros_like(X), torch.zeros_like(U)
         if cfg.ip_iters > 0:
-            A, Bm = _lin_step(_cols(X[:, :H], NX), _cols(U, NU),
-                              float(cfg.dt), pb.consts["inv_l"],
-                              cfg.integrator)
+            A, Bm = pb.lin(_cols(X[:, :H], pb.nx), _cols(U, NU))
             like = X[:, :H, 0]
             AB = (_mat(A, like), _mat(Bm, like))
         mu_b = torch.full_like(ones, _MU0)
@@ -495,7 +505,8 @@ class IpArgs(ctypes.Structure):
             "inv_fr_scale", "u_lo0", "u_hi0", "u_lo1", "u_hi1", "d_lo",
             "d_hi", "v_lo", "v_hi", "rho", "n_act")] + [
         ("alphas", ctypes.c_float * MAX_ALPHAS),
-        ("boundary", ctypes.c_int32), ("r_ego", ctypes.c_float)]
+        ("boundary", ctypes.c_int32), ("r_ego", ctypes.c_float),
+        ("st", StConsts)]
 
 
 def kernel_args_ip(cfg: S.SolverConfig, B: int, moving: bool,
@@ -520,6 +531,8 @@ def kernel_args_ip(cfg: S.SolverConfig, B: int, moving: bool,
         boundary=int(cfg.boundary_rows), r_ego=c["r_ego"])
     for i, v in enumerate(cfg.ip_alphas):
         a.alphas[i] = v
+    if c["st"] is not None:
+        a.st = StConsts(**c["st"])
     return a
 
 
@@ -553,11 +566,14 @@ def pack_ip(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
     writes U, lam_lo and lam_hi in place), every output allocated; the rung
     trace (ip_sqp_iters, B) only when the ladder is on and ``trace_rungs``
     asks for it; with boundary rows their models at the rollout of the warm
-    start (``fused_gn.boundary_models``)."""
+    start (``fused_gn.boundary_models``); KS-schema params of an ST problem
+    widened first (``sqp.normalize_params``)."""
     reason = ineligible_reason_ip(cfg, params)
     if reason is not None:
         raise NotImplementedError(reason)
+    params = S.normalize_params(cfg, params)
     B, H, nr = params.x0.shape[0], cfg.horizon, S.nrows(cfg)
+    nx = S.solver_nx(cfg)
     dev, f32 = params.x0.device, torch.float32
     moving = params.obs_centers.dim() == 4
     w = params.weights
@@ -566,17 +582,17 @@ def pack_ip(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
         return torch.empty((B,) + shape, dtype=f32, device=dev)
 
     bufs = dict(
-        x0=_copied(params.x0, (B, NX)),
-        xref=_copied(params.x_ref, (B, H + 1, NX)),
+        x0=_copied(params.x0, (B, nx)),
+        xref=_copied(params.x_ref, (B, H + 1, nx)),
         obs=_copied(params.obs_centers.reshape(B, -1, 6) if moving
                     else params.obs_centers.reshape(B, 6),
                     (B, H + 1, 6) if moving else (B, 6)),
         mind=_copied(params.min_dist.reshape(B), (B,)),
-        w=_copied(torch.cat([w.q, w.r, w.qN], -1), (B, 2 * NX + NU)),
+        w=_copied(torch.cat([w.q, w.r, w.qN], -1), (B, 2 * nx + NU)),
         U=_copied(state.U, (B, H, NU)),
         lam_lo=_copied(state.lam_lo, (B, H + 1, nr)),
         lam_hi=_copied(state.lam_hi, (B, H + 1, nr)),
-        X=empty(H + 1, NX), pviol=empty(H + 1, nr), diag=empty(4))
+        X=empty(H + 1, nx), pviol=empty(H + 1, nr), diag=empty(4))
     if cfg.boundary_rows:
         # boundary_models makes a new tensor: no copy needed
         bufs["bnd"] = F.boundary_models(cfg, params, state).contiguous()
@@ -590,23 +606,41 @@ def _moving(bufs: dict) -> bool:
     return bufs["obs"].dim() == 3
 
 
+def _launch_ip(name: str, cfg: S.SolverConfig, bufs: dict,
+               lanes_per_block: int) -> None:
+    args = kernel_args_ip(cfg, bufs["x0"].shape[0], _moving(bufs),
+                          lanes_per_block)
+    err = F.call_kernel(name, args, bufs, KERNEL_ORDER)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def launch_ip(cfg: S.SolverConfig, bufs: dict, lanes_per_block: int = 0):
-    """Launch the kernel once on the current stream over packed ``bufs``.
+    """Launch the kernel of ``cfg``'s model once on the current stream over
+    packed ``bufs`` (the ST model: :func:`launch_ip_st`).
 
     The kernel updates U, lam_lo and lam_hi in place, where the TPU kernel
     aliased inputs to outputs, and writes X, pviol and diag.
     ``lanes_per_block`` 0 lets the kernel choose.  ``launch_ip.launches``
-    counts the launches.
+    counts the launches of the KS kernel.
     """
-    args = kernel_args_ip(cfg, bufs["x0"].shape[0], _moving(bufs),
-                          lanes_per_block)
-    err = F.call_kernel("fused_ip", args, bufs, KERNEL_ORDER)
+    if cfg.model == "st":
+        return launch_ip_st(cfg, bufs, lanes_per_block)
     launch_ip.launches += 1
-    if err != 0:
-        raise RuntimeError(f"fused_ip kernel launch failed: CUDA error {err}")
+    return _launch_ip("fused_ip", cfg, bufs, lanes_per_block)
+
+
+def launch_ip_st(cfg: S.SolverConfig, bufs: dict, lanes_per_block: int = 0):
+    """:func:`launch_ip` of the ST model's kernel (csrc/fused_ip_st.cu);
+    ``launch_ip_st.launches`` counts its launches."""
+    if cfg.model != "st":
+        raise ValueError(f"model '{cfg.model}': fused_ip_st solves 'st'")
+    launch_ip_st.launches += 1
+    return _launch_ip("fused_ip_st", cfg, bufs, lanes_per_block)
 
 
 launch_ip.launches = 0
+launch_ip_st.launches = 0
 
 
 def geometry(cfg: S.SolverConfig, B: int, moving: bool = False,
@@ -618,7 +652,7 @@ def geometry(cfg: S.SolverConfig, B: int, moving: bool = False,
     from mpc_tpu_torch.ops import _build
     args = kernel_args_ip(cfg, B, moving, lanes_per_block)
     out = (ctypes.c_int32 * 6)()
-    fn = _build.load("fused_ip").fused_ip_geometry
+    fn = _build.load(kernel_name(cfg, "fused_ip")).fused_ip_geometry
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(ctypes.byref(args), out)

@@ -98,10 +98,6 @@ def solve_batch_vec(cfg: S.SolverConfig, params: S.OcpParams,
         raise NotImplementedError(
             "lqr_backend='pscan': the parallel-scan sweep is ROADMAP queue "
             "A, item 12")
-    if cfg.model != "ks":
-        raise NotImplementedError(
-            f"model '{cfg.model}': the ST model is ROADMAP queue A, item 1 "
-            "(ST)")
     dev = resolve_device(device)
     params = _to(S.normalize_params(cfg, params), dev)
     state = _to(state, dev)

@@ -59,7 +59,7 @@ class LoopParams(NamedTuple):
     so the draws differ from ``jax.random``'s).
     """
 
-    x_init: torch.Tensor             # (B, 5)
+    x_init: torch.Tensor             # (B, NX): 5 (KS) or 7 (ST)
     track: ref_mod.ReferenceTrack    # lanes-leading fields
     obs_centers: torch.Tensor        # (B, 3, 2)
     min_dist: torch.Tensor           # (B,)
@@ -78,7 +78,7 @@ class LoopParams(NamedTuple):
 
 
 class LoopResult(NamedTuple):
-    X: torch.Tensor        # (B, T, 5) closed-loop states x_0 .. x_{T-1}
+    X: torch.Tensor        # (B, T, NX) closed-loop states x_0 .. x_{T-1}
     U: torch.Tensor        # (B, T, 2) applied inputs
     status: torch.Tensor   # (B, T) per-step solver status
     viol: torch.Tensor     # (B, T) per-step max scaled violation
@@ -121,9 +121,10 @@ def select_engine(scfg: sqp.SolverConfig, have_boundaries: bool = False):
     """The batched solve for ``scfg`` (``mpc_tpu``'s ``select_engine``).
 
     ``engine='xla'``: the lanes-leading AL engine ``sqp_vec.solve_batch_vec``
-    (KS, with or without boundary rows).  ``'auto'`` and ``'fused'``: the
-    fused AL kernel engine, or the fused IP kernel engine for
-    ``method='ip'``, boundary rows included when ``have_boundaries``.
+    (KS or ST, with or without boundary rows).  ``'auto'`` and ``'fused'``:
+    the fused AL kernel engine, or the fused IP kernel engine for
+    ``method='ip'``, KS or ST, boundary rows included when
+    ``have_boundaries``.
     Boundary rows without boundary data: ``'auto'`` AL goes to ``sqp_vec``
     (whose rows then raise ``ValueError``), ``'fused'`` and IP raise
     ``ValueError`` as the JAX package does.  The cases the JAX package
@@ -136,19 +137,11 @@ def select_engine(scfg: sqp.SolverConfig, have_boundaries: bool = False):
                 f"engine='xla', method '{scfg.method}': the JAX package "
                 "solves it on the vmapped per-lane path, ROADMAP queue A, "
                 "item 9")
-        if scfg.model != "ks":
-            raise NotImplementedError(
-                f"engine='xla', model='{scfg.model}': the ST model is "
-                "ROADMAP queue A, item 1 (ST)")
         if scfg.lqr_backend == "pscan":
             raise NotImplementedError(
                 "lqr_backend='pscan': the parallel-scan sweep is ROADMAP "
                 "queue A, item 12")
         return sqp_vec.solve_batch_vec
-    if scfg.model != "ks":
-        raise NotImplementedError(
-            f"model='{scfg.model}': ST in the fused kernels is ROADMAP "
-            "queue A, item 1 (ST)")
     if scfg.boundary_rows and not have_boundaries:
         if scfg.method == "al" and scfg.engine != "fused":
             return sqp_vec.solve_batch_vec

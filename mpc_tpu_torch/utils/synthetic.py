@@ -12,6 +12,7 @@ import torch
 
 from mpc_tpu_torch.device import resolve_device
 from mpc_tpu_torch.models.constraints import circle_centers
+from mpc_tpu_torch.models import dynamics as dyn_mod
 from mpc_tpu_torch.models.costs import Weights
 from mpc_tpu_torch.ops import sqp
 from mpc_tpu_torch.planner import closed_loop as cl
@@ -120,6 +121,9 @@ def make_bench_loop(n_steps: int, horizon: int, n_lanes: int,
     nx = sqp.solver_nx(scfg)
     x_init = torch.tensor([path[0, 0], path[0, 1], 0.0, v, psi[0]],
                           dtype=dtype, device=dev)
+    if scfg.model == "st":
+        x_init = dyn_mod.ks_to_st_state(x_init, scfg.wheelbase,
+                                        scfg.vehicle.b)
     scale = np.zeros(nx)
     scale[:5] = [0.5, 0.15, 0.0, 0.5, 0.01]
     rng = np.random.default_rng(seed)

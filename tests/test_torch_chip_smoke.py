@@ -7,6 +7,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from mpc_tpu_torch.models.vehicle import VEHICLE_2
 from mpc_tpu_torch.ops import fused_gn as TF
 from mpc_tpu_torch.ops import sqp as TS
 from mpc_tpu_torch.planner import closed_loop as tcl
@@ -179,14 +180,71 @@ def test_unported_kernel_bound_from_its_shapes():
 
 @pytest.mark.parametrize("kw,kernel,launches", [
     (cs.WARM, "fused_gn", 104), (cs.IP_WARM, "fused_ip", 104),
-    (cs.XLA_WARM, "riccati", 148)], ids=["soft", "hard", "xla"])
+    (cs.XLA_WARM, "riccati", 148), (cs.SOFT_ST, "fused_gn_st", 104),
+    (cs.HARD_ST, "fused_ip_st", 104),
+    (cs.XLA_ST, "riccati", 12 + cs.XLA_ST_STEPS)],
+    ids=["soft", "hard", "xla", "soft-st", "hard-st", "xla-st"])
 def test_each_row_launches_its_kernel_as_often_as_it_solves(kw, kernel,
                                                             launches):
-    """One fused launch per cold start and step; one sweep per
-    Gauss-Newton step on the xla engine: 4 cold starts at 3x4 and 100
-    steps at 1x1."""
-    lcfg, _ = tsyn.make_bench_loop(cs.T_BENCH, H, 2, device="cpu", **kw)
+    """One fused launch per cold start and step (the ST library's for the
+    ST rows); one sweep per Gauss-Newton step on the xla engine: 4 cold
+    starts at 3x4 and 100 steps at 1x1 (XLA_ST_STEPS in the xla-st
+    row, after one cold start)."""
+    lcfg, _ = cs.bench_loop(n_lanes=2, device="cpu", **kw)
+    if kw is cs.XLA_ST:
+        lcfg = dataclasses.replace(lcfg, n_steps=cs.XLA_ST_STEPS)
     assert cs.row_kernel(lcfg) == (kernel, launches)
+
+
+def test_st_rows_name_their_libraries_and_kernels():
+    """The ST rows' engines are the ST libraries (fused_gn_st.cu,
+    fused_ip_st.cu), timed at their own threads a lane (4, 8); the
+    profiler tells their kernels (StModel in the symbol) from the KS
+    ones."""
+    lcfg, _ = cs.bench_loop(n_lanes=2, device="cpu", **cs.SOFT_ST)
+    eng = cs.engine(lcfg.solver)
+    assert eng.name == "fused_gn_st" and "814-822" in eng.replaces
+    assert eng.sweep(lcfg.solver) == (0, 4, 8)
+    lcfg, _ = cs.bench_loop(n_lanes=2, device="cpu", **cs.HARD_ST)
+    assert cs.engine(lcfg.solver).name == "fused_ip_st"
+    assert lcfg.solver.vehicle is not None
+    st = "fused_gn_kernel<4, false, StModel>(FgnArgs, Bufs)"
+    ks = "fused_gn_kernel<4, false, KsModel>(FgnArgs, Bufs)"
+    assert cs.kernel_symbol("fused_gn_st", st)
+    assert not cs.kernel_symbol("fused_gn_st", ks)
+    assert cs.kernel_symbol("fused_gn", ks)
+    assert not cs.kernel_symbol("fused_gn", st)
+    assert cs.kernel_symbol("riccati", "riccati_kernel<7>(RicArgs, RicBufs)")
+
+
+def test_kernels_line_carries_the_st_instances():
+    """The sweep's entry nests its nx=7 instance with every key the line
+    needs (its launches from the xla-st row); an ST library's boundary
+    instance, which no row of the main path drives, carries its checks'
+    launches and errors, registers and spills."""
+    errs = {"K": 1e-6, "d": 2e-6, "U": 3e-5, "X": 4e-5}
+    timing = {"ms": 0.2, "plain_ms": 9.0, "bound_ms": 0.1,
+              "bound_by": "bytes", "pack_ms": 0.5, "max_abs_err": errs}
+    loop = {"kernel_launches": 68}
+    info = {"registers": 255, "spill_stores": 0, "spill_loads": 0,
+            "smem_bytes_per_block": 0}
+    build = {"riccati": dict(info, st_instance=info),
+             "fused_gn_st": {"boundary_instance": dict(info, geometry={})}}
+    line = cs.riccati_kernel_line(loop, timing, {"c": errs}, {"v": errs},
+                                  build, (loop, timing, {"c": errs},
+                                          {"v": errs}))
+    sti = line["st_instance"]
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in line and key in sti, key
+    assert sti["launches"] == 68 and sti["name"] == "riccati nx=7"
+    eng = cs.engine(TS.SolverConfig(horizon=4, model="st",
+                                    vehicle=VEHICLE_2))
+    bnd = cs.st_boundary_line(eng, {"st_road1.7_al_3x4": errs},
+                              {"st_road1.7_al_3x4": 1}, build)
+    assert bnd["max_abs_err"] == 3e-5 and bnd["registers"] == 255
+    assert bnd["check_launches"] == 1 and "launches" not in bnd
 
 
 def test_road_boundaries_hold_the_reference_inside():

@@ -245,29 +245,43 @@ ROADMAP = (NotImplementedError, "ROADMAP")
 
 @pytest.mark.parametrize("solver_kw,loop_kw,raises", [
     (dict(method="ip", boundary_rows=True), {}, NO_DATA),
-    (dict(engine="xla", model="st"), {}, ROADMAP),
-    (dict(model="st"), {}, ROADMAP),
     (dict(boundary_rows=True), {}, NO_DATA),
     (dict(engine="xla", lqr_backend="pscan"), {}, ROADMAP),
     (dict(engine="xla", method="ip"), {}, ROADMAP),
     (dict(engine="fused", boundary_rows=True), {}, NO_DATA),
-], ids=["ip", "xla-st", "st", "boundary_rows", "xla-pscan", "xla-ip",
-        "fused-boundary_rows"])
+], ids=["ip", "boundary_rows", "xla-pscan", "xla-ip", "fused-boundary_rows"])
 def test_out_of_envelope_raises(solver_kw, loop_kw, raises):
     """Cases the port does not run: the ones the JAX package runs on a path
     not ported yet raise ``NotImplementedError`` naming the ROADMAP item;
     boundary rows without boundary data (the bench loop has none) raise
     the ``ValueError`` that the JAX package raises there."""
-    from mpc_tpu_torch.models.vehicle import VEHICLE_2
     lcfg, p = tsyn.make_bench_loop(3, 4, 2, device="cpu")
-    if solver_kw.get("model") == "st":
-        solver_kw = dict(solver_kw, vehicle=VEHICLE_2)
     lcfg = dataclasses.replace(
         lcfg, solver=dataclasses.replace(lcfg.solver, **solver_kw),
         **loop_kw)
     error, match = raises
     with pytest.raises(error, match=match):
         tcl.closed_loop_batch_vec(lcfg, p, device="cpu")
+
+
+@pytest.mark.parametrize("solver_kw,engine", [
+    (dict(engine="xla"), "solve_batch_vec"),
+    ({}, "solve_batch_fused"),
+    (dict(method="ip", ip_sqp_iters=1, ip_iters=2), "solve_batch_fused_ip"),
+], ids=["xla-st", "st", "ip-st"])
+def test_st_model_runs_on_every_engine(solver_kw, engine):
+    """The ST model goes where KS goes (the cases that raised before ST was
+    ported): engine='xla' to sqp_vec, 'auto' to the fused AL or IP solve;
+    a short loop of lifted 7-state starts runs on the CPU."""
+    from mpc_tpu_torch.models.vehicle import VEHICLE_2
+    lcfg, p = tsyn.make_bench_loop(3, 4, 2, device="cpu", model="st",
+                                   vehicle=VEHICLE_2, al_iters=1,
+                                   sqp_iters=1, alphas=(), **solver_kw)
+    lcfg = dataclasses.replace(lcfg, cold_start_solves=1)
+    assert tcl.select_engine(lcfg.solver).__name__ == engine
+    res = tcl.closed_loop_batch_vec(lcfg, p, device="cpu")
+    assert res.X.shape == (2, 3, 7) and bool(torch.isfinite(res.X).all())
+    assert bool((res.status >= 0).all())
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked_for():

@@ -148,11 +148,17 @@ def test_out_of_envelope_raises(kw, error, match):
 
 
 def test_st_model_raises():
+    """The ST model (ported since this test's name was given) runs on the
+    CPU: the wrapper widens the KS-schema OCP and returns the plain
+    version's 7-state solution."""
     from mpc_tpu_torch.models.vehicle import VEHICLE_2
     cfg = _tcfg(model="st", vehicle=VEHICLE_2)
-    with pytest.raises(NotImplementedError, match="ST"):
-        TF.solve_batch_fused(cfg, _tocp(), TS.init_state(cfg, batch=2),
-                             device="cpu")
+    p, st = _tocp(), TS.init_state(cfg, batch=2)
+    assert TF.eligible(cfg, p)
+    got = TF.solve_batch_fused(cfg, p, st, device="cpu")
+    ref = TF.to_solution(cfg, TF.solve_batch_fused_plain(cfg, p, st))
+    assert got.X.shape == (2, 5, 7) and bool(torch.isfinite(got.X).all())
+    assert torch.equal(got.U, ref.U) and torch.equal(got.status, ref.status)
 
 
 def test_moving_obstacles_are_eligible():
@@ -202,8 +208,9 @@ def test_launch_kernel_refuses_cpu_tensors():
 def test_kernel_argument_block_layout():
     """The ctypes mirror has the C struct's 4-byte fields, in order: 10
     integers, 24 floats, the ladder, then the boundary rows' flag and their
-    bound r_ego."""
-    assert ctypes.sizeof(TF.FgnArgs) == 4 * (10 + 24 + TF.MAX_ALPHAS + 2)
+    bound r_ego, then the ST model's 16 constants."""
+    assert ctypes.sizeof(TF.FgnArgs) == 4 * (10 + 24 + TF.MAX_ALPHAS + 2
+                                             + len(TF.ST_CONSTS))
     b = TF.kernel_args(_tcfg(boundary_rows=True), B=7, moving=False)
     assert b.boundary == 1 and b.r_ego == pytest.approx(1.2)
     a = TF.kernel_args(_tcfg(alphas=(1.0, 0.5), formulation="casadi"),
@@ -211,6 +218,12 @@ def test_kernel_argument_block_layout():
     assert (a.B, a.H, a.n_alphas, a.forcespro, a.moving) == (7, 4, 2, 0, 1)
     assert list(a.alphas)[:3] == [1.0, 0.5, 0.0]
     assert a.a_cap == pytest.approx(11.5) and a.u_lo1 == pytest.approx(-11.5)
+    # the ST model's constants close the block (zero for KS)
+    from mpc_tpu_torch.models.vehicle import VEHICLE_2
+    assert a.st.l == 0.0
+    st = TF.kernel_args(_tcfg(model="st", vehicle=VEHICLE_2), B=7,
+                        moving=False)
+    assert st.st.l == pytest.approx(VEHICLE_2.wheelbase)
 
 
 def test_ctypes_binding_matches_the_c_source():

@@ -152,11 +152,18 @@ def test_out_of_envelope_raises(kw, error, match):
 
 
 def test_st_model_raises():
+    """The ST model (ported since this test's name was given) runs on the
+    CPU: the wrapper widens the KS-schema OCP and returns the plain
+    version's 7-state solution."""
     from mpc_tpu_torch.models.vehicle import VEHICLE_2
     cfg = _tcfg(model="st", vehicle=VEHICLE_2)
-    with pytest.raises(NotImplementedError, match="ST"):
-        TFI.solve_batch_fused_ip(cfg, _tocp(), TS.init_state(cfg, batch=2),
-                                 device="cpu")
+    p, st = _tocp(), TS.init_state(cfg, batch=2)
+    assert TFI.eligible_ip(cfg, p)
+    got = TFI.solve_batch_fused_ip(cfg, p, st, device="cpu")
+    ref = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(cfg, p, st),
+                             st.mu)
+    assert got.X.shape == (2, 5, 7) and bool(torch.isfinite(got.X).all())
+    assert torch.equal(got.U, ref.U) and torch.equal(got.status, ref.status)
 
 
 def test_envelope_variants_are_eligible():
@@ -184,7 +191,8 @@ def test_barrier_count_and_argument_block():
     mirror has the C struct's 4-byte fields."""
     assert TFI.n_active(_tcfg(horizon=30)) == 30 * 19 + 15
     assert TFI.n_active(_tcfg(formulation="casadi")) == 4 * 19 + 15
-    assert ctypes.sizeof(TFI.IpArgs) == 4 * (11 + 18 + TF.MAX_ALPHAS + 2)
+    assert ctypes.sizeof(TFI.IpArgs) == 4 * (11 + 18 + TF.MAX_ALPHAS + 2
+                                             + len(TF.ST_CONSTS))
     a = TFI.kernel_args_ip(_tcfg(ip_alphas=(1.0, 0.5), ip_warm_duals=True,
                                  formulation="casadi", integrator="euler"),
                            B=7, moving=True)

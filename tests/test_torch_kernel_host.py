@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from mpc_tpu_torch.models.vehicle import VEHICLE_2
 from mpc_tpu_torch.ops import _build
 from mpc_tpu_torch.ops import fused_gn as TF
 from mpc_tpu_torch.ops import fused_ip as TFI
@@ -164,18 +165,28 @@ def host_libs(tmp_path_factory):
     (out / "cuda_runtime.h").write_text(SHIM)
     for header in _build.CSRC.glob("*.cuh"):
         shutil.copy(header, out / header.name)
-    libs = {}
+    # every source with its launch line run by host_launch, so that a
+    # source that includes another (fused_gn_st.cu) includes the host copy
+    launches = {}
+    for src in _build.CSRC.glob("*.cu"):
+        text, launches[src.name] = LAUNCH.subn(LOOP, src.read_text())
+        (out / src.name).write_text(SMEM.sub(SMEM_HOST, text))
+    jobs = {}
     for name in _build.SIGNATURES:
-        src, n = LAUNCH.subn(LOOP, (_build.CSRC / f"{name}.cu").read_text())
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        n = launches[f"{name}.cu"] + sum(
+            launches[i] for i in _build._INCLUDED_SOURCE.findall(text))
         assert n == 1, f"{name}.cu: expected one kernel launch line"
-        src = SMEM.sub(SMEM_HOST, src)
-        (out / f"{name}.cpp").write_text(src)
         lib = out / f"lib{name}.so"
-        subprocess.run([cxx, "-O1", "-std=c++20", "-shared", "-fPIC",
-                        "-pthread",
-                        "-ffp-contract=off", "-I", str(out), "-o", str(lib),
-                        str(out / f"{name}.cpp")], check=True,
-                       capture_output=True, timeout=300)
+        jobs[name] = (lib, subprocess.Popen(
+            [cxx, "-O1", "-std=c++20", "-shared", "-fPIC", "-pthread",
+             "-ffp-contract=off", "-I", str(out), "-x", "c++", "-o",
+             str(lib), str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = {}
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, log.decode()[-4000:]
         libs[name] = ctypes.CDLL(str(lib))
     return libs
 
@@ -189,10 +200,11 @@ def run_host(libs, name, args, bufs, order):
 
 
 def host_gn(libs, cfg, ocp, st, threads_per_lane=2):
-    """The AL source on the host: 32 lanes and ``threads_per_lane`` warps a
-    block (B=5 lanes leave the block ragged)."""
+    """The AL source of ``cfg``'s model on the host: 32 lanes and
+    ``threads_per_lane`` warps a block (B=5 lanes leave the block
+    ragged)."""
     bufs = TF.pack(cfg, ocp, st, trace_rungs=True)
-    run_host(libs, "fused_gn", TF.kernel_args(
+    run_host(libs, TF.kernel_name(cfg), TF.kernel_args(
         cfg, ocp.x0.shape[0], ocp.obs_centers.dim() == 4, threads_per_lane),
         bufs, TF.KERNEL_ORDER)
     sol = TF.to_solution(cfg, TF.unpack(bufs))
@@ -202,10 +214,10 @@ def host_gn(libs, cfg, ocp, st, threads_per_lane=2):
 
 
 def host_ip(libs, cfg, ocp, st, lanes_per_block=2):
-    """The IP source on the host: a block of ``lanes_per_block`` warps (B=5
-    lanes leave the last block ragged)."""
+    """The IP source of ``cfg``'s model on the host: a block of
+    ``lanes_per_block`` warps (B=5 lanes leave the last block ragged)."""
     bufs = TFI.pack_ip(cfg, ocp, st, trace_rungs=True)
-    run_host(libs, "fused_ip", TFI.kernel_args_ip(
+    run_host(libs, TF.kernel_name(cfg, "fused_ip"), TFI.kernel_args_ip(
         cfg, ocp.x0.shape[0], ocp.obs_centers.dim() == 4, lanes_per_block),
         bufs, TFI.KERNEL_ORDER)
     return bufs, TFI.to_solution_ip(cfg, TFI.unpack_ip(bufs), st.mu)
@@ -393,7 +405,7 @@ def test_fused_ip_shared_memory_footprint_matches_the_source(host_libs,
 
 def corridor_ocp(**kw):
     """B=5 lanes at H=12 on the bending road of ``chip_smoke`` (the bench
-    loop's step 40, in the swerve), 1.3 m either side of the reference, so
+    loop's step 32, in the swerve), 1.3 m either side of the reference, so
     that the boundary rows bind."""
     lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, 12, B, device="cpu",
                                     boundary_rows=True, **kw)
@@ -438,7 +450,8 @@ def test_fused_ip_source_with_boundary_rows(host_libs):
 def host_riccati(libs, quad, QH, qH, dyn, reg):
     bufs = TRK.pack(quad, QH, qH, dyn)
     Hs, _, Bs = bufs["Q"].shape
-    run_host(libs, "riccati", TRK.RicArgs(B=Bs, H=Hs, threads=2, reg=reg),
+    run_host(libs, "riccati", TRK.RicArgs(B=Bs, H=Hs, threads=2, reg=reg,
+                                          nx=quad.Q.shape[-1]),
              bufs, TRK.KERNEL_INPUTS + TRK.KERNEL_OUTPUTS)
     return TRK.unpack(bufs)
 
@@ -493,3 +506,144 @@ def test_xla_engine_with_the_riccati_source_matches_the_plain_sweep(
     ker = TSV.solve_batch_vec(cfg, ocp, st, device="cpu", sweep=host_sweep)
     pln = TSV.solve_batch_vec(cfg, ocp, st, device="cpu")
     assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
+
+
+# --------------------------------------------------------------------------
+# the ST model's libraries (fused_gn_st.cu, fused_ip_st.cu) and the sweep's
+# nx=7 instance
+# --------------------------------------------------------------------------
+
+ST = dict(model="st", vehicle=VEHICLE_2)
+ST_CASES = {f"al-{k}": v for k, v in AL_CASES.items()}
+ST_CASES.update({f"ip-{k}": v for k, v in IP_CASES.items()})
+
+
+@pytest.mark.parametrize("case", list(ST_CASES))
+def test_st_sources_match_the_plain_version(host_libs, case):
+    """Both fused sources' ST instances (4 threads a lane; 2 lanes a
+    block) against the plain versions, at the KS cases' budgets, all 7
+    states in the X band."""
+    cfg, ocp = bench_ocp(**ST_CASES[case], **ST)
+    st = TS.init_state(cfg, batch=B)
+    if cfg.method == "ip":
+        bufs, ker = host_ip(host_libs, cfg, ocp, st)
+        pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
+            cfg, ocp, st, follow=bufs.get("rung")), st.mu)
+        assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
+    else:
+        bufs, ker = host_gn(host_libs, cfg, ocp, st, 4)
+        pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
+            cfg, ocp, st, follow=bufs.get("rung")))
+        assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
+    assert ker.X.shape == (B, H + 1, 7)
+
+
+@pytest.mark.parametrize("method", ["al", "ip"])
+def test_st_sources_with_boundary_rows(host_libs, method):
+    """The ST libraries' boundary instances on the bending road whose rows
+    bind (the KS cases' budgets: al 3x2 with the ladder, ip 2x6 with warm
+    duals and the ladder)."""
+    kw = (dict(al_iters=3, sqp_iters=2) if method == "al" else
+          dict(method="ip", ip_sqp_iters=2, ip_iters=6, ip_warm_duals=True))
+    cfg, ocp = corridor_ocp(**kw, **ST)
+    st = TS.init_state(cfg, batch=B)
+    if method == "ip":
+        bufs, ker = host_ip(host_libs, cfg, ocp, st)
+        pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
+            cfg, ocp, st, follow=bufs.get("rung")), st.mu)
+        assert_close(ker, pln, cs.IP_BANDS,
+                     {"lam_hi": cs.IP_STATE_BANDS["lam_hi"]})
+        # the boundary rows' duals of a lane running along the edge are
+        # degenerate (ROADMAP, known behaviours): lam_lo is held on the
+        # lanes where the plain version's own float32 and float64 solves
+        # agree, as chip_smoke's rounding_lanes excuses the others, here
+        # one lane of five
+        o64, s64 = cs.as_float64(ocp._replace(
+            boundaries=ocp.boundaries.double(),
+            boundary_signs=ocp.boundary_signs.double()), st)
+        p64 = TFI.solve_batch_fused_ip_plain(cfg, o64, s64,
+                                             follow=bufs.get("rung"))
+        band = cs.IP_STATE_BANDS["lam_lo"]
+        noisy = ~cs.lanes_close(pln.state.lam_lo.double(), p64[2], *band)
+        assert int(noisy.sum()) <= 1
+        assert bool((cs.lanes_close(ker.state.lam_lo, pln.state.lam_lo,
+                                    *band) | noisy).all())
+    else:
+        bufs, ker = host_gn(host_libs, cfg, ocp, st, 4)
+        pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
+            cfg, ocp, st, follow=bufs.get("rung")))
+        assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
+    assert cs.active_boundary_rows(cfg, pln.X, ocp.boundaries,
+                                   ocp.boundary_signs) > 0
+    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
+                               rtol=0.0, atol=1e-3)
+
+
+def test_st_al_source_at_eight_threads_a_lane_and_h40(host_libs):
+    """B=5 ragged lanes at 8 threads a lane, H=40, moving obstacles, the
+    ladder on: the ST ring's operand (71 floats) through several slots a
+    producer."""
+    cfg, ocp = bench_ocp(horizon=40, moving=True, al_iters=2, sqp_iters=2,
+                         **ST)
+    st = TS.init_state(cfg, batch=B)
+    bufs, ker = host_gn(host_libs, cfg, ocp, st, 8)
+    pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
+        cfg, ocp, st, follow=bufs.get("rung")))
+    assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
+
+
+@pytest.mark.parametrize("kernel,horizon,knob,boundary", [
+    ("fused_gn", 1, 4, False), ("fused_gn", 30, 4, False),
+    ("fused_gn", 30, 8, True), ("fused_gn", TF.MAX_HORIZON_ST, 8, False),
+    ("fused_ip", 1, 0, False), ("fused_ip", 30, 0, False),
+    ("fused_ip", 30, 0, True), ("fused_ip", 63, 0, True)])
+def test_st_shared_memory_footprints_match_the_sources(host_libs, kernel,
+                                                       horizon, knob,
+                                                       boundary):
+    """``lane_smem_bytes`` at nx=7, which the eligibility reads, is the ST
+    library's own footprint of one lane (fused_gn: ``lane_floats`` at
+    ``knob`` threads a lane; fused_ip: ``Layout``), and the geometry of that
+    instance takes it."""
+    lib = host_libs[f"{kernel}_st"]
+    cfg = TS.SolverConfig(horizon=horizon, boundary_rows=boundary,
+                          method="ip" if kernel == "fused_ip" else "al",
+                          **dict(ST, vehicle=VEHICLE_2))
+    out = (ctypes.c_int32 * 6)()
+    if kernel == "fused_gn":
+        want = TF.lane_smem_bytes(horizon, knob, 7)
+        lib.fused_gn_lane_floats.restype = ctypes.c_int
+        assert 4 * lib.fused_gn_lane_floats(horizon, knob) == want
+        lib.fused_gn_geometry.restype = ctypes.c_int
+        assert lib.fused_gn_geometry(ctypes.byref(
+            TF.kernel_args(cfg, 64, False, knob)), out) == 0
+        assert (out[0], out[2], out[3]) == (knob, want, 32 * want)
+    else:
+        want = TFI.lane_smem_bytes(horizon, boundary, 7)
+        lib.fused_ip_lane_floats.restype = ctypes.c_int
+        assert 4 * lib.fused_ip_lane_floats(horizon, int(boundary)) == want
+        lib.fused_ip_geometry.restype = ctypes.c_int
+        assert lib.fused_ip_geometry(ctypes.byref(
+            TFI.kernel_args_ip(cfg, 64, False)), out) == 0
+        assert out[1] == want
+        assert out[5] == min(12, TFI.SMEM_PER_BLOCK // want)
+
+
+@pytest.mark.parametrize("case", ["random", "st-bench-step0"])
+def test_riccati_source_at_seven_states(host_libs, case):
+    """The sweep's nx=7 instance against the plain sweep: random 7-state
+    problems, and the ST xla engine's step-0 quadratics with a defect."""
+    if case == "random":
+        quad, QH, qH, dyn = cs.random_lqr(np.random.default_rng(1), B, H,
+                                          nx=7)
+    else:
+        cfg, ocp = bench_ocp(al_iters=1, sqp_iters=1, alphas=(),
+                             engine="xla", **ST)
+        quad, QH, qH, dyn = cs.gn_problem(cfg, ocp,
+                                          TS.init_state(cfg, batch=B))
+        r = 0.01 * torch.sin(torch.arange(dyn.r.numel(),
+                                          dtype=torch.float32))
+        dyn = dyn._replace(r=r.reshape(dyn.r.shape))
+    ker = host_riccati(host_libs, quad, QH, qH, dyn, 1e-6)
+    pln = TRV.backward_pass_vec_plain(quad, QH, qH, dyn, 1e-6)
+    assert ker.K.shape == (B, H, 2, 7)
+    assert bool(cs.riccati_lanes_close(ker, pln).all())

@@ -55,17 +55,29 @@ def test_ks_ode_matches_jax():
 def test_discrete_steps_match_jax(integrator):
     x, u = _xu(1)
     j = {"rk4": JD.rk4_step, "euler": JD.euler_step}[integrator]
-    t = {"rk4": TD.rk4_step, "euler": TD.euler_step}[integrator]
-    _close(j(jnp.asarray(x), jnp.asarray(u), 0.1, WB),
-           t(torch.from_numpy(x), torch.from_numpy(u), 0.1, WB))
     step = TD.make_step_fn(integrator, 0.1, WB)
+    _close(j(jnp.asarray(x), jnp.asarray(u), 0.1, WB),
+           step(torch.from_numpy(x), torch.from_numpy(u)))
     _close(JD.make_step_fn(integrator, 0.1, WB)(jnp.asarray(x),
                                                 jnp.asarray(u)),
            step(torch.from_numpy(x), torch.from_numpy(u)))
 
 
 def test_st_step_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ST"):
+    """The ST model's step (ported since this test's name was given): RK4
+    and Euler match JAX's ``make_step_fn(..., 'st')`` on lifted states,
+    and the step still needs its vehicle."""
+    x, u = _xu(3)
+    x7 = JD.ks_to_st_state(jnp.asarray(x), WB, JV.VEHICLE_2.b)
+    veh = convert.vehicle(JV.VEHICLE_2)
+    for integrator in ("rk4", "euler"):
+        ref = JD.make_step_fn(integrator, 0.1, WB, "st", JV.VEHICLE_2)(
+            x7, jnp.asarray(u))
+        got = TD.make_step_fn(integrator, 0.1, WB, model="st", vehicle=veh)(
+            torch.from_numpy(np.asarray(x7)), torch.from_numpy(u))
+        assert got.shape == (16, 7)
+        _close(ref, got, atol=2e-5)
+    with pytest.raises(ValueError, match="vehicle"):
         TD.make_step_fn("rk4", 0.1, WB, model="st")
 
 

@@ -147,8 +147,17 @@ def test_feedback_rollout_matches_jax_at_three_alphas():
 
 
 def test_feedback_rollout_of_the_st_model_raises():
+    """The ST rollout (ported since this test's name was given): at rest
+    with zero inputs and gains every state stays put, and the ST rows need
+    their vehicle."""
+    from mpc_tpu_torch.models.vehicle import VEHICLE_2
     z = torch.zeros
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    Xa, Ua = TRV.feedback_rollout_vec(
+        0.1, 2.578, z(1, 7), z(1, 3, 7), z(1, 2, 2), z(1, 2, 2, 7),
+        z(1, 2, 2), (1.0,), (-1.0, -1.0), (1.0, 1.0), "rk4", "st", VEHICLE_2)
+    assert Xa.shape == (1, 1, 3, 7) and Ua.shape == (1, 1, 2, 2)
+    assert torch.equal(Xa, torch.zeros_like(Xa))
+    with pytest.raises(ValueError, match="vehicle"):
         TRV.feedback_rollout_vec(0.1, 2.578, z(1, 7), z(1, 3, 7), z(1, 2, 2),
                                  z(1, 2, 2, 7), z(1, 2, 2), (1.0,),
                                  (-1.0, -1.0), (1.0, 1.0), "rk4", "st")
