@@ -1,6 +1,6 @@
 """Run the PyTorch/CUDA port on one NVIDIA GPU: build its kernels, hold
-each kernel against its plain PyTorch version, and drive the closed loops
-of the port at the bench point.
+each kernel against its plain PyTorch version, drive the closed loops of
+the port at the bench point, and plan CommonRoad scenarios end to end.
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
 
@@ -103,6 +103,18 @@ Phases, each printing one JSON line (``"phase": ...``):
             unprofiled cold start; soft-st and hard-st: steps 50..59): device time of the kernel and of the
             eager glue around it, by kernel name, and of
             linearize_boundaries in the corridor rows;
+
+8. planner  the scenario-to-trajectory path on the per-lane solve, which
+            launches none of these kernels: the float64 regression goldens
+            of one AL and one IP config (``run_closed_loop`` on the card,
+            tests/test_closed_loop.py's atol 1e-4); the deployment config
+            (``configs/config_CA_ZAM_Over-1_1_forcespro.yaml``) through the
+            CLI in a subprocess, plain (exit 0, the native library, no -7
+            step) and with ``--rti1`` (exit 0); C2's two routes, the IP
+            wrapper past its envelope (H=64, B=64, float64 on both sides)
+            and the xla IP loop (B=256, T=10), each with no kernel launched
+            and within the bands of the CPU run; and ``torch.profiler``
+            over warm steps of the deployment's loop;
 
 then the card's name and power limit, the kernels line, and as the last
 line ``{"ok": true, "device": {...}}``.  A phase that fails raises: the
@@ -217,6 +229,25 @@ ONE_TIMED_RUN_S = 20.0
 # merits, and a ladder stuck at alpha = 0 is far outside it
 # (tests/test_torch_chip_smoke.py).
 TIE_RTOL = 1e-4
+# The planner phase: the scenario-to-trajectory path on the per-lane solve.
+# The float64 regression goldens of tests/test_closed_loop.py:179-208 (one
+# AL and one IP config, each T=30) at that test's tolerance; the deployment
+# config through the CLI; C2's two routes (the IP wrapper outside its
+# kernel's envelope, the xla loop with method='ip') at the given shapes; and
+# a profile of PROFILE_STEPS warm steps of the deployment's loop.
+PLANNER_GOLDENS = (("config_LF_ZAM_Over-1_1.yaml", "zam_lf_casadi"),
+                   ("config_CA_ZAM_Over-1_1_forcespro_ref.yaml",
+                    "zam_ca_forcespro"))
+GOLDEN_RTOL, GOLDEN_ATOL = 1e-7, 1e-4   # np.testing.assert_allclose there
+DEPLOYMENT = "config_CA_ZAM_Over-1_1_forcespro.yaml"
+# the JAX package's CLI on the CPU, deterministic, for comparison only: the
+# CA loops are chaotic across backends in float32
+JAX_CPU_STATUS_COUNTS = {"default": {"0": 18, "1": 12},
+                         "rti1": {"-7": 2, "0": 24, "1": 4}}
+C2_SOLVE = dict(horizon=64, lanes=64)   # H=64: past the IP kernel's 63
+C2_LOOP = dict(lanes=256, steps=10)
+LOOP_BANDS = {"X": 5e-2, "U": 5e-3}     # tests/test_torch_closed_loop.py
+PROFILE_STEPS = 3
 
 
 def emit(obj):
@@ -1535,6 +1566,235 @@ def phase_profile(dev, row, lcfg, lp, window=None, start=0):
     return line
 
 
+def planner_golden(dev, config, tag):
+    """One float64 regression golden on ``dev``: ``make_loop_config`` +
+    ``make_loop_params`` + ``run_closed_loop`` (deterministic, the per-lane
+    solve) against ``tests/goldens/<tag>_states.txt``; no kernel
+    launches."""
+    from mpc_tpu_torch.io.config import load_config
+    from mpc_tpu_torch.planner import closed_loop as cl
+    c = load_config(str(ROOT / "configs" / config), str(ROOT / "scenarios"))
+    lcfg = cl.make_loop_config(c, noised=False)
+    lp = cl.make_loop_params(c, lcfg, dtype=torch.float64, device=dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cl.run_closed_loop(lcfg, lp, device=dev)
+    X = res.X.cpu().numpy()
+    seconds = time.perf_counter() - t0
+    golden = np.loadtxt(ROOT / "tests" / "goldens" / f"{tag}_states.txt")
+    err = float(np.abs(X - golden).max())
+    ok = X.shape == golden.shape and bool(np.all(
+        np.abs(X - golden) <= GOLDEN_ATOL + GOLDEN_RTOL * np.abs(golden)))
+    launches = {k: n for k, n in launch_counts().items() if n}
+    line = {"phase": "planner", "case": f"golden_{tag}", "config": config,
+            "method": lcfg.solver.method, "steps": lcfg.n_steps,
+            "dtype": "float64", "max_abs_dX": err, "atol": GOLDEN_ATOL,
+            "loop_s": seconds, "ms_per_step": seconds / lcfg.n_steps * 1e3,
+            "kernel_launches": launches}
+    emit(line)
+    require(ok, f"golden {tag} on the card: max |dX| {err:.3g}")
+    require(not launches, f"golden {tag}: kernels launched: {launches}")
+    return line
+
+
+def planner_cli(dev, rti1=False):
+    """The deployment config through the port's CLI in a subprocess on the
+    card: exit 0 (no obstacle or boundary collision); without --rti1 also
+    the native library and no infeasible (-7) step."""
+    case = "rti1" if rti1 else "default"
+    cmd = [sys.executable, "-m", "mpc_tpu_torch.planner.cli",
+           "--config", str(ROOT / "configs" / DEPLOYMENT),
+           "--scenario-dir", str(ROOT / "scenarios"), "--deterministic",
+           "--device", str(dev)] + (["--rti1"] if rti1 else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"planner CLI ({case}) exit {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    summary = json.loads(proc.stdout)
+    counts = summary["solver_status_counts"]
+    emit({"phase": "planner", "case": f"cli_{case}", "config": DEPLOYMENT,
+          "exit_code": proc.returncode, "process_s": seconds,
+          "summary": summary,
+          "jax_cpu_status_counts": JAX_CPU_STATUS_COUNTS[case]})
+    require(summary["device"] == str(dev),
+            f"planner CLI ({case}) ran on {summary['device']}")
+    if not rti1:
+        require(summary["native"], "planner CLI: native library not built")
+        require("-7" not in counts, f"planner CLI: infeasible steps {counts}")
+    return summary
+
+
+def planner_c2_solve(dev, horizon, lanes):
+    """C2, first half: ``solve_batch_fused_ip`` outside the IP kernel's
+    envelope (H = ``horizon`` > 63) on the overtake problem at the
+    deployment budget (ip 2x6 warm duals, the default ladder) takes the
+    per-lane path on the card: no kernel launches, and the solution within
+    the bands of tests/test_fused_ip.py of the same call on the CPU, with
+    the same status, on every lane.  Both run in float64: at this horizon
+    the CPU's own float32 and float64 solves part on 6 to 16 of 64 lanes
+    (U by up to 0.57, warm or cold), so float32 alone does not determine
+    the digits the bands read."""
+    from mpc_tpu_torch.ops import fused_ip as FI
+    from mpc_tpu_torch.ops import sqp as S
+    lcfg, lp = bench_loop(horizon=horizon, n_lanes=lanes, device="cpu",
+                          method="ip", ip_sqp_iters=2, ip_iters=6,
+                          ip_warm_duals=True)
+    cfg = lcfg.solver
+    ocp, st = as_float64(ocp_at(lcfg, lp), S.init_state(cfg, batch=lanes))
+    reason = FI.ineligible_reason_ip(cfg, ocp)
+    require(reason is not None, f"H={horizon} is inside the IP envelope")
+    ocp_d = S.map_tensors(ocp, lambda t: t.to(dev))
+    st_d = st.map(lambda t: t.to(dev))
+    reset_launch_counts()
+    ms, got = cuda_ms(lambda: FI.solve_batch_fused_ip(cfg, ocp_d, st_d,
+                                                      device=dev))
+    launches = {k: n for k, n in launch_counts().items() if n}
+    ref = FI.solve_batch_fused_ip(cfg, ocp, st, device="cpu")
+    inband = {f: lanes_close(getattr(got, f).cpu(), getattr(ref, f), *band)
+              for f, band in IP_BANDS.items()}
+    inband["status"] = got.status.cpu() == ref.status
+    bad = ~torch.stack(list(inband.values())).all(0)
+    line = {"phase": "planner", "case": "c2_fused_ip_fallback",
+            "horizon": horizon, "lanes": lanes, "dtype": "float64",
+            "reason": reason,
+            "budget": "ip 2x6, warm duals, default ip_alphas",
+            "ms": ms, "kernel_launches": launches,
+            "max_abs_err": {f: max_abs(getattr(got, f).cpu(),
+                                       getattr(ref, f))
+                            for f in ("X", "U", "kkt_stat")},
+            "lanes_outside_bands": int(bad.sum())}
+    emit(line)
+    require(not launches, f"C2 fallback launched kernels: {launches}")
+    require(not bool(bad.any()), "C2 fallback on the card differs from the "
+            "CPU")
+    return line
+
+
+def planner_c2_loop(dev, card, lanes, steps):
+    """C2, second half: ``closed_loop_batch_vec`` with engine='xla',
+    method='ip' (ip 1x4 warm, unguarded) runs ``closed_loop_batch`` on the
+    per-lane solve: no kernel launches, X and U within the closed-loop
+    bands of the CPU run and the same feasible lane-steps, a lane outside
+    them excused only by rounding (the CPU's float32 and float64 loops part
+    there), at most MAX_ROUNDING_SHARE of the lanes; solves/s as a
+    record."""
+    from mpc_tpu_torch.planner import closed_loop as cl
+    lcfg, lp = bench_loop(n_lanes=lanes, device="cpu", engine="xla",
+                          **IP_WARM)
+    lcfg = dataclasses.replace(lcfg, n_steps=steps)
+    lp_d = lp.map(lambda t: t.to(dev))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = cl.closed_loop_batch_vec(lcfg, lp_d, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: n for k, n in launch_counts().items() if n}
+    ref = cl.closed_loop_batch_vec(lcfg, lp, device="cpu")
+
+    def inband_of(a, b, bands):
+        out = {f: ((getattr(a, f).cpu().double()
+                    - getattr(b, f).cpu().double()).abs().nan_to_num(
+                        float("inf")).flatten(1).amax(1) <= band)
+               for f, band in bands.items()}
+        out["feasible"] = ((a.status.cpu() >= 0)
+                           == (b.status.cpu() >= 0)).all(1)
+        return out
+
+    bad = ~torch.stack(list(inband_of(got, ref, LOOP_BANDS).values())).all(0)
+    excused = torch.zeros_like(bad)
+    if bool(bad.any()):
+        lanes_bad = bad.nonzero()[:, 0]
+        sub = lp.map(lambda t: t[lanes_bad] if t.dim() else t)
+        ref_sub = cl.closed_loop_batch_vec(lcfg, sub, device="cpu")
+        sub64 = sub.map(lambda t: t.double() if t.is_floating_point() else t)
+        ref64 = cl.closed_loop_batch_vec(lcfg, sub64, device="cpu")
+        excused[lanes_bad] = ~torch.stack(list(inband_of(
+            ref_sub, ref64, LOOP_BANDS).values())).all(0)
+    name, limit = [s.strip() for s in card.split(",", 1)]
+    line = {"phase": "planner", "case": "c2_xla_ip_loop", "lanes": lanes,
+            "steps": steps, "horizon": lcfg.solver.horizon,
+            "budget": "ip 1x4, warm duals, ip_alphas=()",
+            "cold_start_solves": lcfg.cold_start_solves,
+            "loop_s": seconds, "solves_per_s": lanes * steps / seconds,
+            "kernel_launches": launches,
+            "max_abs_err": {"X": max_abs(got.X.cpu(), ref.X),
+                            "U": max_abs(got.U.cpu(), ref.U)},
+            "feasible_steps": int((got.status >= 0).sum()),
+            "feasible_steps_cpu": int((ref.status >= 0).sum()),
+            "lanes_outside_bands": int(bad.sum()),
+            "rounding_lanes": int((bad & excused).sum()),
+            "gpu": name, "power_limit": limit}
+    emit(line)
+    require(not launches, f"C2 loop launched kernels: {launches}")
+    require(not bool((bad & ~excused).any())
+            and int(bad.sum()) <= MAX_ROUNDING_SHARE * lanes,
+            "C2 loop on the card differs from the CPU")
+    return line
+
+
+def planner_profile(dev, steps=PROFILE_STEPS):
+    """``steps`` warm steps of the deployment's loop (one lane, the
+    per-lane solve, float32) under ``torch.profiler``, after its cold start
+    and one unprofiled step, and the same steps unprofiled on the host
+    clock: device kernels launched a step, device-busy ms against wall ms a
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpc_tpu_torch.io.config import load_config
+    from mpc_tpu_torch.planner import closed_loop as cl
+    c = load_config(str(ROOT / "configs" / DEPLOYMENT),
+                    str(ROOT / "scenarios"))
+    lcfg = cl.make_loop_config(c, noised=False)
+    lp = cl.make_loop_params(c, lcfg, device=dev)
+    carry = cl.init_carry(lcfg, lp, dev)
+    carry, _ = cl.closed_loop_chunk(lcfg, lp, carry, 1, dev)
+    torch.cuda.synchronize()
+    start = carry
+    t0 = time.perf_counter()
+    cl.closed_loop_chunk(lcfg, lp, start, steps, dev)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cl.closed_loop_chunk(lcfg, lp, start, steps, dev)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != cuda:
+            continue
+        n, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    require(by_name, "the profiler saw no device kernels")
+    busy = sum(ms for _, ms in by_name.values()) / steps
+    launches = sum(n for n, _ in by_name.values()) / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    line = {"phase": "planner", "case": "profile", "config": DEPLOYMENT,
+            "steps": steps, "wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy,
+            "device_launches_per_step": launches,
+            "idle_share": 1.0 - busy / wall_ms,
+            "top": [{"kernel": k[:80], "launches": n, "ms": ms}
+                    for k, (n, ms) in top]}
+    emit(line)
+    return line
+
+
+def phase_planner(dev, card):
+    """The scenario-to-trajectory path on the card: the two goldens, the
+    deployment through the CLI (and with --rti1), C2's two routes, and the
+    deployment loop's profile."""
+    out = {"goldens": [planner_golden(dev, c, t) for c, t in PLANNER_GOLDENS],
+           "cli": planner_cli(dev), "cli_rti1": planner_cli(dev, rti1=True),
+           "c2_solve": planner_c2_solve(dev, **C2_SOLVE),
+           "c2_loop": planner_c2_loop(dev, card, **C2_LOOP),
+           "profile": planner_profile(dev)}
+    return out
+
+
 def boundary_instance_line(eng, loop, timing, warm, cold, checks, build):
     """The boundary-row instance of one fused kernel in its corridor row:
     the launches of the row's loop, the largest errors of its checks, the
@@ -1778,6 +2038,7 @@ def main() -> int:
         kernel_line(hard_st, loop_ip_st, timing_ip_st, "warm_1x4",
                     "cold_5x10", checks_ip_st, build, st_boundary_line(
                         hard_st, *roads_st("_ip_"), build))]
+    timed("planner", phase_planner, dev, card)
     print(card, flush=True)
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})

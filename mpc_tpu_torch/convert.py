@@ -14,9 +14,11 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from mpc_tpu_torch.io import config as config_mod
 from mpc_tpu_torch.models import constraints as C
 from mpc_tpu_torch.models import costs as cost_mod
 from mpc_tpu_torch.models import vehicle as veh_mod
+from mpc_tpu_torch.ops import ipqp
 from mpc_tpu_torch.ops import riccati
 from mpc_tpu_torch.ops import sqp
 from mpc_tpu_torch.planner import closed_loop as cl
@@ -133,3 +135,27 @@ def loop_config(lcfg) -> cl.LoopConfig:
     f = fields_of(lcfg)
     f["solver"] = solver_config(f["solver"])
     return cl.LoopConfig(**f)
+
+
+def qp_data(q, device=None) -> ipqp.QpData:
+    f = fields_of(q)
+    return ipqp.QpData(**{k: tensor(f[k], device)
+                          for k in ipqp.QpData._fields})
+
+
+def ip_state(s, device=None) -> ipqp.IpState:
+    f = fields_of(s)
+    return ipqp.IpState(**{k: tensor(f[k], device)
+                           for k in ipqp.IpState._fields})
+
+
+def planning_config(c) -> config_mod.PlanningConfig:
+    """PlanningConfig from the JAX package's (or a field dict): arrays as
+    numpy float64 arrays, the vehicle as the port's."""
+    f = fields_of(c)
+    for k, v in f.items():
+        if v is not None and hasattr(v, "shape") and not isinstance(
+                v, np.ndarray):
+            f[k] = np.asarray(v)
+    f["vehicle"] = vehicle(f["vehicle"])
+    return config_mod.PlanningConfig(**f)

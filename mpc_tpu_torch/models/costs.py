@@ -1,7 +1,8 @@
 """Quadratic tracking-cost weights (``mpc_tpu.models.costs``).
 
-The 12-weight schema of the reference planner's YAML ``weights_setting``.
-Stage and terminal costs are evaluated inside the fused solve.
+The 12-weight schema of the reference planner's YAML ``weights_setting``
+and the weighted least-squares costs over it.  The fused kernels evaluate
+the same costs inside their solves.
 """
 from __future__ import annotations
 
@@ -52,3 +53,30 @@ class Weights:
     def map(self, fn) -> "Weights":
         """Apply ``fn`` to every field (broadcast, move, slice)."""
         return Weights(q=fn(self.q), r=fn(self.r), qN=fn(self.qN))
+
+
+def stage_cost(x: torch.Tensor, u: torch.Tensor, x_ref: torch.Tensor,
+               w: Weights) -> torch.Tensor:
+    """l(x, u) = (x - x_ref)' diag(q) (x - x_ref) + u' diag(r) u over the
+    last axis; the weights broadcast against the states."""
+    dx = x - x_ref
+    return torch.sum(w.q * dx * dx, dim=-1) + torch.sum(w.r * u * u, dim=-1)
+
+
+def terminal_cost(x: torch.Tensor, x_ref: torch.Tensor,
+                  w: Weights) -> torch.Tensor:
+    """lN(x) = (x - x_ref)' diag(qN) (x - x_ref) over the last axis."""
+    dx = x - x_ref
+    return torch.sum(w.qN * dx * dx, dim=-1)
+
+
+def trajectory_cost(X: torch.Tensor, U: torch.Tensor, X_ref: torch.Tensor,
+                    w: Weights, use_terminal: bool) -> torch.Tensor:
+    """Cost of a horizon: X (..., N+1, NX), U (..., N, NU), X_ref (..., N+1,
+    NX) with row k the target of state k; the stage costs of states
+    0..N-1 plus, with ``use_terminal``, the terminal cost of state N."""
+    stage = torch.sum(stage_cost(X[..., :-1, :], U, X_ref[..., :-1, :], w),
+                      dim=-1)
+    if not use_terminal:
+        return stage
+    return stage + terminal_cost(X[..., -1, :], X_ref[..., -1, :], w)

@@ -1507,13 +1507,7 @@ def launch_kernel(cfg: S.SolverConfig, params: S.OcpParams,
 
 
 def _to(tree, dev):
-    if tree is None:
-        return None
-    if torch.is_tensor(tree):
-        return tree.to(dev)
-    if hasattr(tree, "map"):
-        return tree.map(lambda t: t.to(dev))
-    return type(tree)(*(_to(t, dev) for t in tree))
+    return S.map_tensors(tree, lambda t: t.to(dev))
 
 
 def solve_batch_fused(cfg: S.SolverConfig, params: S.OcpParams,

@@ -684,20 +684,20 @@ def solve_batch_fused_ip(cfg: S.SolverConfig, params: S.OcpParams,
     ``fused_ip.solve_batch_fused_ip``.
 
     Runs on ``device`` (default: the GPU, see ``resolve_device``): CUDA
-    tensors go to the kernel, CPU tensors to the plain version.  Boundary
-    rows without boundary data raise ``ValueError``, as the rows of the JAX
-    package's fallback do; other problems outside the kernel's envelope
-    raise ``NotImplementedError``: that fallback, the vmapped
-    ``sqp.solve_batch``, is ROADMAP queue A, item 3.
+    tensors go to the kernel, CPU tensors to the plain version.  A problem
+    outside the kernel's envelope (:func:`ineligible_reason_ip`: the AL
+    method, H > 63, a lane that does not fit a block, more than
+    ``MAX_ALPHAS`` rungs) goes to the per-lane path ``sqp.solve_batch``,
+    as the JAX package falls back to its vmapped solve; boundary rows
+    without boundary data raise ``ValueError``, as that path's rows do.
     """
     dev = resolve_device(device)
-    reason = ineligible_reason_ip(cfg, params)
-    if reason is not None:
+    if ineligible_reason_ip(cfg, params) is not None:
         if cfg.boundary_rows and (params.boundaries is None
                                   or params.boundary_signs is None):
             raise ValueError(
                 "boundary_rows=True needs params.boundaries + signs")
-        raise NotImplementedError(reason)
+        return S.solve_batch(cfg, params, state, device=dev)
     params = F._to(S.normalize_params(cfg, params), dev)
     state = F._to(state, dev)
     if dev.type == "cuda":

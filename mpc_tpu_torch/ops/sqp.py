@@ -1,20 +1,25 @@
-"""Augmented-Lagrangian SQP: data layer and model assembly
+"""The SQP solver's data layer, model assembly and per-lane solve
 (``mpc_tpu.ops.sqp``).
 
 The configuration, the warm-startable state, the per-solve parameters and
 the solution, the helpers that build and widen them, and the model of one
-Gauss-Newton step that the batched engine ``ops.sqp_vec`` runs: the stage
-rows, the AL terms, the objective and merit, the rollout, the stagewise
-quadratic (``torch.func.jacfwd`` of the rows under ``torch.func.vmap``), the
-linearized dynamics and the KKT residuals (``torch.func.grad`` of the merit
-through the rollout).  The fused engines are ``ops.fused_gn`` and
-``ops.fused_ip``; the per-lane vmapped solve (``sqp.solve``) is a later item
-of ROADMAP queue A (item 9).
+Gauss-Newton step: the stage rows, the AL terms, the objective and merit,
+the rollout, the row Jacobians (``torch.func.jacfwd`` of the rows under
+``torch.func.vmap``), the stagewise quadratic, the linearized dynamics and
+the KKT residuals (``torch.func.grad`` of the merit through the rollout).
+
+:func:`solve_batch` is the per-lane path of the JAX package (its vmapped
+``sqp.solve``), written once over a leading lane axis; :func:`solve` is it
+at one lane.  ``method='al'`` runs the batched AL algorithm of
+``ops.sqp_vec`` with the per-lane sweep ``riccati.backward_pass``;
+``method='ip'`` runs the RTI-SQP over the interior-point stagewise QP
+(``ops.ipqp``).  The fused engines are ``ops.fused_gn`` and
+``ops.fused_ip``.
 
 Every tensor carries an explicit leading lane axis where the JAX package
 vmaps: ``OcpParams.x0`` is (B, NX), ``SqpState.U`` is (B, H, NU), and so on.
-The model functions broadcast over any further leading axes, so the merits of all
-line-search rungs are one call.
+The model functions broadcast over any further leading axes, so the merits
+of all line-search rungs are one call.
 """
 from __future__ import annotations
 
@@ -24,9 +29,11 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from mpc_tpu_torch.device import resolve_device
 from mpc_tpu_torch.models import constraints as C
 from mpc_tpu_torch.models import costs as cost_mod
 from mpc_tpu_torch.models import dynamics as dyn_mod
+from mpc_tpu_torch.ops import ipqp
 from mpc_tpu_torch.ops import riccati
 
 NX = dyn_mod.NX
@@ -349,14 +356,15 @@ def _al_terms(h, lo, hi, lam_lo, lam_hi, mu):
 
 
 def _objective(cfg: SolverConfig, X, U, params: OcpParams):
-    """Tracking objective per lane, (..., B)."""
+    """Tracking objective per lane, (..., B): the stage costs of states
+    0..H-1 and, with ``use_terminal_cost``, the terminal cost."""
     w = params.weights
-    dx = X - params.x_ref
-    stage = (torch.sum(w.q[:, None] * dx[..., :-1, :] * dx[..., :-1, :], -1)
-             + torch.sum(w.r[:, None] * U * U, -1))
+    stage = cost_mod.stage_cost(X[..., :-1, :], U, params.x_ref[..., :-1, :],
+                                w.map(lambda t: t[:, None]))
     obj = torch.sum(stage, -1)
     if cfg.use_terminal_cost:
-        obj = obj + torch.sum(w.qN * dx[..., -1, :] * dx[..., -1, :], -1)
+        obj = obj + cost_mod.terminal_cost(X[..., -1, :],
+                                           params.x_ref[..., -1, :], w)
     return obj
 
 
@@ -368,22 +376,21 @@ def _merit(cfg: SolverConfig, X, U, params: OcpParams, lam_lo, lam_hi, mu):
 
 
 def _rollout(cfg: SolverConfig, x0, U):
-    """States (B, H+1, NX) of the inputs U (B, H, NU) from x0 (B, NX)."""
+    """States (..., B, H+1, NX) of the inputs U (..., B, H, NU) from x0
+    (B, NX); U may carry leading axes (line-search rungs)."""
     step = _step_fn(cfg)
-    xs = [x0]
+    xs = [x0.expand(U.shape[:-2] + x0.shape[-1:])]
     for k in range(U.shape[-2]):
         xs.append(step(xs[-1], U[..., k, :]))
     return torch.stack(xs, -2)
 
 
-def _build_quadratic(cfg: SolverConfig, X, U, params: OcpParams,
-                     lam_lo, lam_hi, mu):
-    """Stagewise AL-Gauss-Newton quadratic model around (X, U): the row
-    Jacobians by ``jacfwd`` of the rows of one stage under ``vmap`` over
-    lanes and stages, then J' g_h and J' diag(gn) J plus the exact cost
-    terms.  Returns (StageQuad (B, H, ...), QH (B, NX, NX), qH (B, NX))."""
-    w = params.weights
-    B, H = X.shape[0], cfg.horizon
+def _row_jacobians(cfg: SolverConfig, X, U, params: OcpParams):
+    """Jacobians of every stage's rows in (x, u), (B, H+1, nrows, NX+NU),
+    by ``jacfwd`` of the rows of one stage under ``vmap`` over lanes and
+    stages (the terminal stage's u columns are zero: its inputs are
+    masked)."""
+    H = cfg.horizon
     nxv = X.shape[-1]
     idx = torch.arange(H + 1, device=X.device)
     U_ext = torch.cat([U, U[:, -1:]], dim=1)
@@ -402,8 +409,28 @@ def _build_quadratic(cfg: SolverConfig, X, U, params: OcpParams,
     per_lane = torch.func.vmap(per_stage,
                                in_dims=(0, None, 0, 0, b_dims, b_dims))
     # jacfwd may carry the tangents in float64 (Python scalars meeting
-    # 0-dim tensors); the model is float32
-    J = per_lane(Z, idx, obs.centers, obs.min_dist, bnd, sgn).to(X.dtype)
+    # 0-dim tensors); the model is in X's dtype
+    return per_lane(Z, idx, obs.centers, obs.min_dist, bnd, sgn).to(X.dtype)
+
+
+def _cost_terminal(cfg: SolverConfig, w: cost_mod.Weights, dx_H):
+    """The terminal cost's Hessian (B, NX, NX) and gradient (B, NX) at
+    the terminal state's offset ``dx_H`` (zero without a terminal cost)."""
+    if cfg.use_terminal_cost:
+        return torch.diag_embed(2.0 * w.qN), 2.0 * w.qN * dx_H
+    B, nxv = dx_H.shape
+    return (dx_H.new_zeros((B, nxv, nxv)), dx_H.new_zeros((B, nxv)))
+
+
+def _build_quadratic(cfg: SolverConfig, X, U, params: OcpParams,
+                     lam_lo, lam_hi, mu):
+    """Stagewise AL-Gauss-Newton quadratic model around (X, U): the row
+    Jacobians (:func:`_row_jacobians`), then J' g_h and J' diag(gn) J plus
+    the exact cost terms.  Returns (StageQuad (B, H, ...), QH (B, NX, NX),
+    qH (B, NX))."""
+    w = params.weights
+    nxv = X.shape[-1]
+    J = _row_jacobians(cfg, X, U, params)
 
     h, lo, hi = _all_rows(cfg, X, U, params)
     _, grad_h, gn_diag = _al_terms(h, lo, hi, lam_lo, lam_hi, mu)
@@ -421,12 +448,7 @@ def _build_quadratic(cfg: SolverConfig, X, U, params: OcpParams,
     Ms = H_con[:, :-1, :nxv, nxv:]
     qx = g_cost_x[:, :-1] + g_con[:, :-1, :nxv]
     qu = g_cost_u + g_con[:, :-1, nxv:]
-    if cfg.use_terminal_cost:
-        QH_cost = torch.diag_embed(2.0 * w.qN)
-        gH_cost = 2.0 * w.qN * dx[:, -1]
-    else:
-        QH_cost = torch.zeros((B, nxv, nxv), dtype=X.dtype, device=X.device)
-        gH_cost = torch.zeros((B, nxv), dtype=X.dtype, device=X.device)
+    QH_cost, gH_cost = _cost_terminal(cfg, w, dx[:, -1])
     QH = QH_cost + H_con[:, -1, :nxv, :nxv]
     qH = gH_cost + g_con[:, -1, :nxv]
     quad = riccati.StageQuad(Q=Qs, R=Rs, M=Ms, qx=qx, qu=qu)
@@ -466,3 +488,188 @@ def _max_scaled_viol(cfg: SolverConfig, h, lo, hi):
     viol = torch.where(torch.isfinite(viol), viol, torch.zeros_like(viol))
     return torch.amax(viol / row_scales(cfg, viol.dtype, viol.device),
                       (-2, -1))
+
+
+# ---------------------------------------------------------------------------
+# The per-lane solve
+# ---------------------------------------------------------------------------
+
+
+def map_tensors(tree, fn):
+    """``fn`` applied to every tensor of a (nested) NamedTuple of tensors,
+    ``Weights`` and ``None``s: lift, move or slice a whole problem."""
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, cost_mod.Weights):
+        return tree.map(fn)
+    return type(tree)(*(map_tensors(t, fn) for t in tree))
+
+
+def _pick(merits, merit0):
+    """The ladder's rung per lane, 0 for the iterate and r + 1 for rung r
+    of ``merits`` (R, B): the first rung of least merit (``argmin`` with
+    NaN first, as ``jnp.argmin``), taken only when it beats ``merit0``."""
+    nan = torch.isnan(merits)
+    best = torch.where(nan.any(0), nan.to(torch.int8).argmax(0),
+                       merits.argmin(0))
+    improved = merits.gather(0, best[None])[0] < merit0
+    return torch.where(improved, best + 1, torch.zeros_like(best))
+
+
+def _ip_penalty(cfg: SolverConfig, X, U, params: OcpParams, scales):
+    """The exact-penalty merit of the IP line search, (..., B): objective
+    + ip_ls_rho * the sum of the scaled violations (non-finite counted as
+    0); NaN becomes inf, so a NaN trial never wins."""
+    h, lo, hi = _all_rows(cfg, X, U, params)
+    v = torch.clamp(torch.maximum(lo - h, h - hi), min=0.0)
+    v = torch.where(torch.isfinite(v), v, torch.zeros_like(v)) / scales
+    phi = _objective(cfg, X, U, params) + cfg.ip_ls_rho * torch.sum(
+        v, (-2, -1))
+    return torch.where(torch.isnan(phi), torch.full_like(phi, float("inf")),
+                       phi)
+
+
+def _ip_qp(cfg: SolverConfig, params: OcpParams, X, U) -> ipqp.QpData:
+    """The IP stagewise QP at (X, U): the exact cost quadratic, the
+    linearized dynamics with the multiple-shooting defect, and the rows
+    with their Jacobians."""
+    w = params.weights
+    B, H, nxv = X.shape[0], cfg.horizon, X.shape[-1]
+    dyn = _linearize_dynamics(cfg, X, U)
+    defect = _step_fn(cfg)(X[:, :-1], U) - X[:, 1:]
+    h0, lo, hi = _all_rows(cfg, X, U, params)
+    dx = X - params.x_ref
+    QH, qH = _cost_terminal(cfg, w, dx[:, -1])
+    return ipqp.QpData(
+        Q=torch.diag_embed(2.0 * w.q)[:, None].expand(B, H, nxv, nxv),
+        R=torch.diag_embed(2.0 * w.r)[:, None].expand(B, H, NU, NU),
+        M=X.new_zeros((B, H, nxv, NU)),
+        qx=2.0 * w.q[:, None] * dx[:, :-1], qu=2.0 * w.r[:, None] * U,
+        QH=QH, qH=qH, A=dyn.A, B=dyn.B, r=defect,
+        J=_row_jacobians(cfg, X, U, params), h0=h0, lo=lo, hi=hi)
+
+
+def _solve_ip(cfg: SolverConfig, params: OcpParams,
+              state: SqpState) -> Solution:
+    """RTI-SQP over the interior-point stagewise QP, every lane at once.
+
+    Each of the ``ip_sqp_iters`` iterations linearizes cost, dynamics and
+    rows at the trajectory, solves the QP (``ipqp.solve_qp``, its duals
+    warm-started from the carried ones with ``ip_warm_duals``), scrubs a
+    non-finite step to 0 and either applies the full step (``ip_alphas ==
+    ()``) or takes the exact-penalty ladder's best rung where it beats the
+    iterate.  The final duals go to lam_lo / lam_hi for the next solve; the
+    status comes from the stationarity of the dual-weighted Lagrangian.
+    """
+    dtype, dev = params.x0.dtype, params.x0.device
+    B, H = params.x0.shape[0], cfg.horizon
+    u_lo, u_hi, _, _ = cfg.bounds.as_arrays(dtype, dev)
+    scales = row_scales(cfg, dtype, dev)
+    X = _rollout(cfg, params.x0, state.U)
+    U = state.U
+    if cfg.ip_warm_duals:
+        z_lo, z_hi = state.lam_lo, state.lam_hi
+    else:
+        z_lo = torch.zeros((B, H + 1, nrows(cfg)), dtype=dtype, device=dev)
+        z_hi = torch.zeros_like(z_lo)
+    ladder = torch.tensor((0.0,) + cfg.ip_alphas, dtype=dtype, device=dev)
+    lane = torch.arange(B, device=dev)
+    for _ in range(cfg.ip_sqp_iters):
+        qp = _ip_qp(cfg, params, X, U)
+        warm = cfg.ip_warm_duals
+        st = ipqp.solve_qp(qp, n_iters=cfg.ip_iters, reg=cfg.reg,
+                           z_lo0=z_lo if warm else None,
+                           z_hi0=z_hi if warm else None)
+        dU = torch.nan_to_num(st.dU, nan=0.0, posinf=0.0, neginf=0.0)
+        if len(cfg.ip_alphas) == 0:
+            # the unguarded RTI step: applied with no merit test
+            U = torch.clamp(U + dU, u_lo, u_hi)
+            X = _rollout(cfg, params.x0, U)
+        else:
+            # rung 0 (alpha = 0) is the iterate's own merit
+            Ua = torch.clamp(U + ladder[:, None, None, None] * dU, u_lo,
+                             u_hi)
+            Xa = _rollout(cfg, params.x0, Ua)
+            phi = _ip_penalty(cfg, Xa, Ua, params, scales)
+            rung = _pick(phi[1:], phi[0])
+            take = (rung > 0)[:, None, None]
+            X = torch.where(take, Xa[rung, lane], X)
+            U = torch.where(take, Ua[rung, lane], U)
+        z_lo, z_hi = st.z_lo, st.z_hi
+
+    # the final consistency rollout of the clamped inputs
+    U = torch.clamp(U, u_lo, u_hi)
+    X = _rollout(cfg, params.x0, U)
+    h, lo, hi = _all_rows(cfg, X, U, params)
+    viol = torch.clamp(torch.maximum(lo - h, h - hi), min=0.0)
+    viol = torch.where(torch.isfinite(viol), viol, torch.zeros_like(viol))
+    viol_max = torch.amax(viol / scales, (-2, -1))
+
+    # stationarity of the Lagrangian with the final QP's row duals
+    lam_rows = z_hi - z_lo
+
+    def lagrangian_of_U(Uf):
+        Xf = _rollout(cfg, params.x0, Uf)
+        hf, _, _ = _all_rows(cfg, Xf, Uf, params)
+        hf = torch.where(torch.isfinite(hf), hf, torch.zeros_like(hf))
+        return torch.sum(_objective(cfg, Xf, Uf, params)
+                         + torch.sum(lam_rows * hf, (-2, -1)))
+
+    stat = torch.amax(torch.abs(torch.func.grad(lagrangian_of_U)(U)),
+                      (-2, -1))
+    converged = (stat < cfg.tol_stat_ip) & (viol_max < cfg.tol_feas)
+    feasible = viol_max < cfg.tol_infeas
+    one = torch.ones_like(stat, dtype=torch.int32)
+    status = torch.where(converged, one,
+                         torch.where(feasible, 0 * one, -7 * one))
+    new_state = state._replace(U=U, lam_lo=z_lo, lam_hi=z_hi,
+                               prev_viol=viol)
+    cost = _objective(cfg, X, U, params)
+    return Solution(X=X, U=U, state=new_state, status=status, kkt_stat=stat,
+                    viol=viol_max, cost=cost, merit=cost)
+
+
+def check_backend(cfg: SolverConfig) -> None:
+    """Raise for the options of the JAX package's solve that the port does
+    not run yet: the parallel-scan sweep and a sharded stage axis."""
+    if cfg.lqr_backend == "pscan":
+        raise NotImplementedError(
+            "lqr_backend='pscan': the parallel-scan sweep is ROADMAP queue "
+            "A, item 6 (multi-GPU and support code)")
+    if cfg.stage_axis is not None:
+        raise NotImplementedError(
+            f"stage_axis={cfg.stage_axis!r}: sharding the stage axis is "
+            "ROADMAP queue A, item 6 (multi-GPU and support code)")
+
+
+def solve_batch(cfg: SolverConfig, params: OcpParams, state: SqpState,
+                device=None) -> Solution:
+    """The per-lane solve of every lane (``mpc_tpu``'s ``sqp.solve_batch``,
+    the vmapped ``sqp.solve``), lanes leading.
+
+    Runs on ``device`` (default: the GPU, see ``resolve_device``); the
+    inputs are moved there, in their own dtype (float32 or float64).
+    ``method='al'``: ``al_iters`` multiplier updates around ``sqp_iters``
+    Gauss-Newton steps, the batched algorithm of ``ops.sqp_vec`` with the
+    sweep :func:`riccati.backward_pass`; ``method='ip'``: :func:`_solve_ip`.
+    """
+    check_backend(cfg)
+    if cfg.method == "al":
+        from mpc_tpu_torch.ops import sqp_vec
+        return sqp_vec.solve_batch_vec(cfg, params, state, device=device,
+                                       sweep=riccati.backward_pass)
+    dev = resolve_device(device)
+    params = map_tensors(normalize_params(cfg, params), lambda t: t.to(dev))
+    state = state.map(lambda t: t.to(dev))
+    return _solve_ip(cfg, params, state)
+
+
+def solve(cfg: SolverConfig, params: OcpParams, state: SqpState,
+          device=None) -> Solution:
+    """One NMPC problem: params and state without a lane axis (x0 (NX,),
+    U (H, NU), ...); :func:`solve_batch` at one lane."""
+    sol = solve_batch(cfg, map_tensors(params, lambda t: t[None]),
+                      state.map(lambda t: t[None]), device)
+    return map_tensors(sol, lambda t: t[0])

@@ -13,9 +13,10 @@ GPU, the plain version on the CPU) and then either
 * the ladder: every alpha rolled out at once, a per-lane argmin of the
   merits, committed only where it improves on the iterate's merit.
 
-This is the engine ``SolverConfig.engine='xla'`` selects.  It is AL only:
-``method='ip'`` belongs to the vmapped per-lane path (ROADMAP queue A,
-item 9).
+This is the engine ``SolverConfig.engine='xla'`` selects, and, with the
+per-lane sweep ``riccati.backward_pass``, the AL half of the per-lane path
+``sqp.solve_batch``.  It is AL only: ``method='ip'`` is solved by
+``sqp.solve_batch``.
 """
 from __future__ import annotations
 
@@ -29,15 +30,7 @@ from mpc_tpu_torch.ops import sqp as S
 from mpc_tpu_torch.ops.fused_gn import _to
 
 
-def _pick(merits, merit0):
-    """The ladder's rung per lane, 0 for the iterate and r + 1 for
-    ``alphas[r]``: the first alpha of least merit (``argmin`` with NaN
-    first, as ``jnp.argmin``), taken only when it beats ``merit0``."""
-    nan = torch.isnan(merits)
-    best = torch.where(nan.any(0), nan.to(torch.int8).argmax(0),
-                       merits.argmin(0))
-    improved = merits.gather(0, best[None])[0] < merit0
-    return torch.where(improved, best + 1, torch.zeros_like(best))
+_pick = S._pick  # the rung per lane: 0 keeps the iterate, r + 1 alphas[r]
 
 
 def _gn_iteration_vec(cfg: S.SolverConfig, params: S.OcpParams, lam_lo,
@@ -92,12 +85,9 @@ def solve_batch_vec(cfg: S.SolverConfig, params: S.OcpParams,
     """
     if cfg.method != "al":
         raise NotImplementedError(
-            f"method '{cfg.method}': the JAX package solves it on the "
-            "vmapped per-lane path, ROADMAP queue A, item 9")
-    if cfg.lqr_backend == "pscan":
-        raise NotImplementedError(
-            "lqr_backend='pscan': the parallel-scan sweep is ROADMAP queue "
-            "A, item 12")
+            f"method '{cfg.method}': this is the AL engine; the JAX package "
+            "solves it on its per-lane path, the port's sqp.solve_batch")
+    S.check_backend(cfg)
     dev = resolve_device(device)
     params = _to(S.normalize_params(cfg, params), dev)
     state = _to(state, dev)

@@ -1,7 +1,8 @@
 """Per-step reference windows (``mpc_tpu.planner.reference``).
 
-The padded track arrays are built once on the host; the per-step window is
-a batched gather over a leading lane axis.  Window starts are clamped the
+The padded track arrays and the curvature-aware speed profile are built
+once on the host; the per-step window and the progress index are batched
+gathers and reductions over a leading lane axis.  Window starts are clamped the
 way ``jax.lax.dynamic_slice`` clamps them, so both packages read the same
 rows past the end of the track.
 """
@@ -11,6 +12,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from mpc_tpu_torch.utils.geometry import (
+    compute_curvature_from_polyline, compute_pathlength_from_polyline)
 
 
 class ReferenceTrack(NamedTuple):
@@ -72,6 +76,45 @@ def build_track(reference_path: np.ndarray, orientation: np.ndarray,
 
     return ReferenceTrack(path=t(path), psi=t(psi), vdes=t(vdes),
                           T=torch.tensor(T, dtype=torch.int32, device=device))
+
+
+def speed_profile(reference_path: np.ndarray, v_des: float,
+                  a_lat_max: float, a_long_max: float,
+                  wheelbase: float, steer_rate_max: float) -> np.ndarray:
+    """Curvature-aware desired velocity per path point (host side, (T,)).
+
+    The cruise v_des is capped by the lateral acceleration through the
+    curvature (v <= sqrt(a_lat / |kappa|)) and by steering-rate
+    feasibility (delta = atan(l kappa) must wind at delta_dot_max: v <=
+    delta_dot_max / |d delta / ds|); a backward and a forward pass over
+    arc length then enforce the longitudinal deceleration and acceleration
+    limit.  YAML ``curvature_speed_limit: true`` turns it on.
+    """
+    path = np.asarray(reference_path, dtype=float)
+    kappa = compute_curvature_from_polyline(path)
+    s = compute_pathlength_from_polyline(path)
+    v_curve = np.sqrt(a_lat_max / np.maximum(np.abs(kappa), 1e-6))
+    delta = np.arctan(wheelbase * kappa)
+    dds = np.abs(np.gradient(delta, np.maximum(s, 1e-9), edge_order=1)) \
+        if len(s) > 2 else np.zeros_like(delta)
+    v_steer = steer_rate_max / np.maximum(dds, 1e-6)
+    v = np.minimum(np.full(len(path), float(v_des)),
+                   np.minimum(v_curve, v_steer))
+    ds = np.diff(s)
+    for i in range(len(v) - 2, -1, -1):        # backward: decel feasible
+        v[i] = min(v[i], np.sqrt(v[i + 1] ** 2 + 2 * a_long_max * ds[i]))
+    for i in range(1, len(v)):                 # forward: accel feasible
+        v[i] = min(v[i], np.sqrt(v[i - 1] ** 2 + 2 * a_long_max * ds[i - 1]))
+    return v
+
+
+def progress_index(track: ReferenceTrack, x: torch.Tensor) -> torch.Tensor:
+    """Index of the ego's closest reference point over the whole path
+    (path tracking instead of the loop step's schedule; YAML
+    ``progress_window: true``).  track fields (..., L, 2), x (..., NX) ->
+    (...) int64."""
+    d2 = torch.sum((track.path - x[..., None, :2]) ** 2, dim=-1)
+    return torch.argmin(d2, dim=-1)
 
 
 def _gather_rows(a: torch.Tensor, start: torch.Tensor, n: int):

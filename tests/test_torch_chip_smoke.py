@@ -455,3 +455,40 @@ def test_corridor_loop_line_counts_active_rows(monkeypatch):
     assert line["feasible_steps"] == line["total_solves"] == B * T
     assert line["active_boundary_lane_steps"] == B * 20
     assert line["max_lateral_y"] == pytest.approx(2.8)
+
+
+@pytest.fixture
+def planner_rehearsal(monkeypatch):
+    """The planner phase's pieces on the CPU: the device clocks stubbed,
+    the lines collected."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "cuda_ms", lambda fn: (1.0, fn()))
+    lines = []
+    monkeypatch.setattr(cs, "emit", lines.append)
+    return lines
+
+
+def test_planner_golden_rehearsal(planner_rehearsal):
+    """The golden piece: the IP golden's float64 loop on the device asked
+    for, within its atol, with no kernel launched."""
+    config, tag = cs.PLANNER_GOLDENS[1]
+    line = cs.planner_golden(torch.device("cpu"), config, tag)
+    assert line["max_abs_dX"] < cs.GOLDEN_ATOL and not line["kernel_launches"]
+    assert planner_rehearsal == [line]
+
+
+def test_planner_c2_rehearsal(planner_rehearsal, monkeypatch):
+    """C2's pieces at small shapes: the IP wrapper past its envelope and
+    the xla IP loop take the per-lane path, launch nothing and agree with
+    the CPU (here, themselves); a route that launched a kernel fails."""
+    dev = torch.device("cpu")
+    line = cs.planner_c2_solve(dev, horizon=64, lanes=2)
+    assert line["lanes_outside_bands"] == 0 and line["dtype"] == "float64"
+    assert "H <= 63" in line["reason"]
+    loop = cs.planner_c2_loop(dev, "NVIDIA H100 80GB HBM3, 700.00 W",
+                              lanes=2, steps=2)
+    assert loop["feasible_steps"] == loop["feasible_steps_cpu"] == 4
+    assert loop["rounding_lanes"] == 0 and not loop["kernel_launches"]
+    monkeypatch.setattr(cs, "launch_counts", lambda: {"fused_ip": 1})
+    with pytest.raises(cs.CheckFailed, match="launched kernels"):
+        cs.planner_c2_solve(dev, horizon=64, lanes=2)

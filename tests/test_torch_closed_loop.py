@@ -240,25 +240,35 @@ def test_ip_warmup_budget_is_5x10_and_selects_the_ip_kernel():
 
 # boundary rows without boundary data raise the JAX package's ValueError
 NO_DATA = (ValueError, "boundaries")
-ROADMAP = (NotImplementedError, "ROADMAP")
+A6 = (NotImplementedError, "ROADMAP queue A, item 6")
 
 
 @pytest.mark.parametrize("solver_kw,loop_kw,raises", [
     (dict(method="ip", boundary_rows=True), {}, NO_DATA),
     (dict(boundary_rows=True), {}, NO_DATA),
-    (dict(engine="xla", lqr_backend="pscan"), {}, ROADMAP),
-    (dict(engine="xla", method="ip"), {}, ROADMAP),
+    (dict(engine="xla", lqr_backend="pscan"), {}, A6),
+    (dict(engine="xla", method="ip", ip_sqp_iters=1, ip_iters=2), {}, None),
     (dict(engine="fused", boundary_rows=True), {}, NO_DATA),
 ], ids=["ip", "boundary_rows", "xla-pscan", "xla-ip", "fused-boundary_rows"])
 def test_out_of_envelope_raises(solver_kw, loop_kw, raises):
-    """Cases the port does not run: the ones the JAX package runs on a path
-    not ported yet raise ``NotImplementedError`` naming the ROADMAP item;
-    boundary rows without boundary data (the bench loop has none) raise
-    the ``ValueError`` that the JAX package raises there."""
+    """The envelope's edges: ``engine='xla'`` with ``method='ip'`` runs the
+    loop on the per-lane solve (``closed_loop_batch``, as the JAX package
+    falls back there); the parallel-scan sweep raises
+    ``NotImplementedError`` naming its ROADMAP item; boundary rows without
+    boundary data (the bench loop has none) raise the ``ValueError`` that
+    the JAX package raises there."""
     lcfg, p = tsyn.make_bench_loop(3, 4, 2, device="cpu")
     lcfg = dataclasses.replace(
         lcfg, solver=dataclasses.replace(lcfg.solver, **solver_kw),
         **loop_kw)
+    if raises is None:
+        assert tcl.select_engine(lcfg.solver) is TS.solve_batch
+        got = tcl.closed_loop_batch_vec(lcfg, p, device="cpu")
+        ref = tcl.closed_loop_batch(lcfg, p, device="cpu")
+        assert got.X.shape == (2, 3, 5)
+        for f in tcl.LoopResult._fields:
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+        return
     error, match = raises
     with pytest.raises(error, match=match):
         tcl.closed_loop_batch_vec(lcfg, p, device="cpu")

@@ -229,7 +229,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_port_runs_with_jax_blocked():
     """A fresh interpreter in which ``jax`` and ``mpc_tpu`` cannot be
-    imported still imports every port module and solves on the CPU."""
+    imported still imports every port module, solves on the CPU and plans
+    a scenario through the CLI."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -250,6 +251,10 @@ lcfg, p = synthetic.make_bench_loop(3, 4, 2, device="cpu", method="ip",
                                     cold_start_solves=1)
 res = cl.closed_loop_batch_vec(lcfg, p, device="cpu")
 assert res.X.shape == (2, 3, 5) and bool((res.status >= 0).all())
+from mpc_tpu_torch.planner import cli
+assert cli.main(["--device", "cpu", "--deterministic", "--config",
+                 "configs/config_LF_ZAM_Over-1_1.yaml",
+                 "--scenario-dir", "scenarios"]) == 0
 assert "jax" not in [m.split(".")[0] for m in sys.modules
                      if sys.modules[m] is not None]
 print("ok")

@@ -114,10 +114,12 @@ def test_pick_takes_nan_first_like_jnp_argmin():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(method="ip"), "item 9"),
-    (dict(lqr_backend="pscan"), "item 12"),
+    (dict(method="ip"), "sqp.solve_batch"),
+    (dict(lqr_backend="pscan"), "ROADMAP queue A, item 6"),
 ])
 def test_out_of_envelope_raises(kw, match):
+    """The AL engine refuses the IP method, naming the per-lane path that
+    solves it, and the parallel-scan sweep, naming its ROADMAP item."""
     cfg = TS.SolverConfig(horizon=4, **kw)
     with pytest.raises(NotImplementedError, match=match):
         TV.solve_batch_vec(cfg, convert.ocp_params(ocp_numpy(4, 2)),
