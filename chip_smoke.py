@@ -9,13 +9,15 @@ Phases, each printing one JSON line (``"phase": ...``):
 1. device   the card's name and power limit (``nvidia-smi``);
 2. build    ``nvcc`` builds every kernel from ``mpc_tpu_torch/ops/csrc``
             (one process per source, all at once: the KS libraries, the ST
-            model's ``fused_gn_st.cu`` and ``fused_ip_st.cu``, the sweep
-            with its nx=5 and nx=7 instances) into the git-ignored
-            ``build/kernels``; registers, spills and static shared memory
-            from ``-Xptxas -v`` per entry function, and the fused kernels'
-            dynamic shared memory and launch geometry (fused_gn: threads a
-            lane; fused_ip: lanes a block) at the bench shape, the ST
-            libraries' at the ST rows' shape;
+            model's ``fused_gn_st.cu`` and ``fused_ip_st.cu`` (the ring
+            source ``fused_ip_ring.cu``), the sweep with its nx=5 and nx=7
+            instances) into the git-ignored ``build/kernels``; registers,
+            spills and static shared memory from ``-Xptxas -v`` per entry
+            function, and the fused kernels' dynamic shared memory and
+            launch geometry (fused_gn: threads a lane; fused_ip: lanes a
+            block; the ring source: 32 lanes, its threads a lane and blocks
+            an SM) at the bench shape, the ST libraries' at the ST rows'
+            shape;
 3. check    each kernel against its plain version on the card at the bench
             shape (KS, RK4, forcespro, H=30, B=2048 lanes of
             ``make_bench_loop``), then one small case each for
@@ -74,7 +76,8 @@ Phases, each printing one JSON line (``"phase": ...``):
             sweep on the bench point's step-0 quadratics; fused_gn at 2, 4
             and 8 threads a lane and at its own choice, the sweep at
             32/64/128 threads a block, fused_ip at 1, 2, 4, 8 and the most
-            lanes a block and at its own choice; the corridor rows' own
+            lanes a block and at its own choice (the ST ring source at its
+            own); the corridor rows' own
             and warm-up budgets, with the time of linearize_boundaries
             before each launch; the ST libraries at the soft and hard
             budgets (fused_gn_st at 4 and 8 threads a lane), the sweep's
@@ -83,7 +86,10 @@ Phases, each printing one JSON line (``"phase": ...``):
             the bytes the call must move over 3.35 TB/s and its fp32
             operations (counted on the plain version) over 67 TFLOP/s; the
             timed launches' outputs are held against the plain version's,
-            as in ``check``;
+            as in ``check``; with them the splits, each with its bound:
+            B1.b on the soft-corridor's step-50 solve at its own budget
+            without its ladder and, with it, without its rows; fused_ip
+            and fused_ip_st warm at 1x1 against 1x4;
 6. loop     ``closed_loop_batch_vec`` at B=16384, H=30, T=100 with 4
             cold-start solves, for the soft row (al 1x1, ``alphas=()``), the
             hard row (ip 1x4, warm duals, ``ip_alphas=()``) and the xla row
@@ -94,8 +100,9 @@ Phases, each printing one JSON line (``"phase": ...``):
             XLA_ST_STEPS steps on engine='xla', the nx=7 sweep's main
             path):
             launches of every kernel counted in that run, then solves/s
-            with CUDA events, best of 3 after it (one run where a loop takes
-            more than 20 s), the peak device memory, in a corridor row
+            with CUDA events, best of 3 after it (where a loop took more
+            than 20 s, bound by its host, that run on the host clock), the
+            peak device memory, in a corridor row
             the lane-steps where a boundary row is active, in an ST row
             the largest |beta|;
 7. profile  one more loop of each row under ``torch.profiler`` (the xla
@@ -110,9 +117,10 @@ Phases, each printing one JSON line (``"phase": ...``):
             tests/test_closed_loop.py's atol 1e-4); the deployment config
             (``configs/config_CA_ZAM_Over-1_1_forcespro.yaml``) through the
             CLI in a subprocess, plain (exit 0, the native library, no -7
-            step) and with ``--rti1`` (exit 0); C2's two routes, the IP
-            wrapper past its envelope (H=64, B=64, float64 on both sides)
-            and the xla IP loop (B=256, T=10), each with no kernel launched
+            step) and with ``--rti1`` (exit 0), the two side by side;
+            C2's two routes, the IP wrapper past its envelope (H=64, B=64,
+            float64 on both sides) and the xla IP loop (B=256, T=10), each
+            with no kernel launched
             and within the bands of the CPU run; and ``torch.profiler``
             over warm steps of the deployment's loop;
 
@@ -154,14 +162,14 @@ XLA_WARM = dict(engine="xla", **WARM)
 # soft and hard rows, on the same overtake workload (its starts lifted to
 # the ST state); the xla-st row runs XLA_ST_STEPS steps after one cold
 # start: its eager glue takes about a second a Gauss-Newton step on an
-# H100 (PERF.md), so its counted run takes over ONE_TIMED_RUN_S and it is
-# timed once, and this is enough to count the nx=7 sweep's launches on its
-# main path.
+# H100 (PERF.md), so its counted run takes over ONE_TIMED_RUN_S and times
+# it, and this is enough to count the nx=7 sweep's launches on its main
+# path.
 ST = dict(model="st")
 SOFT_ST = dict(method="al", **WARM, **ST)
 HARD_ST = dict(**IP_WARM, **ST)
 XLA_ST = dict(**XLA_WARM, **ST, cold_start_solves=1)
-XLA_ST_STEPS = 15
+XLA_ST_STEPS = 10
 # The corridor rows: the overtake workload inside a straight two-edge road,
 # the left edge at y = +CORRIDOR_Y and the right at -CORRIDOR_Y, each a
 # CORRIDOR_POINTS-point polyline spanning the whole track.  hard-corridor is
@@ -298,16 +306,21 @@ def ptxas_entries(text):
     return out
 
 
-def main_entry(entries, instance=1, boundary=False):
+def main_entry(entries, instance=1, boundary=False, ladder=False):
     """The entry function the main path launches: the only one, or the
     template instance ``instance`` (fused_ip: one stage a thread, H + 1 <=
-    32; fused_gn: the threads a lane it takes at the bench shape; riccati:
-    the state dimension, 5 or 7), with or without the road-boundary rows
-    (the template's ``bool``, ``Lb1E`` in the mangled name)."""
+    32; the ring source and fused_gn: the threads a lane it takes at the
+    bench shape; riccati: the state dimension, 5 or 7), with or without the
+    road-boundary rows (the template's first ``bool``, ``Lb1E`` after the
+    instance in the mangled name) and, in the KS fused_gn, the merit
+    ladder (its ``int`` after the model's name, ``Li1E``; the ST library's
+    one instance, ``Lin1E``, takes either)."""
     if len(entries) == 1:
         return next(iter(entries.values()))
     return next(v for k, v in entries.items()
-                if f"ILi{instance}E" in k and ("Lb1E" in k) == boundary)
+                if f"ILi{instance}E" in k
+                and (f"ILi{instance}ELb1E" in k) == boundary
+                and ("ModelLin1E" in k or ("ModelLi1E" in k) == ladder))
 
 
 def phase_build():
@@ -325,7 +338,9 @@ def phase_build():
     def geometry(kw):
         lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **kw)
         geo = (FI.geometry if lcfg.solver.method == "ip" else F.geometry)
-        return geo(lcfg.solver, B_BENCH)
+        # the AL kernel's ladder instance where the row runs its ladder
+        ladder = lcfg.solver.method == "al" and bool(lcfg.solver.alphas)
+        return dict(geo(lcfg.solver, B_BENCH), ladder=ladder)
     # each fused library at its row's shape; the boundary instances at the
     # corridor rows' (KS) and at H=30 with the ST rows' budgets (ST)
     geos = {"fused_gn": geometry(WARM), "fused_ip": geometry(IP_WARM),
@@ -341,7 +356,9 @@ def phase_build():
         geo = geos.get(name)
         instance = (geo["threads_per_lane"] if "threads_per_lane" in
                     (geo or {}) else 5 if name == "riccati" else 1)
-        info[name] = dict(main_entry(entries, instance), entries=entries)
+        info[name] = dict(main_entry(entries, instance,
+                                     ladder=(geo or {}).get("ladder", False)),
+                          entries=entries)
         info[name]["smem_bytes_per_block"] = (
             geo["smem_bytes_per_block"] if geo
             else info[name]["static_smem_bytes"])
@@ -353,7 +370,8 @@ def phase_build():
             bgeo = bgeos[name]
             instance = bgeo.get("threads_per_lane", 1)
             info[name]["boundary_instance"] = dict(
-                main_entry(entries, instance, boundary=True),
+                main_entry(entries, instance, boundary=True,
+                           ladder=bgeo["ladder"]),
                 smem_bytes_per_block=bgeo["smem_bytes_per_block"],
                 geometry=bgeo)
     emit({"phase": "build", "seconds": seconds, "kernels": info})
@@ -469,8 +487,8 @@ def engine(cfg) -> Engine:
              "lam_lo": (*IP_STATE_BANDS["lam_lo"], MIN_LANE_AGREEMENT)},
             (FI.KERNEL_INPUTS, FI.KERNEL_STATE, FI.KERNEL_OUTPUTS),
             "lanes_per_block",
-            lambda c: ip_lane_sweep(FI.geometry(
-                c, B_BENCH)["max_lanes_per_block"]), 0)
+            lambda c: (0,) if FI.ring_kernel(c) else ip_lane_sweep(
+                FI.geometry(c, B_BENCH)["max_lanes_per_block"]), 0)
     return Engine(
         F.kernel_name(cfg), "mpc_tpu/ops/fused_gn.py:808 (_make_kernel"
         + (", model='st': :814-822)" if st else ")"),
@@ -1208,7 +1226,7 @@ def time_plain_ms(cfg, ocp, state, reps):
 
 
 def phase_timing(dev, cold_kw, warm_kw, warm_reps=20, cold_reps=5,
-                 row=None):
+                 row=None, split=None):
     """Per-launch times of one kernel at the bench shape: the warm budget
     from the cold-start state and the cold budget from ``init_state``, at
     the default launch geometry and at each value of the engine's sweep.
@@ -1216,7 +1234,9 @@ def phase_timing(dev, cold_kw, warm_kw, warm_reps=20, cold_reps=5,
     solve its loop makes at LOOP_CHECK_STEP, where rows bind, and its
     warm-up budget (cold) on the loop's cold start, at the default
     geometry only, with the time of the boundary rows' models
-    (``boundary_models``, the glue before each launch)."""
+    (``boundary_models``, the glue before each launch).  ``split(cfg, ocp,
+    state)`` of the warm inputs names more (cfg, ocp, state) to time at the
+    default geometry, each with its bound, into ``out["split"]``."""
     from mpc_tpu_torch.ops import fused_gn as F
     from mpc_tpu_torch.ops import sqp as S
     lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **cold_kw)
@@ -1241,20 +1261,16 @@ def phase_timing(dev, cold_kw, warm_kw, warm_reps=20, cold_reps=5,
         ms, bufs = time_kernel_ms(cfg, ocp, state, reps, eng.default)
         by_geometry = {g: time_kernel_ms(cfg, ocp, state, reps, g)[0]
                        for g in (() if row else eng.sweep(cfg))}
-        plain_ms, plain = time_plain_ms(cfg, ocp, state,
-                                        3 if case.startswith("warm") else 1)
+        # the plain version once at the corridor rows' budgets (seconds a
+        # solve at this batch), best of 3 at the bench budgets
+        plain_ms, plain = time_plain_ms(
+            cfg, ocp, state, 3 if case.startswith("warm") and not row else 1)
         _, errs = compare(f"timed_{row + '_' if row else ''}{case}", cfg, ocp,
                           state, bufs, plain)
-        nbytes = kernel_bytes(cfg, bufs)
-        ops = ops_per_lane(cfg, ocp if row else None) * B_BENCH
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_OPS_PER_S * 1e3
         out[case] = {
-            "ms": ms, eng.geometry: eng.default,
-            "plain_ms": plain_ms, "bytes": nbytes, "fp32_ops": ops,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "max_abs_err": errs}
+            "ms": ms, eng.geometry: eng.default, "plain_ms": plain_ms,
+            **kernel_bound(cfg, bufs, ocp if row else None),
+            "max_abs_err": errs}
         if by_geometry:
             out[case][f"ms_by_{eng.geometry}"] = {
                 str(g): v for g, v in by_geometry.items()}
@@ -1270,7 +1286,53 @@ def phase_timing(dev, cold_kw, warm_kw, warm_reps=20, cold_reps=5,
         emit({"phase": "timing", "kernel": eng.name,
               **({"row": row} if row else {}), "case": case,
               "lanes": B_BENCH, "horizon": cfg.horizon, **out[case]})
+    out["split"] = {}
+    for name, (cfg, ocp, state) in (split(warm_cfg, wocp, warm_state)
+                                    if split else {}).items():
+        ms, bufs = time_kernel_ms(cfg, ocp, state, warm_reps, eng.default)
+        out["split"][name] = {"ms": ms, **kernel_bound(cfg, bufs, ocp)}
+        emit({"phase": "timing", "kernel": engine(cfg).name,
+              **({"row": row} if row else {}), "case": f"split_{name}",
+              "lanes": B_BENCH, "horizon": cfg.horizon,
+              **out["split"][name]})
     return out
+
+
+def kernel_bound(cfg, bufs, ocp=None):
+    """A fused solve's bound at B_BENCH lanes: the bytes of ``bufs`` it
+    must move over the card's memory rate, and its fp32 operations (counted
+    on the plain version at one lane of ``ocp``, or of the bench loop's
+    step-0 OCP) over its fp32 rate."""
+    nbytes = kernel_bytes(cfg, bufs)
+    ops = ops_per_lane(cfg, ocp) * B_BENCH
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "fp32_ops": ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+
+
+def split_b1b(cfg, ocp, state):
+    """B1.b's split at its own budget on the corridor's solve (rows bind):
+    (b) without the ladder, (c) the instance without the boundary rows, on
+    the same problem without its boundary data, with the ladder; with (a),
+    the row's own timing, (a) - (b) is the ladder and (a) - (c) the rows."""
+    from mpc_tpu_torch.ops import sqp as S
+    nb = dataclasses.replace(cfg, boundary_rows=False)
+    rows = S.nrows(nb)
+    st_nb = state._replace(**{f: getattr(state, f)[..., :rows].contiguous()
+                              for f in ("lam_lo", "lam_hi", "mu",
+                                        "prev_viol")})
+    return {"b1b_b_rows": (dataclasses.replace(cfg, alphas=()), ocp, state),
+            "b1b_c_ladder": (nb, ocp._replace(boundaries=None,
+                                             boundary_signs=None), st_nb)}
+
+
+def split_ip(cfg, ocp, state):
+    """The IP kernel's split: its warm budget at one Newton step (1x1)
+    against its 1x4, the Newton steps against the rollouts."""
+    return {"warm_1x1": (dataclasses.replace(cfg, ip_iters=1), ocp, state)}
 
 
 def riccati_bound(bufs):
@@ -1387,8 +1449,9 @@ def phase_loop(dev, card, row, budget, steps=T_BENCH, **kw):
     """One bench row: ``closed_loop_batch_vec`` at B=16384, T=100 (or
     ``steps``; H=30, or the row's), the launches of every kernel counted in
     a first run (the row's kernel alone, as often as the row needs it) and
-    its peak device memory, then solves/s with CUDA events, best of 3 (one
-    run when the counted run took longer than ONE_TIMED_RUN_S).  Every step
+    its peak device memory, then solves/s with CUDA events, best of 3 (the
+    counted run itself, on the host clock around it, when it took longer
+    than ONE_TIMED_RUN_S: such a loop is bound by its host).  Every step
     must be feasible, except in a corridor row, whose infeasible steps are
     counted and held against the plain version
     (:func:`infeasible_vs_plain`); a corridor row also counts the
@@ -1440,8 +1503,10 @@ def phase_loop(dev, card, row, budget, steps=T_BENCH, **kw):
         extra["max_abs_beta"] = float(res.X[..., 6].abs().max())
     del res
 
-    best = float("inf")
-    timed_runs = 1 if counted_s > ONE_TIMED_RUN_S else 3
+    # a loop whose counted run took over ONE_TIMED_RUN_S (host-bound) is
+    # timed by that run; the others by CUDA events, best of 3 after it
+    best = counted_s if counted_s > ONE_TIMED_RUN_S else float("inf")
+    timed_runs = 0 if counted_s > ONE_TIMED_RUN_S else 3
     for _ in range(timed_runs):
         ms, (feasible, checksum, _) = cuda_ms(run)
         require(int(feasible) == total, "feasible steps changed between runs")
@@ -1466,13 +1531,21 @@ def phase_loop(dev, card, row, budget, steps=T_BENCH, **kw):
     return line, lcfg, lp
 
 
+# each kernel's source where it is not csrc/<library>.cu: the ST IP
+# library's (fused_ip_st.cu) is the ring source
+SOURCES = {"fused_ip_st": "fused_ip_ring.cu"}
+
+
 def kernel_symbol(kernel, name):
     """Whether the device kernel ``name`` the profiler saw is ``kernel``'s:
     "fused_ip_kernel<1, false, KsModel>(IpArgs, IpBufs)" and the like; the
-    ST libraries' kernels carry StModel, the sweep's nx=7 instance a 7."""
+    ST libraries' kernels carry StModel (the ST IP library's is
+    "fused_ip_ring_kernel<4, false, StModel>(...)"), the sweep's nx=7
+    instance a 7."""
     st = kernel.endswith("_st")
-    return (f"{kernel.removesuffix('_st')}_kernel" in name
-            and ("StModel" in name) == st)
+    symbol = ("fused_ip_ring_kernel" if kernel == "fused_ip_st"
+              else f"{kernel.removesuffix('_st')}_kernel")
+    return symbol in name and ("StModel" in name) == st
 
 
 def phase_profile(dev, row, lcfg, lp, window=None, start=0):
@@ -1597,18 +1670,27 @@ def planner_golden(dev, config, tag):
     return line
 
 
-def planner_cli(dev, rti1=False):
-    """The deployment config through the port's CLI in a subprocess on the
-    card: exit 0 (no obstacle or boundary collision); without --rti1 also
-    the native library and no infeasible (-7) step."""
-    case = "rti1" if rti1 else "default"
+def planner_cli_start(dev, rti1=False):
+    """Start the deployment config through the port's CLI in a subprocess
+    on the card (:func:`planner_cli` waits for it)."""
     cmd = [sys.executable, "-m", "mpc_tpu_torch.planner.cli",
            "--config", str(ROOT / "configs" / DEPLOYMENT),
            "--scenario-dir", str(ROOT / "scenarios"), "--deterministic",
            "--device", str(dev)] + (["--rti1"] if rti1 else [])
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
+    return (subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            time.perf_counter(), rti1)
+
+
+def planner_cli(dev, started):
+    """The CLI run of :func:`planner_cli_start`: exit 0 (no obstacle or
+    boundary collision); without --rti1 also the native library and no
+    infeasible (-7) step."""
+    popen, t0, rti1 = started
+    case = "rti1" if rti1 else "default"
+    stdout, stderr = popen.communicate(timeout=600)
+    proc = subprocess.CompletedProcess(popen.args, popen.returncode, stdout,
+                                       stderr)
     seconds = time.perf_counter() - t0
     require(proc.returncode == 0,
             f"planner CLI ({case}) exit {proc.returncode}: "
@@ -1785,24 +1867,35 @@ def planner_profile(dev, steps=PROFILE_STEPS):
 
 def phase_planner(dev, card):
     """The scenario-to-trajectory path on the card: the two goldens, the
-    deployment through the CLI (and with --rti1), C2's two routes, and the
-    deployment loop's profile."""
-    out = {"goldens": [planner_golden(dev, c, t) for c, t in PLANNER_GOLDENS],
-           "cli": planner_cli(dev), "cli_rti1": planner_cli(dev, rti1=True),
+    deployment through the CLI and with --rti1 (side by side), C2's two
+    routes, and the deployment loop's profile."""
+    goldens = [planner_golden(dev, c, t) for c, t in PLANNER_GOLDENS]
+    # the two CLI runs side by side, each in a process of its own
+    started = [planner_cli_start(dev, rti1) for rti1 in (False, True)]
+    try:
+        cli = [planner_cli(dev, run) for run in started]
+    finally:
+        for popen, _, _ in started:
+            if popen.poll() is None:
+                popen.kill()
+                popen.wait()
+    out = {"goldens": goldens, "cli": cli[0], "cli_rti1": cli[1],
            "c2_solve": planner_c2_solve(dev, **C2_SOLVE),
            "c2_loop": planner_c2_loop(dev, card, **C2_LOOP),
            "profile": planner_profile(dev)}
     return out
 
 
-def boundary_instance_line(eng, loop, timing, warm, cold, checks, build):
+def boundary_instance_line(eng, loop, timing, warm, cold, checks, build,
+                           split=None):
     """The boundary-row instance of one fused kernel in its corridor row:
     the launches of the row's loop, the largest errors of its checks, the
     times of its own budget (warm) and warm-up budget (cold) with their
     bounds and the glue of the rows' models, its registers, spills and
-    shared memory."""
+    shared memory; ``split``: its split timings."""
     errs = list(checks.values()) + [t["max_abs_err"]
-                                    for t in timing.values()]
+                                    for k, t in timing.items()
+                                    if k != "split"]
     info = build[eng.name]["boundary_instance"]
     return {
         "row": loop["row"], "launches": loop["kernel_launches"],
@@ -1820,20 +1913,23 @@ def boundary_instance_line(eng, loop, timing, warm, cold, checks, build):
         "spill_stores": info["spill_stores"],
         "spill_loads": info["spill_loads"],
         "smem_bytes_per_block": info["smem_bytes_per_block"],
-        "geometry": info["geometry"]}
+        "geometry": info["geometry"], **({"split": split} if split else {})}
 
 
 def kernel_line(eng, loop, timing, warm, cold, checks, build,
-                boundary=None):
+                boundary=None, split=None):
     """The kernels-line entry of one fused kernel: the warm bench budget's
     times, the main path's launches, the largest errors of every check;
-    ``boundary``: its boundary-row instance's entry."""
+    ``boundary``: its boundary-row instance's entry; ``split``: its split
+    timings."""
     errs = list(checks.values()) + [t["max_abs_err"]
-                                    for t in timing.values()]
+                                    for k, t in timing.items()
+                                    if k != "split"]
     info = build[eng.name]
     return {
         "name": eng.name, "route": "cuda",
-        "source": f"mpc_tpu_torch/ops/csrc/{eng.name}.cu",
+        "source": "mpc_tpu_torch/ops/csrc/"
+                  + SOURCES.get(eng.name, f"{eng.name}.cu"),
         "replaces": eng.replaces,
         "launches": loop["kernel_launches"],
         "max_abs_err": max(e["U"] for e in errs),
@@ -1850,7 +1946,7 @@ def kernel_line(eng, loop, timing, warm, cold, checks, build,
         "smem_bytes_per_block": info["smem_bytes_per_block"],
         **({"geometry": info["geometry"]} if "geometry" in info else {}),
         **({"boundary_instance": boundary} if boundary else {}),
-        "ok": True}
+        **({"split": split} if split else {}), "ok": True}
 
 
 def st_boundary_line(eng, checks, check_launches, build):
@@ -1958,10 +2054,11 @@ def main() -> int:
         timed(f"loop_vs_plain_{row}", phase_loop_vs_plain, dev, row, **kw)
     timing = timed("timing_fused_gn", phase_timing, dev, COLD, WARM)
     timing_ip = timed("timing_fused_ip", phase_timing, dev, IP_COLD,
-                      IP_WARM)
+                      IP_WARM, split=split_ip)
     timing_ric = timed("timing_riccati", phase_timing_riccati, dev)
     timing_sc = timed("timing_soft_corridor", phase_timing, dev,
-                      SOFT_CORRIDOR, {}, 10, 3, row="soft-corridor")
+                      SOFT_CORRIDOR, {}, 10, 3, row="soft-corridor",
+                      split=split_b1b)
     timing_hc = timed("timing_hard_corridor", phase_timing, dev,
                       dict(HARD_CORRIDOR, ip_sqp_iters=5, ip_iters=10),
                       dict(ip_sqp_iters=2, ip_iters=6), 10, 3,
@@ -1969,7 +2066,7 @@ def main() -> int:
     timing_st = timed("timing_fused_gn_st", phase_timing, dev,
                       dict(COLD, **ST), WARM)
     timing_ip_st = timed("timing_fused_ip_st", phase_timing, dev,
-                         dict(IP_COLD, **ST), IP_WARM)
+                         dict(IP_COLD, **ST), IP_WARM, split=split_ip)
     timing_ric_st = timed("timing_riccati_st", phase_timing_riccati, dev,
                           **ST)
     loop, lcfg, lp = timed(
@@ -2020,15 +2117,16 @@ def main() -> int:
         return ({k: v for k, v in checks_roads_st.items() if method in k},
                 {k: n for k, n in launches_roads_st.items() if method in k})
 
+
     kernels = [
         kernel_line(soft, loop, timing, "warm_1x1", "cold_3x4", checks,
                     build, boundary_instance_line(
                         soft, loop_sc, timing_sc, "warm_3x4", "cold_3x4",
-                        checks_sc, build)),
+                        checks_sc, build, timing_sc["split"])),
         kernel_line(hard, loop_ip, timing_ip, "warm_1x4", "cold_5x10",
                     checks_ip, build, boundary_instance_line(
                         hard, loop_hc, timing_hc, "warm_2x6", "cold_5x10",
-                        checks_hc, build)),
+                        checks_hc, build), timing_ip["split"]),
         riccati_kernel_line(loop_xla, timing_ric, checks_ric, checks_vec,
                             build, (loop_xla_st, timing_ric_st, checks_ric_st,
                                     checks_vec_st)),
@@ -2037,7 +2135,8 @@ def main() -> int:
                         soft_st, *roads_st("_al_"), build)),
         kernel_line(hard_st, loop_ip_st, timing_ip_st, "warm_1x4",
                     "cold_5x10", checks_ip_st, build, st_boundary_line(
-                        hard_st, *roads_st("_ip_"), build))]
+                        hard_st, *roads_st("_ip_"), build),
+                    timing_ip_st["split"])]
     timed("planner", phase_planner, dev, card)
     print(card, flush=True)
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start,

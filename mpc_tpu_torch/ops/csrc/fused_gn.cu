@@ -57,16 +57,27 @@
 //   multiplier update with is_term = false and u = 0 and read with is_term
 //   = true, differs only in the friction row's d/da, which is 2 * 0 = +0
 //   either way and unread at stage H.)
-// - Sums keep their order: each stage's merit, cost and AL term go to
-//   shared memory, and thread l of warp 0 sums them for lane l in the first
-//   design's order (ladder merits over k = 0..H; the diagnostics' cost and
-//   merit from stage H down, with the adjoint).  The violation maximum
-//   (NaN-propagating nmax, exact in any order) comes from the producers'
-//   partials.  So no sum changed order against the one-thread design.
-// - Device-memory scratch: K and d (the sweep's, read by the rollout on
-//   the same thread) and the ladder's two trial chains Xc, Uc.  The kernel
-//   also writes the status (to_solution's mapping), so that a solve needs
-//   no launch after it.
+// - The merit ladder runs its rungs across the warps: every rung reads the
+//   same iterate and gains at a stage, and only its alpha and its own state
+//   chain differ.  So thread (w, l) rolls out rung w (then w + T, ...) for
+//   lane l, all T warps at once at full width, from one staging ring that
+//   the block fills with cp.async and meets at a barrier a stage; 7 rungs
+//   at T = 4 take 2 rounds where a rung a round on warp 0 took 7.  The
+//   rolling thread adds up each stage's merit (its cost and its rows' AL
+//   terms, a pure function of the stage's (x, u)) as it goes, over k =
+//   0..H in order, and writes its trial chain to a slot of its own; thread
+//   l of warp 0 then picks the rung by the sequential rule and the owners
+//   commit that slot.
+// - Sums keep their order: the ladder's merits over k = 0..H on the
+//   rolling thread; each stage's cost and AL term to shared memory, which
+//   thread l of warp 0 sums for lane l from stage H down with the
+//   diagnostics' adjoint.  The violation maximum (NaN-propagating nmax,
+//   exact in any order) comes from the producers' partials.  So no sum
+//   changed order against the one-thread design.
+// - Device-memory scratch: K and d (the sweep's, read by the rollouts) and
+//   the ladder's trial chains Xc, Uc, a slot a rung.  The kernel also
+//   writes the status (to_solution's mapping), so that a solve needs no
+//   launch after it.
 // - A thread past the last lane (the ragged last block) does no work and
 //   stores nothing but meets every barrier, named ones included.
 // - Threads a lane: given, or chosen with the occupancy API
@@ -102,42 +113,19 @@
 // alphas[r]) when the caller passes a rung buffer.  Build without
 // --use_fast_math: the parity bands assume IEEE tanf, sqrtf, sinf, cosf and
 // division.  The helpers it shares with fused_ip.cu are in ks_rows.cuh and
-// st_model.cuh.
+// st_model.cuh; the ring's stage operand (Ring), the named barriers and the
+// cp.async copies it shares with fused_ip_ring.cu are in ring.cuh.  Its own
+// slot accessors and ring loop below are the members they were before
+// fused_ip_ring.cu: built from ring.cuh's free versions (the same
+// arithmetic), the unguarded cold 3x4 budget took ~4% longer (PERF.md).
 
-#include "st_model.cuh"
+#include "ring.cuh"
 
 #if defined(FUSED_MODEL_ST)
 using Model = StModel;
 #else
 using Model = KsModel;
 #endif
-
-#define LPB 32  // lanes a block: a warp's width
-
-// One stage's operands in a ring slot (field, lane), and the other shared
-// arrays whose size the model sets.
-template <class Mdl>
-struct Ring {
-  static constexpr int N = Mdl::N;
-  static constexpr int NQ = N + 4;   // Q00 Q01 Q11 Q04 Q14 Q44 Q22 Q23 Q33,
-                                     // then Q55 Q66 (ST)
-  static constexpr int NAR = N - 2;  // rows of A and B stored: all but 2, 3
-  static constexpr int OP_Q = 0;
-  static constexpr int OP_R = NQ;          // R00 R11
-  static constexpr int OP_M = NQ + 2;      // M21 M31
-  static constexpr int OP_QX = NQ + 4;     // qx (N)
-  static constexpr int OP_QU = OP_QX + N;  // qu (2)
-  static constexpr int OP_A = OP_QU + NU;  // rows 0, 1, 4[, 5, 6] of A
-  static constexpr int OP_B = OP_A + NAR * N;   // the same rows of B
-  static constexpr int OP_BD = OP_B + NAR * NU;  // B20, B31
-  static constexpr int NOP = OP_BD + 2;    // 43 (KS), 71 (ST)
-  static constexpr int NROLL = N + NU + NU * N + NU;  // X, U, K, d a stage
-  static constexpr int PSTR = (N * N + N) | 1;  // P and p, padded odd
-  // the state row of stored row r: 0, 1, 4, 5, 6
-  __host__ __device__ static constexpr int arow(int r) {
-    return r < 2 ? r : r + 2;
-  }
-};
 
 struct FgnArgs {
   int32_t B, H, al_iters, sqp_iters, n_alphas;
@@ -154,15 +142,8 @@ struct FgnArgs {
 
 #define NSTG 3    // stages in flight in a rollout's staging ring
 
-// Stages of the ring from the producers to the sweep: a multiple of the
-// T - 1 producer warps, so that a slot always has the same producer (6, 6
-// and 7 at T = 2, 4, 8).
-__host__ __device__ constexpr int ring_slots(int T) {
-  return (T - 1) * ((6 + T - 2) / (T - 1));
-}
-
 // Floats of one lane's shared memory: the producers' partials (T), the
-// ladder's slot, a merit (or cost) and an AL term a stage, a rollout's
+// ladder's slot, a cost and an AL term a stage, a rollout's
 // staging ring, the ring of stage operands, and the sweep's P and p.
 template <class Mdl>
 __host__ __device__ __forceinline__ int lane_floats(int H, int T) {
@@ -171,55 +152,15 @@ __host__ __device__ __forceinline__ int lane_floats(int H, int T) {
          RG::PSTR;
 }
 
-// Named barriers (bar.arrive / bar.sync with an id and a thread count):
-// a producer warp arrives, the consuming warp waits, and back.  The host
-// emulation of the kernels' tests stands in for them (HOST_KERNEL_SHIM).
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-#elif defined(HOST_KERNEL_SHIM)
-  host_named_barrier(id, n, false);
-#endif
-}
-__device__ __forceinline__ void bar_wait(int id, int n) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-#elif defined(HOST_KERNEL_SHIM)
-  host_named_barrier(id, n, true);
-#endif
-}
-
-// Asynchronous 4-byte copies from device into shared memory (cp.async),
-// by which a chain's thread fetches the next stage while it computes this
-// one; a plain copy in the host emulation.
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-#else
-  *dst = *src;
-#endif
-}
-__device__ __forceinline__ void copy_commit() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-#endif
-}
-
 // --------------------------------------------------------------------------
 // augmented-Lagrangian row terms
 // --------------------------------------------------------------------------
 
 // AL terms of one side: psi = (m^2 - lam^2) / (2 mu), grad = +-m, gn.
+// An inactive side without a multiplier (m = +0, lam = +-0, mu > 0) has psi
+// = (+0 - +0) / (2 mu) = +0 exactly, which skips the division: most sides
+// of a stage are such, and these divisions are a large part of the
+// ladder's merits (PERF.md).
 __device__ __forceinline__ void al_one_sided(float h, float bound, float lam,
                                              float mu, bool is_hi, float& psi,
                                              float& grad, float& gn) {
@@ -227,7 +168,10 @@ __device__ __forceinline__ void al_one_sided(float h, float bound, float lam,
   const float t = lam + mu * c;
   const bool act = t > 0.f;
   const float m = act ? t : 0.f;
-  psi = (m * m - lam * lam) / (2.f * mu);
+  if (!act && lam == 0.f && mu > 0.f)
+    psi = 0.f;
+  else
+    psi = (m * m - lam * lam) / (2.f * mu);
   grad = is_hi ? m : -m;
   gn = act ? mu : 0.f;
 }
@@ -286,11 +230,12 @@ struct Solve {
   const int w, l;
   const bool live;  // false: past the last lane; meets the barriers only
   float* const part;   // (T, LPB) the producers' violation partials
-  int* const slot;     // (LPB) the ladder's trial / best slot
-  float* const sm_m;   // (H + 1, LPB) stage merits, or the stage costs
+  int* const slot;     // (LPB) the ladder's best slot
+  float* const sm_m;   // (H + 1, LPB) the stage costs
   float* const sm_p;   // (H + 1, LPB) the stages' AL terms
-  float* const stg;    // (NSTG, RG::NROLL, LPB) warp 0's staging ring
-  float* const ring;   // (R, RG::NOP, LPB) the ring of stage operands
+  float* const stg;    // (NSTG, RG::NROLL, LPB) the rollouts' staging ring
+  float* const ring;   // (R, RG::NOP, LPB) the ring of stage operands; the
+                       // ladder's merits (1 + n_alphas, LPB) between rings
   float* const pm;     // (LPB, PSTR) the sweep's P and p, lane by lane
   static constexpr int R = ring_slots(T);
   static constexpr int NRB = nrows<BND>();  // rows a stage
@@ -608,27 +553,6 @@ struct Solve {
     }
   }
 
-  // cost + AL psi of every stage of the chain (Xs, Us) into shared memory
-  __device__ void stage_merits(const float* Xs, const float* Us) const {
-    if (!live) return;
-    for (int k = w; k <= a.H; k += T) {
-      const bool is_term = k == a.H;
-      float x[N], u[NU], xref[N], p, gh[NRB], gn[NRB], wx[N], wr[NU];
-      xu(Xs, Us, k, x, u);
-      load(b.xref, k, N, xref);
-      weights(is_term, wx, wr);
-      RowsT r;
-      fresh_rows(k, x, u, is_term, r);
-      terms<false>(r, k, is_term, p, gh, gn);
-      float c;
-      if (is_term)
-        c = a.use_term ? term_cost<N>(x, xref, wx) : 0.f;
-      else
-        c = stage_cost<N>(x, u, xref, wx, wr);
-      sm_m[k * LPB + l] = c + p;
-    }
-  }
-
   // the ladder: copy the best chain into (X, U) at the owned stages
   __device__ void commit(const float* Xs, const float* Us) const {
     if (!live) return;
@@ -735,11 +659,9 @@ struct Solve {
       ring_phase<false, false>(use);
   }
 
-  // Feedback rollout u = clip(ub + alpha d + K (x - xb)) from x0 against
-  // the current iterate (X, U), into (Xo, Uo), which may be X, U
-  // themselves (the unguarded step, alpha unused: ub + d + K dx).
-  __device__ void feedback_rollout(float alpha, bool unguarded, float* Xo,
-                                   float* Uo) const {
+  // The unguarded step: the feedback rollout u = clip(ub + d + K (x - xb))
+  // from x0 against the current iterate (X, U), into (X, U) themselves.
+  __device__ void full_step() const {
     float x[N], xn[N], xb[N], ub[NU], u[NU], Kk[NU * N], dk[NU];
     load(b.x0, 0, N, x);
     if (a.H > 0) fetch_roll(0);
@@ -762,63 +684,131 @@ struct Solve {
         float fb = 0.f;
 #pragma unroll
         for (int j = 0; j < N; ++j) fb += Kk[i * N + j] * dx[j];
-        u[i] = (unguarded ? ub[i] + dk[i] : ub[i] + alpha * dk[i]) + fb;
+        u[i] = (ub[i] + dk[i]) + fb;
       }
       u[0] = clipf(u[0], a.u_lo0, a.u_hi0);
       u[1] = clipf(u[1], a.u_lo1, a.u_hi1);
+      Mdl::step(a, x, u, xn);
+      store(b.X, k, N, x);
+      store(b.U, k, NU, u);
+#pragma unroll
+      for (int i = 0; i < N; ++i) x[i] = xn[i];
+    }
+    store(b.X, a.H, N, x);
+  }
+
+  // The merit of stage k of a trial chain at (x, u) (u = 0 at stage H):
+  // its cost plus its rows' AL terms at the current multipliers.
+  __device__ float stage_merit(int k, const float x[N],
+                               const float u[NU]) const {
+    const bool is_term = k == a.H;
+    float xref[N], wx[N], wr[NU], p, gh[NRB], gn[NRB];
+    load(b.xref, k, N, xref);
+    weights(is_term, wx, wr);
+    RowsT r;
+    fresh_rows(k, x, u, is_term, r);
+    terms<false>(r, k, is_term, p, gh, gn);
+    float c;
+    if (is_term)
+      c = a.use_term ? term_cost<N>(x, xref, wx) : 0.f;
+    else
+      c = stage_cost<N>(x, u, xref, wx, wr);
+    return c + p;
+  }
+
+  // Field f of stage k of the feedback rollout's inputs: X, U, K, d.
+  __device__ __forceinline__ const float* roll_src(int k, int f) const {
+    if (f < N) return b.X + L.at(k, f, N);
+    if (f < N + NU) return b.U + L.at(k, f - N, NU);
+    if (f < N + NU + NU * N) return b.K + L.at(k, f - N - NU, NU * N);
+    return b.d + L.at(k, f - N - NU - NU * N, NU);
+  }
+
+  // One round of the ladder: thread (w, l) rolls rung q = q0 + w out for
+  // lane l (q = 0: alpha = 0; q = r + 1: alphas[r]) into slot q of (Xc,
+  // Uc), the feedback rollout's arithmetic, and adds up its stage merits
+  // over k = 0..H in order as it goes, into shared memory (q, l).  The
+  // rung threads share one staging ring: each thread fetches the fields f
+  // = w mod T of its lane's next stage, and the block meets at a barrier
+  // a stage.  A thread past the rungs or the lanes meets the barriers only.
+  __device__ void ladder_round(int q0, float* mer) const {
+    const int q = q0 + w;
+    const bool act = live && q <= a.n_alphas;
+    const float alpha = act && q > 0 ? a.alphas[q - 1] : 0.f;
+    float* const Xo = b.Xc + (size_t)q * (a.H + 1) * N * a.B;
+    float* const Uo = b.Uc + (size_t)q * a.H * NU * a.B;
+    const auto fetch_part = [&](int k) {
+      if (live)
+        for (int f = w; f < RG::NROLL; f += T)
+          copy_async(&st(k, f), roll_src(k, f));
+      copy_commit();
+    };
+    float x[N], u[NU], acc = 0.f;
+    load(b.x0, 0, N, x);
+    __syncthreads();   // the last round's readers of the staging ring
+    if (a.H > 0) fetch_part(0);
+    for (int k = 0; k < a.H; ++k) {
+      if (k + 1 < a.H) fetch_part(k + 1);
+      next(k + 1 < a.H);
+      // the stage's fields in from every thread; the slot fetched next
+      // (k + 2) was last read at stage k - 1, before this barrier
+      __syncthreads();
+      if (!act) continue;
+      float dx[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) dx[i] = x[i] - st(k, i);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        float fb = 0.f;
+#pragma unroll
+        for (int j = 0; j < N; ++j) fb += st(k, N + NU + i * N + j) * dx[j];
+        u[i] = (st(k, N + i) + alpha * st(k, N + NU + NU * N + i)) + fb;
+      }
+      u[0] = clipf(u[0], a.u_lo0, a.u_hi0);
+      u[1] = clipf(u[1], a.u_lo1, a.u_hi1);
+      acc = acc + stage_merit(k, x, u);
+      float xn[N];
       Mdl::step(a, x, u, xn);
       store(Xo, k, N, x);
       store(Uo, k, NU, u);
 #pragma unroll
       for (int i = 0; i < N; ++i) x[i] = xn[i];
     }
+    if (!act) return;
+    u[0] = u[1] = 0.f;
+    acc = acc + stage_merit(a.H, x, u);
     store(Xo, a.H, N, x);
-  }
-
-  // the merit of a chain: its stage merits summed over k = 0..H in order
-  __device__ float chain_merit() const {
-    float acc = 0.f;
-    for (int k = 0; k <= a.H; ++k) acc = acc + sm_m[k * LPB + l];
-    return acc;
+    mer[q * LPB + l] = acc;
   }
 
   // The line-search ladder of GN iteration ``it`` (over the whole solve):
-  // a trial chain per rung rolled out by warp 0, its stage merits on the
-  // owners, its sum on warp 0; the best chain committed by the owners.
+  // the 1 + n_alphas rungs in rounds of T, a rung a warp (ladder_round),
+  // each trial chain into a slot of its own with its merit; then thread l
+  // of warp 0 picks lane l's rung by the sequential rule (alpha = 0 first,
+  // a rung taken on a strict "<", so a NaN merit never wins), and the
+  // owners commit the best chain.  The merits go to the ring's shared
+  // memory, which no ring phase uses during the ladder.
   __device__ void ladder(int it) const {
-    const size_t xs = (size_t)(a.H + 1) * N * a.B;
-    const size_t us = (size_t)a.H * NU * a.B;
-    const bool chain = live && w == 0;
-    int best = 0, best_rung = 0;
-    float best_m = 0.f;
-    for (int r = -1; r < a.n_alphas; ++r) {
-      // r = -1: alpha = 0 into slot 0; then alphas[r] into the other slot
-      if (chain) {
-        const int trial = r < 0 ? 0 : 1 - best;
-        feedback_rollout(r < 0 ? 0.f : a.alphas[r], false, b.Xc + trial * xs,
-                         b.Uc + trial * us);
-        slot[l] = trial;
-      }
-      __syncthreads();
-      const int trial = slot[l];
-      stage_merits(b.Xc + trial * xs, b.Uc + trial * us);
-      __syncthreads();
-      if (chain) {
-        const float m = chain_merit();
-        if (r < 0) {
+    float* const mer = ring;
+    for (int q0 = 0; q0 <= a.n_alphas; q0 += T) ladder_round(q0, mer);
+    __syncthreads();
+    if (live && w == 0) {
+      int best = 0;
+      float best_m = mer[l];
+      for (int q = 1; q <= a.n_alphas; ++q) {
+        const float m = mer[q * LPB + l];
+        if (m < best_m) {
           best_m = m;
-        } else if (m < best_m) {
-          best_m = m;
-          best = trial;
-          best_rung = r + 1;
+          best = q;
         }
-        slot[l] = best;
       }
-      __syncthreads();
+      if (b.rung) b.rung[(size_t)it * a.B + L.lane] = best;
+      slot[l] = best;
     }
-    if (chain && b.rung) b.rung[(size_t)it * a.B + L.lane] = best_rung;
+    __syncthreads();
     const int pick = slot[l];
-    commit(b.Xc + pick * xs, b.Uc + pick * us);
+    commit(b.Xc + (size_t)pick * (a.H + 1) * N * a.B,
+           b.Uc + (size_t)pick * a.H * NU * a.B);
   }
 
   // The diagnostics, run by every thread: the producers apply the last
@@ -882,8 +872,14 @@ struct Solve {
 // 32 lanes and T warps a block; at most 128 registers a thread, so that 16
 // warps fit an SM.  __grid_constant__: the Solve object keeps references
 // to the parameters, which then stay in the constant bank instead of a
-// local copy.
-template <int T, bool BND, class Mdl>
+// local copy.  LAD: 1 the instance with the merit ladder (n_alphas > 0), 0
+// the unguarded step's, -1 either, as the call asks.  The KS library builds
+// 0 and 1: the ladder's code in the unguarded solve's instance spilled its
+// registers (252 B at T = 4 against none), and called out of line it put
+// the Solve in local memory; either cost the unguarded bench budgets 4-7%
+// (PERF.md).  The ST library builds -1, which halves its build, the
+// slowest of the port's (its dual-number producers).
+template <int T, bool BND, class Mdl, int LAD>
 __global__ void __launch_bounds__(LPB * T, 16 / T)
 fused_gn_kernel(const __grid_constant__ FgnArgs a,
                 const __grid_constant__ Bufs b) {
@@ -896,23 +892,22 @@ fused_gn_kernel(const __grid_constant__ FgnArgs a,
   const bool chain = live && w == 0;
   if (chain) s.initial_rollout();
   __syncthreads();
-  const bool unguarded = a.n_alphas == 0;
   // The multiplier update that closes an AL iteration runs in the
   // producers of the next ring, the next AL iteration's first sweep or the
   // diagnostics, at the same rows (al_iters, sqp_iters >= 1).
   for (int ai = 0; ai < a.al_iters; ++ai) {
     for (int si = 0; si < a.sqp_iters; ++si) {
-      s.backward_sweep(unguarded, ai > 0 && si == 0);
-      if (chain && unguarded) {
+      const bool ladder = LAD < 0 ? a.n_alphas > 0 : LAD == 1;
+      s.backward_sweep(!ladder, ai > 0 && si == 0);
+      if (ladder) {
+        __syncthreads();
+        s.ladder(ai * a.sqp_iters + si);
+      } else if (chain) {
         // K and d, stored by this thread, are read by its cp.async copies
         __threadfence_block();
-        s.feedback_rollout(1.f, true, b.X, b.U);
+        s.full_step();
       }
       __syncthreads();
-      if (!unguarded) {
-        s.ladder(ai * a.sqp_iters + si);
-        __syncthreads();
-      }
     }
   }
   s.diagnostics();
@@ -922,14 +917,14 @@ fused_gn_kernel(const __grid_constant__ FgnArgs a,
 // a lane given, or the most of 2, 4, 8 (4, 8 for ST) whose blocks are all
 // resident at once (occupancy API), else 4; lanes a block; shared bytes a
 // lane and a block; blocks resident an SM; registers a thread; of the
-// instance with or without the boundary rows (args->boundary), of this
-// source's model.
+// instance with or without the boundary rows (args->boundary) and of the
+// ladder (with_ladder), of this source's model.
 // The attribute and occupancy calls are made once per device and shared
 // memory size, and kept.
-template <int T, bool BND>
+template <int T, bool BND, int LAD>
 static int occupancy(const FgnArgs* args, int32_t out[6]) {
   static int dev_c = -1, smem_c = -1, nb = 0, regs = 0;
-  auto kernel = fused_gn_kernel<T, BND, Model>;
+  auto kernel = fused_gn_kernel<T, BND, Model, LAD>;
   const int lane_bytes = lane_floats<Model>(args->H, T) * (int)sizeof(float);
   const int smem = LPB * lane_bytes;
   int dev = 0, err;
@@ -956,21 +951,35 @@ static int occupancy(const FgnArgs* args, int32_t out[6]) {
   return 0;
 }
 
-template <bool BND>
+template <bool BND, int LAD>
 static int occupancy_at(const FgnArgs* args, int T, int32_t out[6]) {
   switch (T) {
 #if !defined(FUSED_MODEL_ST)  // the ST instances take 4 and 8 threads a lane
-    case 2: return occupancy<2, BND>(args, out);
+    case 2: return occupancy<2, BND, LAD>(args, out);
 #endif
-    case 4: return occupancy<4, BND>(args, out);
-    case 8: return occupancy<8, BND>(args, out);
+    case 4: return occupancy<4, BND, LAD>(args, out);
+    case 8: return occupancy<8, BND, LAD>(args, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// f(std::integral_constant<int, LAD>()) for the LAD instance of args
+template <class F>
+static int with_ladder(const FgnArgs* args, F f) {
+#if defined(FUSED_MODEL_ST)
+  return f(std::integral_constant<int, -1>());
+#else
+  return args->n_alphas > 0 ? f(std::integral_constant<int, 1>())
+                            : f(std::integral_constant<int, 0>());
+#endif
+}
+
 static int occupancy_at(const FgnArgs* args, int T, int32_t out[6]) {
-  return args->boundary ? occupancy_at<true>(args, T, out)
-                        : occupancy_at<false>(args, T, out);
+  return with_ladder(args, [&](auto lad) {
+    constexpr int LAD = decltype(lad)::value;
+    return args->boundary ? occupancy_at<true, LAD>(args, T, out)
+                          : occupancy_at<false, LAD>(args, T, out);
+  });
 }
 
 static int geometry(const FgnArgs* args, int32_t out[6]) {
@@ -1011,10 +1020,13 @@ static int launch(const FgnArgs* args, const Bufs& b, size_t smem,
                   void* stream) {
   const int blocks = (args->B + LPB - 1) / LPB;
   const int threads = LPB * T;
-  auto kernel = args->boundary ? fused_gn_kernel<T, true, Model>
-                               : fused_gn_kernel<T, false, Model>;
-  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(*args, b);
-  return (int)cudaGetLastError();
+  return with_ladder(args, [&](auto lad) {
+    constexpr int LAD = decltype(lad)::value;
+    auto kernel = args->boundary ? fused_gn_kernel<T, true, Model, LAD>
+                                 : fused_gn_kernel<T, false, Model, LAD>;
+    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(*args, b);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int fused_gn_solve(const FgnArgs* args, const float* x0,

@@ -1364,11 +1364,11 @@ def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
     """The kernel's buffers, lanes fastest: every input copied into that
     layout (so the caller's tensors are never written), all but U by one
     ``torch.cat``, every output and scratch buffer allocated.  The line-search
-    trial chains are allocated only when the ladder is on, and the rung
-    trace (al_iters * sqp_iters, B) only when it is on and ``trace_rungs``
-    asks for it.  With boundary rows their models at the rollout of the
-    warm start (:func:`boundary_models`) go into the same buffer.
-    KS-schema params of an ST problem are widened first
+    trial chains (a slot a rung) are allocated only when the ladder is on,
+    and the rung trace (al_iters * sqp_iters, B) only when it is on and
+    ``trace_rungs`` asks for it.  With boundary rows their models at the
+    rollout of the warm start (:func:`boundary_models`) go into the same
+    buffer.  KS-schema params of an ST problem are widened first
     (``sqp.normalize_params``)."""
     reason = ineligible_reason(cfg, params)
     if reason is not None:
@@ -1409,8 +1409,11 @@ def pack(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
         K=torch.empty((H, NU * nx, B), dtype=f32, device=dev),
         d=torch.empty((H, NU, B), dtype=f32, device=dev))
     if cfg.alphas:
-        bufs["Xc"] = torch.empty((2, H + 1, nx, B), dtype=f32, device=dev)
-        bufs["Uc"] = torch.empty((2, H, NU, B), dtype=f32, device=dev)
+        # a trial chain a rung: alpha = 0 and each of the alphas
+        rungs = 1 + len(cfg.alphas)
+        bufs["Xc"] = torch.empty((rungs, H + 1, nx, B), dtype=f32,
+                                 device=dev)
+        bufs["Uc"] = torch.empty((rungs, H, NU, B), dtype=f32, device=dev)
         if trace_rungs:
             bufs["rung"] = torch.empty((cfg.al_iters * cfg.sqp_iters, B),
                                        dtype=torch.int32, device=dev)

@@ -23,9 +23,12 @@ One launch runs, for every lane::
 
 Two implementations of the same function:
 
-* the CUDA C++ kernel ``csrc/fused_ip.cu`` (one warp per lane, a thread per
-  stage, the Newton state in registers and shared memory), launched by
-  :func:`launch_ip` on CUDA tensors;
+* the CUDA C++ kernels, launched by :func:`launch_ip` on CUDA tensors: for
+  the KS model ``csrc/fused_ip.cu`` (one warp per lane, a thread per stage,
+  the Newton state in registers and shared memory, every buffer lanes
+  leading); for the ST model ``csrc/fused_ip_ring.cu`` (32 lanes and 4
+  warps a block on fused_gn's ring of stage operands, the Newton state in
+  device memory, every buffer lanes fastest);
 * :func:`solve_batch_fused_ip_plain`, the plain PyTorch version over a
   leading lane axis, with the stage-independent work evaluated for all
   stages at once.  The CPU runs it, and the kernel is checked against it on
@@ -36,12 +39,13 @@ CUDA tensor to the kernel; nothing falls back from one to the other.
 
 Envelope (:func:`eligible_ip`): the KS or the ST model (the ST
 instances in a library of their own, ``csrc/fused_ip_st.cu``), method 'ip',
-forcespro or casadi rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1, 3, 2) obstacles,
-with or without the 6 road-boundary rows (given the boundaries; their
-per-stage models are ``fused_gn.boundary_models``), cold or warm duals, any
-``ip_sqp_iters x ip_iters`` budget, ``ip_alphas=()`` or a ladder of at most
-``MAX_ALPHAS`` rungs, a horizon of at most ``MAX_HORIZON`` stages whose
-shared-memory footprint a block holds.
+forcespro or casadi rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1,
+3, 2) obstacles, with or without the 6 road-boundary rows (given the
+boundaries; their per-stage models are ``fused_gn.boundary_models``), cold
+or warm duals, any ``ip_sqp_iters x ip_iters`` budget, ``ip_alphas=()`` or
+a ladder of at most ``MAX_ALPHAS`` rungs, and a horizon within the model's
+kernel: KS at most ``MAX_HORIZON`` stages whose lane a block holds, ST a
+block of 32 lanes within a block's shared memory (``MAX_HORIZON_ST``).
 """
 from __future__ import annotations
 
@@ -53,8 +57,8 @@ from mpc_tpu_torch.device import resolve_device
 from mpc_tpu_torch.ops import fused_gn as F
 from mpc_tpu_torch.ops import sqp as S
 from mpc_tpu_torch.ops.fused_gn import (
-    MAX_ALPHAS, NU, NX, StConsts, _assemble_quad, _cols, _mat, _mv,
-    _row_bounds, _row_lin, _row_values, _vec, kernel_name, make_consts)
+    MAX_ALPHAS, NBND, NU, NX, NX_ST, StConsts, _assemble_quad, _cols, _mat,
+    _mv, _row_bounds, _row_lin, _row_values, _vec, kernel_name, make_consts)
 from mpc_tpu_torch.ops.ipqp import (
     _MU0, _MU_MIN, _S_FLOOR, _S_MIN, _SIGMA_B, _TAU, _WARM_KAPPA, _Z_MAX)
 
@@ -64,6 +68,8 @@ TPL = 32       # threads per lane: one warp, a thread per stage
 MAX_SPT = 2    # stages a thread holds, at most (csrc/fused_ip.cu MAX_SPT)
 MAX_HORIZON = TPL * MAX_SPT - 1
 SMEM_PER_BLOCK = 232448   # bytes of shared memory an H100 block may use
+RING_LANES = 32           # csrc/fused_ip_ring.cu: lanes a block
+RING_THREADS_PER_LANE = 4     # its T_IP
 
 
 def quad_floats(nx: int = NX) -> int:
@@ -72,19 +78,43 @@ def quad_floats(nx: int = NX) -> int:
     return (nx * (nx + 1) // 2 + NU * NU + nx * NU + nx + NU) | 1
 
 
+def ab_floats(nx: int = NX) -> int:
+    """Floats of a stage's (A, B) in the ring kernel (``Ring::NAB``): the
+    rows of A and B other than those of delta and v, and B20, B31."""
+    return (nx - 2) * (nx + NU) + 2
+
+
 def lane_smem_bytes(H: int, boundary: bool = False, nx: int = NX) -> int:
-    """Shared memory of one lane at horizon H for the model of state count
-    nx: ``Layout`` in csrc/fused_ip.cu (rows cache, 45 floats a stage or 69
-    with the boundary rows, quadratics (whose space a rollout's scratch
-    shares), (A, B), K, d, ddX, ddU, X, U, xref, obstacles, the terminal P
-    and p, the stationarity, the lane's constants: weights, x0 and the
-    clearance)."""
+    """Shared memory of one lane at horizon H in the library of the model
+    of state count nx.  KS: ``Layout`` in csrc/fused_ip.cu (rows cache, 45
+    floats a stage or 69 with the boundary rows, quadratics (whose space a
+    rollout's scratch shares), (A, B), K, d, ddX, ddU, X, U, xref,
+    obstacles, the terminal P and p, the stationarity, the lane's
+    constants: weights, x0 and the clearance).  ST: ``ring_lane_floats`` in
+    csrc/fused_ip_ring.cu (the threads' partials, the ladder's slot, a value
+    a stage, the ring of stage operands, the sweep's P and p; the same with
+    or without the boundary rows)."""
+    if nx == NX_ST:
+        T = RING_THREADS_PER_LANE
+        return 4 * (T + 1 + (H + 1) + F.ring_slots(T)
+                    * F.ring_operand_floats(nx) + F.sweep_floats(nx))
     S = H + 1
     rows = 69 if boundary else 45
     floats = (rows * S + quad_floats(nx) * S + (nx * nx + nx * NU) * H
               + NU * nx * H + NU * H + nx * S + NU * S + nx * S + NU * S
               + nx * S + 7 * S + nx * nx + nx + 1 + (3 * nx + 3))
     return 4 * floats
+
+
+def _ring_max_horizon(nx: int = NX_ST) -> int:
+    """The longest horizon whose block of ``RING_LANES`` lanes fits a
+    block's shared memory in the ring kernel (a lane's footprint grows by
+    4 bytes a stage)."""
+    spare = SMEM_PER_BLOCK // RING_LANES - lane_smem_bytes(0, nx=nx)
+    return spare // 4
+
+
+MAX_HORIZON_ST = _ring_max_horizon()
 
 
 def ineligible_reason_ip(cfg: S.SolverConfig, params: S.OcpParams):
@@ -107,6 +137,14 @@ def ineligible_reason_ip(cfg: S.SolverConfig, params: S.OcpParams):
         return (f"{len(cfg.ip_alphas)} ladder rungs, the kernel takes "
                 f"{MAX_ALPHAS}")
     H = cfg.horizon
+    if nx == NX_ST:   # the ring kernel: a thread loops over its stages
+        lane = lane_smem_bytes(H, cfg.boundary_rows, nx)
+        if RING_LANES * lane > SMEM_PER_BLOCK:
+            return (f"horizon {H}: a block of {RING_LANES} lanes of the ST "
+                    f"model needs {RING_LANES * lane} bytes of shared "
+                    f"memory ({lane} a lane), a block holds "
+                    f"{SMEM_PER_BLOCK}: H <= {_ring_max_horizon(nx)}")
+        return None
     if H > MAX_HORIZON:
         return (f"horizon {H}: the kernel's warp holds at most "
                 f"{TPL * MAX_SPT} stages a lane ({MAX_SPT} a thread), "
@@ -536,9 +574,10 @@ def kernel_args_ip(cfg: S.SolverConfig, B: int, moving: bool,
     return a
 
 
-# the kernel's buffers in the order of fused_ip_solve's pointer arguments,
-# all lanes leading (the package's public layout); the Newton state lives
-# in the kernel's registers and shared memory, so there is no scratch
+# the kernel's buffers in the order of fused_ip_solve's pointer arguments.
+# fused_ip.cu (KS): all lanes leading (the package's public layout), the
+# Newton state in the kernel's registers and shared memory, no scratch.
+# fused_ip_ring.cu (ST): all lanes fastest, then the Newton state's scratch.
 KERNEL_INPUTS = F.KERNEL_INPUTS                 # x0, xref, obs, mind, w
 KERNEL_STATE = ("U", "lam_lo", "lam_hi")        # updated in place
 KERNEL_OUTPUTS = ("X", "pviol", "diag")
@@ -546,7 +585,18 @@ KERNEL_TRACE = ("rung",)     # optional: the rung each ladder step committed
 KERNEL_BOUNDARY = F.KERNEL_BOUNDARY   # with boundary rows: (B, H+1, 18)
 KERNEL_ORDER = (KERNEL_INPUTS + KERNEL_STATE + KERNEL_OUTPUTS + KERNEL_TRACE
                 + KERNEL_BOUNDARY)
+# the ring kernel's Newton state: slacks, the primal step, the Newton
+# direction, K, d, (A, B); the ladder's trial chains (a slot a rung) only
+# with the ladder on
+KERNEL_SCRATCH_RING = ("s_lo", "s_hi", "dX", "dU", "ddX", "ddU", "K", "d",
+                       "AB", "Xc", "Uc")
+KERNEL_ORDER_RING = KERNEL_ORDER + KERNEL_SCRATCH_RING
 _OUT_ORDER = ("X", "U", "lam_lo", "lam_hi", "pviol", "diag")
+
+
+def ring_kernel(cfg: S.SolverConfig) -> bool:
+    """Whether ``cfg``'s model runs on the ring kernel (the ST model)."""
+    return cfg.model == "st"
 
 
 def _copied(t, shape):
@@ -560,18 +610,22 @@ def _copied(t, shape):
 
 def pack_ip(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
             trace_rungs: bool = False) -> dict:
-    """The kernel's buffers, lanes leading and contiguous (one lane's data
-    in consecutive addresses, which the lane's warp loads together): every
-    input copied (never a view of the caller's tensors, since the kernel
-    writes U, lam_lo and lam_hi in place), every output allocated; the rung
-    trace (ip_sqp_iters, B) only when the ladder is on and ``trace_rungs``
-    asks for it; with boundary rows their models at the rollout of the warm
-    start (``fused_gn.boundary_models``); KS-schema params of an ST problem
-    widened first (``sqp.normalize_params``)."""
+    """The kernel's buffers: every input copied (never a view of the
+    caller's tensors, since the kernel writes U, lam_lo and lam_hi in
+    place), every output allocated; the rung trace (ip_sqp_iters, B) only
+    when the ladder is on and ``trace_rungs`` asks for it; with boundary
+    rows their models at the rollout of the warm start
+    (``fused_gn.boundary_models``); KS-schema params of an ST problem
+    widened first (``sqp.normalize_params``).  KS: lanes leading and
+    contiguous (one lane's data in consecutive addresses, which the lane's
+    warp loads together); ST: the ring kernel's layout (:func:`_pack_ring`).
+    """
     reason = ineligible_reason_ip(cfg, params)
     if reason is not None:
         raise NotImplementedError(reason)
     params = S.normalize_params(cfg, params)
+    if ring_kernel(cfg):
+        return _pack_ring(cfg, params, state, trace_rungs)
     B, H, nr = params.x0.shape[0], cfg.horizon, S.nrows(cfg)
     nx = S.solver_nx(cfg)
     dev, f32 = params.x0.device, torch.float32
@@ -602,15 +656,67 @@ def pack_ip(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
     return bufs
 
 
+def _pack_ring(cfg, params, state, trace_rungs):
+    """:func:`pack_ip` for the ring kernel: every buffer lanes fastest, the
+    inputs and the duals copied by one ``torch.cat`` (U apart, as in
+    ``fused_gn.pack``), the outputs and the Newton state's scratch
+    allocated, the trial chains (a slot a rung) only with the ladder on."""
+    B, H, nr = params.x0.shape[0], cfg.horizon, S.nrows(cfg)
+    nx = S.solver_nx(cfg)
+    dev, f32 = params.x0.device, torch.float32
+    moving = params.obs_centers.dim() == 4
+    w = params.weights
+    parts = [
+        ("x0", params.x0, (B, nx)),
+        ("xref", params.x_ref, (B, H + 1, nx)),
+        ("obs", params.obs_centers.reshape(B, -1, 6) if moving
+         else params.obs_centers.reshape(B, 6),
+         (B, H + 1, 6) if moving else (B, 6)),
+        ("mind", params.min_dist.reshape(B), (B,)),
+        ("w", [w.q, w.r, w.qN], (B, 2 * nx + NU)),
+        ("lam_lo", state.lam_lo, (B, H + 1, nr)),
+        ("lam_hi", state.lam_hi, (B, H + 1, nr))]
+    if cfg.boundary_rows:
+        parts.append(("bnd", F.boundary_models(cfg, params, state),
+                      (B, H + 1, NBND)))
+    bufs = F._lanes_fastest(parts)
+
+    def empty(*shape):
+        return torch.empty(shape + (B,), dtype=f32, device=dev)
+
+    bufs.update(
+        U=F._packed(state.U, (B, H, NU)), X=empty(H + 1, nx),
+        pviol=empty(H + 1, nr), diag=empty(4), s_lo=empty(H + 1, nr),
+        s_hi=empty(H + 1, nr), dX=empty(H + 1, nx), dU=empty(H, NU),
+        ddX=empty(H + 1, nx), ddU=empty(H, NU), K=empty(H, NU * nx),
+        d=empty(H, NU), AB=empty(H, ab_floats(nx)))
+    if cfg.ip_alphas:
+        rungs = 1 + len(cfg.ip_alphas)
+        bufs.update(Xc=empty(rungs, H + 1, nx), Uc=empty(rungs, H, NU))
+        if trace_rungs:
+            bufs["rung"] = torch.empty((cfg.ip_sqp_iters, B),
+                                       dtype=torch.int32, device=dev)
+    return bufs
+
+
+def _ring_bufs(bufs: dict) -> bool:
+    """Whether ``bufs`` are the ring kernel's (lanes fastest)."""
+    return "AB" in bufs
+
+
 def _moving(bufs: dict) -> bool:
+    """Moving obstacles: (B, H+1, 6) lanes leading, (H+1, 6, B) lanes
+    fastest."""
     return bufs["obs"].dim() == 3
 
 
 def _launch_ip(name: str, cfg: S.SolverConfig, bufs: dict,
                lanes_per_block: int) -> None:
-    args = kernel_args_ip(cfg, bufs["x0"].shape[0], _moving(bufs),
-                          lanes_per_block)
-    err = F.call_kernel(name, args, bufs, KERNEL_ORDER)
+    ring = _ring_bufs(bufs)
+    B = bufs["x0"].shape[-1 if ring else 0]
+    args = kernel_args_ip(cfg, B, _moving(bufs), lanes_per_block)
+    err = F.call_kernel(name, args, bufs,
+                        KERNEL_ORDER_RING if ring else KERNEL_ORDER)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -646,9 +752,11 @@ launch_ip_st.launches = 0
 def geometry(cfg: S.SolverConfig, B: int, moving: bool = False,
              lanes_per_block: int = 0) -> dict:
     """The launch geometry the kernel takes on the current GPU for B lanes:
-    lanes per block (given, or chosen from registers and shared memory),
-    shared bytes a lane and a block, blocks resident an SM, registers a
-    thread, the most lanes a block's shared memory holds."""
+    lanes per block (given, or chosen from registers and shared memory;
+    the ring kernel's are 32, and it takes 0 or 32), shared bytes a lane
+    and a block, blocks resident an SM, registers a thread, the most lanes
+    a block's shared memory holds; the ring kernel's also its threads a
+    lane."""
     from mpc_tpu_torch.ops import _build
     args = kernel_args_ip(cfg, B, moving, lanes_per_block)
     out = (ctypes.c_int32 * 6)()
@@ -660,12 +768,18 @@ def geometry(cfg: S.SolverConfig, B: int, moving: bool = False,
         raise RuntimeError(f"fused_ip geometry failed: CUDA error {err}")
     keys = ("lanes_per_block", "smem_bytes_per_lane", "smem_bytes_per_block",
             "blocks_per_sm", "registers", "max_lanes_per_block")
-    return dict(zip(keys, list(out)))
+    geo = dict(zip(keys, list(out)))
+    if ring_kernel(cfg):
+        geo["threads_per_lane"] = RING_THREADS_PER_LANE
+    return geo
 
 
 def unpack_ip(bufs: dict):
-    """(X, U, z_lo, z_hi, per-row viol, diag): the kernel's buffers, which
-    are in the package's public lanes-leading layout."""
+    """(X, U, z_lo, z_hi, per-row viol, diag) in the package's public
+    lanes-leading layout: the KS kernel's buffers themselves, views of the
+    ring kernel's."""
+    if _ring_bufs(bufs):
+        return tuple(F._aos(bufs[n]) for n in _OUT_ORDER)
     return tuple(bufs[n] for n in _OUT_ORDER)
 
 

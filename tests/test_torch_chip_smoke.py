@@ -217,6 +217,47 @@ def test_st_rows_name_their_libraries_and_kernels():
     assert cs.kernel_symbol("riccati", "riccati_kernel<7>(RicArgs, RicBufs)")
 
 
+def test_st_ip_row_runs_the_ring_source():
+    """The hard-st row's library builds the ring source: timed at its own
+    geometry only (32 lanes a block), its kernel told apart by its symbol
+    from the KS IP kernel's, its source named in the kernels line."""
+    lcfg, _ = cs.bench_loop(n_lanes=2, device="cpu", **cs.HARD_ST)
+    eng = cs.engine(lcfg.solver)
+    assert eng.sweep(lcfg.solver) == (0,)
+    ring = "fused_ip_ring_kernel<4, false, StModel>(IpArgs, IpRBufs)"
+    assert cs.kernel_symbol("fused_ip_st", ring)
+    assert not cs.kernel_symbol("fused_ip", ring)
+    assert not cs.kernel_symbol(
+        "fused_ip_st", "fused_ip_kernel<1, false, StModel>(IpArgs, IpBufs)")
+    assert cs.kernel_symbol(
+        "fused_ip", "fused_ip_kernel<1, false, KsModel>(IpArgs, IpBufs)")
+    assert (cs.ROOT / "mpc_tpu_torch/ops/csrc" / cs.SOURCES["fused_ip_st"]
+            ).is_file()
+
+
+def test_splits_name_the_variants_of_the_warm_inputs():
+    """B1.b's split: (b) the same problem without the ladder, (c) the
+    instance without the boundary rows on the problem without its boundary
+    data and the state cut to the 14 rows; the IP split: one Newton step."""
+    B = 3
+    lcfg, lp = cs.bench_loop(n_lanes=B, device="cpu", **cs.SOFT_CORRIDOR)
+    cfg = lcfg.solver
+    ocp = cs.ocp_at(lcfg, lp)
+    st = TS.init_state(cfg, batch=B)
+    out = cs.split_b1b(cfg, ocp, st)
+    bcfg, bocp, bst = out["b1b_b_rows"]
+    assert bcfg.alphas == () and bcfg.boundary_rows and bst is st
+    ccfg, cocp, cst = out["b1b_c_ladder"]
+    assert ccfg.alphas == cfg.alphas and not ccfg.boundary_rows
+    assert cocp.boundaries is None and cocp.boundary_signs is None
+    for f in ("lam_lo", "lam_hi", "mu", "prev_viol"):
+        assert getattr(cst, f).shape == (B, cfg.horizon + 1, TF.NR)
+    assert TF.ineligible_reason(ccfg, cocp) is None
+    icfg = TS.SolverConfig(horizon=4, **cs.IP_WARM)
+    (name, (one, _, _)), = cs.split_ip(icfg, ocp, st).items()
+    assert name == "warm_1x1" and (one.ip_sqp_iters, one.ip_iters) == (1, 1)
+
+
 def test_kernels_line_carries_the_st_instances():
     """The sweep's entry nests its nx=7 instance with every key the line
     needs (its launches from the xla-st row); an ST library's boundary
@@ -380,6 +421,39 @@ def test_build_line_reads_the_boundary_instances():
     assert cs.main_entry(entries, 4)["spill_stores"] == 68
     assert cs.main_entry(entries, 4, boundary=True)["spill_stores"] == 432
     assert cs.main_entry(entries, 2, boundary=True)["spill_stores"] == 7
+
+
+PTXAS_LAD = "".join(
+    f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+    f"ptxas info    : Function properties for {name}\n"
+    f"    8 bytes stack frame, {spill} bytes spill stores, {spill} bytes "
+    f"spill loads\nptxas info    : Used 128 registers, 880 bytes cmem[0]\n"
+    for name, spill in (
+        ("_Z15fused_gn_kernelILi4ELb0E7KsModelLi0EEv7FgnArgs4Bufs", 1),
+        ("_Z15fused_gn_kernelILi4ELb0E7KsModelLi1EEv7FgnArgs4Bufs", 2),
+        ("_Z15fused_gn_kernelILi4ELb1E7KsModelLi0EEv7FgnArgs4Bufs", 3),
+        ("_Z15fused_gn_kernelILi4ELb1E7KsModelLi1EEv7FgnArgs4Bufs", 4),
+        ("_Z20fused_ip_ring_kernelILi4ELb1E7StModelEv6IpArgs7IpRBufs", 5),
+        ("_Z15fused_gn_kernelILi8ELb1E7StModelLin1EEv7FgnArgs4Bufs", 7)))
+
+
+def test_build_line_reads_the_ladder_instances():
+    """The KS AL kernel has an instance with and one without the merit
+    ladder (its int after the model's name), beside the boundary rows' bool
+    after the threads a lane: the build line reads the one its row runs;
+    the ST library's one instance (-1) takes either, and the ring source's
+    instances have no ladder argument."""
+    entries = cs.ptxas_entries(PTXAS_LAD)
+    got = [cs.main_entry(entries, 4, boundary=b, ladder=lad)["spill_stores"]
+           for b in (False, True) for lad in (False, True)]
+    assert got == [1, 2, 3, 4]
+    for lad in (False, True):
+        assert cs.main_entry(entries, 8, boundary=True,
+                             ladder=lad)["spill_stores"] == 7
+    ring = {k: v for k, v in entries.items() if "ring" in k}
+    ring["_Z20fused_ip_ring_kernelILi4ELb0E7StModelEv6IpArgs7IpRBufs"] = 6
+    assert cs.main_entry(ring, 4, boundary=True)["spill_stores"] == 5
+    assert cs.main_entry(ring, 4) == 6
 
 
 def _corridor_lines():

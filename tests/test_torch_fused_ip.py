@@ -232,6 +232,55 @@ def test_ctypes_binding_matches_the_c_source():
     assert fn_name == "fused_ip_solve" and len(argtypes) == len(params)
 
 
+def test_ring_binding_matches_the_c_source():
+    """The ST library's source, fused_ip_ring.cu: its IpArgs is the KS
+    source's field for field, and fused_ip_solve takes the KS source's
+    buffers, then the Newton state's, in the order of KERNEL_ORDER_RING."""
+    def fields(name):
+        src = (_build.CSRC / name).read_text()
+        struct = re.search(r"struct IpArgs \{(.*?)\};", src, re.S).group(1)
+        return re.findall(r"(\w+)(?:\[\w+\])?\s*[,;]", struct)
+    assert fields("fused_ip_ring.cu") == fields("fused_ip.cu") == [
+        f for f, _ in TFI.IpArgs._fields_]
+    src = (_build.CSRC / "fused_ip_ring.cu").read_text()
+    sig = re.search(r'extern "C" int fused_ip_solve\((.*?)\)', src,
+                    re.S).group(1)
+    params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
+    assert params[0] == "args" and params[-1] == "stream"
+    assert tuple(params[1:-1]) == TFI.KERNEL_ORDER_RING
+    assert '#include "fused_ip_ring.cu"' in (
+        _build.CSRC / "fused_ip_st.cu").read_text()
+    fn_name, argtypes = _build.SIGNATURES["fused_ip_st"]
+    assert fn_name == "fused_ip_solve" and len(argtypes) == len(params)
+
+
+def test_pack_ip_of_the_st_model_lays_lanes_fastest():
+    """The ST model's buffers are the ring kernel's: lanes on the last
+    axis, inputs and duals copied, the Newton state's scratch allocated,
+    the trial chains a slot a rung with the ladder on; unpack gives the
+    public layout."""
+    from mpc_tpu_torch.models.vehicle import VEHICLE_2
+    cfg = _tcfg(model="st", vehicle=VEHICLE_2, ip_alphas=(1.0, 0.5))
+    p = _tocp(B=3, moving=True)
+    st = TS.init_state(cfg, batch=3)
+    st = st._replace(U=torch.arange(24.0).reshape(3, 4, 2))
+    bufs = TFI.pack_ip(cfg, p, st)
+    assert bufs["U"].shape == (4, 2, 3) and bufs["U"].is_contiguous()
+    assert bufs["obs"].shape == (5, 6, 3) and bufs["x0"].shape == (7, 3)
+    assert bufs["lam_lo"].shape == (5, TF.NR, 3)
+    assert bufs["AB"].shape == (4, TFI.ab_floats(7), 3)
+    assert bufs["Xc"].shape == (3, 5, 7, 3) and bufs["Uc"].shape == (3, 4, 2, 3)
+    assert set(bufs) == set(TFI.KERNEL_ORDER_RING) - {"rung", "bnd"}
+    assert TFI.ab_floats(7) == 47 and TFI.ab_floats(5) == 23
+    for n in ("X", "pviol", "diag"):
+        bufs[n].zero_()
+    X, U, z_lo, z_hi, pviol, diag = TFI.unpack_ip(bufs)
+    assert torch.equal(U, st.U) and torch.equal(z_lo, st.lam_lo)
+    assert X.shape == (3, 5, 7) and diag.shape == (3, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        TFI.launch_ip(cfg, bufs)
+
+
 @pytest.mark.parametrize("ip_alphas", [(), (1.0, 0.5)])
 def test_pack_ip_copies_and_lays_lanes_fastest(ip_alphas):
     """Lanes leading and contiguous (one lane's data consecutive, the

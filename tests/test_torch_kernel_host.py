@@ -51,6 +51,7 @@ SHIM = """#pragma once
 #define __host__
 #define __global__
 #define __forceinline__ inline
+#define __noinline__
 #define __grid_constant__
 #define __launch_bounds__(...)
 typedef void* cudaStream_t;
@@ -214,12 +215,15 @@ def host_gn(libs, cfg, ocp, st, threads_per_lane=2):
 
 
 def host_ip(libs, cfg, ocp, st, lanes_per_block=2):
-    """The IP source of ``cfg``'s model on the host: a block of
-    ``lanes_per_block`` warps (B=5 lanes leave the last block ragged)."""
+    """The IP source of ``cfg``'s model on the host: KS a block of
+    ``lanes_per_block`` warps (B=5 lanes leave the last block ragged), ST
+    the ring source's block of 32 lanes and 4 warps (B=5 lanes of 32)."""
     bufs = TFI.pack_ip(cfg, ocp, st, trace_rungs=True)
+    ring = TFI.ring_kernel(cfg)
     run_host(libs, TF.kernel_name(cfg, "fused_ip"), TFI.kernel_args_ip(
-        cfg, ocp.x0.shape[0], ocp.obs_centers.dim() == 4, lanes_per_block),
-        bufs, TFI.KERNEL_ORDER)
+        cfg, ocp.x0.shape[0], ocp.obs_centers.dim() == 4,
+        0 if ring else lanes_per_block), bufs,
+        TFI.KERNEL_ORDER_RING if ring else TFI.KERNEL_ORDER)
     return bufs, TFI.to_solution_ip(cfg, TFI.unpack_ip(bufs), st.mu)
 
 
@@ -596,14 +600,16 @@ def test_st_al_source_at_eight_threads_a_lane_and_h40(host_libs):
     ("fused_gn", 1, 4, False), ("fused_gn", 30, 4, False),
     ("fused_gn", 30, 8, True), ("fused_gn", TF.MAX_HORIZON_ST, 8, False),
     ("fused_ip", 1, 0, False), ("fused_ip", 30, 0, False),
-    ("fused_ip", 30, 0, True), ("fused_ip", 63, 0, True)])
+    ("fused_ip", 30, 0, True), ("fused_ip", TFI.MAX_HORIZON_ST, 0, True)])
 def test_st_shared_memory_footprints_match_the_sources(host_libs, kernel,
                                                        horizon, knob,
                                                        boundary):
     """``lane_smem_bytes`` at nx=7, which the eligibility reads, is the ST
     library's own footprint of one lane (fused_gn: ``lane_floats`` at
-    ``knob`` threads a lane; fused_ip: ``Layout``), and the geometry of that
-    instance takes it."""
+    ``knob`` threads a lane; fused_ip: the ring source's
+    ``ring_lane_floats``, the same with or without the boundary rows), and
+    the geometry of that instance takes it: the ring source's block holds
+    32 lanes."""
     lib = host_libs[f"{kernel}_st"]
     cfg = TS.SolverConfig(horizon=horizon, boundary_rows=boundary,
                           method="ip" if kernel == "fused_ip" else "al",
@@ -624,8 +630,102 @@ def test_st_shared_memory_footprints_match_the_sources(host_libs, kernel,
         lib.fused_ip_geometry.restype = ctypes.c_int
         assert lib.fused_ip_geometry(ctypes.byref(
             TFI.kernel_args_ip(cfg, 64, False)), out) == 0
-        assert out[1] == want
-        assert out[5] == min(12, TFI.SMEM_PER_BLOCK // want)
+        lanes = TFI.RING_LANES
+        assert (out[0], out[1], out[2], out[5]) == (lanes, want, lanes * want,
+                                                    lanes)
+
+
+@pytest.mark.parametrize("rungs", ["17-rungs", "horizon"])
+def test_st_ip_envelope_is_the_ring_sources(host_libs, rungs):
+    """The ST branch of ``ineligible_reason_ip`` states the ring source's
+    own limits, each named in its reason: at most MAX_ALPHAS rungs, and a
+    block of 32 lanes of the source's own footprint within a block's shared
+    memory (MAX_HORIZON_ST in, one stage more out)."""
+    cfg, ocp = bench_ocp(method="ip", **ST)
+    if rungs == "17-rungs":
+        ok = dataclasses.replace(cfg, ip_alphas=(0.5,) * TF.MAX_ALPHAS)
+        out = dataclasses.replace(cfg, ip_alphas=(0.5,) * (TF.MAX_ALPHAS + 1))
+        assert TFI.ineligible_reason_ip(ok, ocp) is None
+        assert "17 ladder rungs" in TFI.ineligible_reason_ip(out, ocp)
+        return
+    fn = host_libs["fused_ip_st"].fused_ip_lane_floats
+    fn.restype = ctypes.c_int
+    most = TFI.MAX_HORIZON_ST
+    block = 4 * TFI.RING_LANES
+    assert block * fn(most, 1) <= TFI.SMEM_PER_BLOCK < block * fn(most + 1, 1)
+    for boundary in (False, True):
+        kw = dict(boundary_rows=boundary)
+        ocp_b = cs.with_road_boundaries(ocp) if boundary else ocp
+        assert TFI.ineligible_reason_ip(dataclasses.replace(
+            cfg, horizon=most, **kw), ocp_b) is None
+        reason = TFI.ineligible_reason_ip(dataclasses.replace(
+            cfg, horizon=most + 1, **kw), ocp_b)
+        assert f"H <= {most}" in reason and "shared memory" in reason
+    # the KS kernel keeps its own bound
+    assert TFI.MAX_HORIZON == 63 < most
+
+
+# a ladder of 6 alphas, 7 rungs with alpha = 0, over fewer warps than
+# rungs: alpha NaN (rung 2), whose merit is NaN (1e30 in the IP ladder),
+# and two equal alphas (rungs 3 and 4), whose merits tie to the bit
+ODD_LADDER = (1.0, float("nan"), 0.35, 0.35, 0.12, 0.04)
+LADDER_CASES = {"al-2-threads": ("al", 2), "al-4-threads": ("al", 4),
+                "ip-st-ring": ("ip", 4)}
+
+
+@pytest.mark.parametrize("case", list(LADDER_CASES))
+def test_parallel_ladder_keeps_the_sequential_rule(host_libs, case):
+    """The ladder's rungs rolled out across the warps (AL: 2 and 4 threads
+    a lane, 4 and 2 rounds; IP: the ST ring source) choose the rung that
+    the sequential rule gives on the plain version's merits (alpha = 0
+    first, a rung taken on a strict "<"): never the NaN rung, never the
+    second of two tied rungs, up to TIE_RTOL where rungs nearly tie; and
+    the solve replayed on those rungs holds its bands."""
+    method, threads = LADDER_CASES[case]
+    trace = []
+    if method == "al":
+        cfg, ocp = bench_ocp(al_iters=2, sqp_iters=2, alphas=ODD_LADDER)
+        st = TS.init_state(cfg, batch=B)
+        bufs, ker = host_gn(host_libs, cfg, ocp, st, threads)
+        pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
+            cfg, ocp, st, trace, follow=bufs["rung"]))
+        assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
+    else:
+        cfg, ocp = bench_ocp(method="ip", ip_sqp_iters=2, ip_iters=4,
+                             ip_warm_duals=True, ip_alphas=ODD_LADDER, **ST)
+        st = TS.init_state(cfg, batch=B)
+        bufs, ker = host_ip(host_libs, cfg, ocp, st)
+        pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
+            cfg, ocp, st, trace, follow=bufs["rung"]), st.mu)
+        assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
+    chosen = bufs["rung"]
+    merits = torch.stack([m for _, m in trace])      # (iterations, 7, B)
+    nan_rung = merits[:, 2]
+    assert bool((nan_rung.isnan() if method == "al"
+                 else nan_rung == 1e30).all())
+    assert torch.equal(merits[:, 3], merits[:, 4])
+    assert not bool(((chosen == 2) | (chosen == 4)).any())
+    assert bool((chosen > 0).any())
+    regret = torch.stack([cs.rung_regret(c, m)
+                          for c, m in zip(chosen, merits)])
+    assert float(regret.max()) <= cs.TIE_RTOL
+
+
+def test_st_ip_ring_source_ragged_lanes_and_strided_stages(host_libs):
+    """The ST ring source at H=40 (41 stages over a block's 4 warps, a
+    thread looping over 10 or 11 of them in every separable phase and a
+    producer over 13 or 14 in every ring), B=5 lanes of a block of 32,
+    moving obstacles, warm duals and the ladder on."""
+    cfg, ocp = bench_ocp(horizon=40, moving=True, method="ip",
+                         ip_sqp_iters=2, ip_iters=3, ip_warm_duals=True, **ST)
+    st = TS.init_state(cfg, batch=B)
+    bufs, ker = host_ip(host_libs, cfg, ocp, st)
+    pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
+        cfg, ocp, st, follow=bufs.get("rung")), st.mu)
+    assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
+    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
+                               rtol=0.0, atol=1e-3)
+    assert ker.X.shape == (B, 41, 7)
 
 
 @pytest.mark.parametrize("case", ["random", "st-bench-step0"])
