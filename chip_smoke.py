@@ -9,8 +9,9 @@ Phases, each printing one JSON line (``"phase": ...``):
 1. device   the card's name and power limit (``nvidia-smi``);
 2. build    ``nvcc`` builds every kernel from ``mpc_tpu_torch/ops/csrc``
             (one process per source, all at once: the KS libraries, the ST
-            model's ``fused_gn_st.cu`` and ``fused_ip_st.cu`` (the ring
-            source ``fused_ip_ring.cu``), the sweep with its nx=5 and nx=7
+            model's ``fused_gn_st.cu`` and ``fused_ip_st.cu`` and the KS
+            boundary rows' ``fused_ip_ks_ring.cu`` (both the ring source
+            ``fused_ip_ring.cu``), the sweep with its nx=5 and nx=7
             instances) into the git-ignored ``build/kernels``; registers,
             spills and static shared memory from ``-Xptxas -v`` per entry
             function, and the fused kernels' dynamic shared memory and
@@ -43,7 +44,7 @@ Phases, each printing one JSON line (``"phase": ...``):
               sweep against the same solve with the plain sweep, at
               B=2048: al 1x1 unguarded and a 2x2 ladder.
             - the road-boundary rows' instances of both fused kernels, one
-              corridor row each (hard-corridor: fused_ip at H=14;
+              corridor row each (hard-corridor: fused_ip_ks_ring at H=14;
               soft-corridor: fused_gn at H=30): the row's warm-up budget on
               its loop's cold start, its own budget on the solve its loop
               makes at step 50 (rows bind; the loop run on the card at
@@ -89,7 +90,8 @@ Phases, each printing one JSON line (``"phase": ...``):
             as in ``check``; with them the splits, each with its bound:
             B1.b on the soft-corridor's step-50 solve at its own budget
             without its ladder and, with it, without its rows; fused_ip
-            and fused_ip_st warm at 1x1 against 1x4;
+            and fused_ip_st warm at 1x1 against 1x4; fused_gn_st warm at
+            1x2 against 1x1 (a Gauss-Newton step);
 6. loop     ``closed_loop_batch_vec`` at B=16384, H=30, T=100 with 4
             cold-start solves, for the soft row (al 1x1, ``alphas=()``), the
             hard row (ip 1x4, warm duals, ``ip_alphas=()``) and the xla row
@@ -341,12 +343,14 @@ def phase_build():
         # the AL kernel's ladder instance where the row runs its ladder
         ladder = lcfg.solver.method == "al" and bool(lcfg.solver.alphas)
         return dict(geo(lcfg.solver, B_BENCH), ladder=ladder)
-    # each fused library at its row's shape; the boundary instances at the
-    # corridor rows' (KS) and at H=30 with the ST rows' budgets (ST)
+    # each fused library at its row's shape (the KS IP library with the
+    # boundary rows, whose only instance they are, at the hard-corridor
+    # row's); the other boundary instances at the soft-corridor row's (KS)
+    # and at H=30 with the ST rows' budgets (ST)
     geos = {"fused_gn": geometry(WARM), "fused_ip": geometry(IP_WARM),
-            "fused_gn_st": geometry(SOFT_ST), "fused_ip_st": geometry(HARD_ST)}
+            "fused_gn_st": geometry(SOFT_ST), "fused_ip_st": geometry(HARD_ST),
+            "fused_ip_ks_ring": geometry(HARD_CORRIDOR)}
     bgeos = {"fused_gn": geometry(SOFT_CORRIDOR),
-             "fused_ip": geometry(HARD_CORRIDOR),
              "fused_gn_st": geometry(dict(SOFT_ST, boundary_rows=True)),
              "fused_ip_st": geometry(dict(HARD_ST, boundary_rows=True))}
     info = {}
@@ -475,9 +479,10 @@ def engine(cfg) -> Engine:
     st = cfg.model == "st"
     if cfg.method == "ip":
         return Engine(
-            F.kernel_name(cfg, "fused_ip"),
+            FI.ip_library(cfg),
             "mpc_tpu/ops/fused_ip.py:93 (_make_ip_kernel"
-            + (", model='st': :100-108)" if st else ")"),
+            + (", model='st': :100-108)" if st else
+               ", boundary rows: :765, :783)" if cfg.boundary_rows else ")"),
             FI.pack_ip, FI.launch_ip, FI.unpack_ip,
             FI.solve_batch_fused_ip_plain,
             lambda c, out, st: FI.to_solution_ip(c, out, st.mu),
@@ -1335,6 +1340,34 @@ def split_ip(cfg, ocp, state):
     return {"warm_1x1": (dataclasses.replace(cfg, ip_iters=1), ocp, state)}
 
 
+def split_gn_st(cfg, ocp, state):
+    """The ST AL kernel's split: its warm budget at two Gauss-Newton steps
+    (1x2) against its 1x1, so that the difference is one step (its ring,
+    the dual-number (A, B) of its producers, the rollout) and the rest of
+    1x1 the initial rollout and the diagnostics."""
+    return {"gn_st_warm_1x2": (dataclasses.replace(cfg, sqp_iters=2), ocp,
+                               state)}
+
+
+# Each row's kernel timing: phase_timing's keyword arguments (chip_ab.py
+# --timing looks its row up here).  The corridor rows time their own
+# budget (warm) and their warm-up budget (cold), 10 and 3 launches.
+TIMING_ROWS = {
+    "soft": dict(cold_kw=COLD, warm_kw=WARM),
+    "hard": dict(cold_kw=IP_COLD, warm_kw=IP_WARM, split=split_ip),
+    "soft-corridor": dict(cold_kw=SOFT_CORRIDOR, warm_kw={}, warm_reps=10,
+                          cold_reps=3, row="soft-corridor", split=split_b1b),
+    "hard-corridor": dict(cold_kw=dict(HARD_CORRIDOR, ip_sqp_iters=5,
+                                       ip_iters=10),
+                          warm_kw=dict(ip_sqp_iters=2, ip_iters=6),
+                          warm_reps=10, cold_reps=3, row="hard-corridor"),
+    "soft-st": dict(cold_kw=dict(COLD, **ST), warm_kw=WARM,
+                    split=split_gn_st),
+    "hard-st": dict(cold_kw=dict(IP_COLD, **ST), warm_kw=IP_WARM,
+                    split=split_ip),
+}
+
+
 def riccati_bound(bufs):
     """The sweep's bound at the shapes of ``bufs``: its bytes (every input
     read once, every output written once) over the card's memory rate, and
@@ -1404,7 +1437,8 @@ def _launchers():
     from mpc_tpu_torch.ops import riccati_kernel as RK
     return {"fused_gn": F.launch, "fused_ip": FI.launch_ip,
             "riccati": RK.launch, "fused_gn_st": F.launch_st,
-            "fused_ip_st": FI.launch_ip_st}
+            "fused_ip_st": FI.launch_ip_st,
+            "fused_ip_ks_ring": FI.launch_ip_ks_ring}
 
 
 def reset_launch_counts():
@@ -1532,18 +1566,21 @@ def phase_loop(dev, card, row, budget, steps=T_BENCH, **kw):
 
 
 # each kernel's source where it is not csrc/<library>.cu: the ST IP
-# library's (fused_ip_st.cu) is the ring source
-SOURCES = {"fused_ip_st": "fused_ip_ring.cu"}
+# library's (fused_ip_st.cu) and the KS IP library with the boundary rows
+# (fused_ip_ks_ring.cu) are the ring source
+SOURCES = {"fused_ip_st": "fused_ip_ring.cu",
+           "fused_ip_ks_ring": "fused_ip_ring.cu"}
 
 
 def kernel_symbol(kernel, name):
     """Whether the device kernel ``name`` the profiler saw is ``kernel``'s:
-    "fused_ip_kernel<1, false, KsModel>(IpArgs, IpBufs)" and the like; the
-    ST libraries' kernels carry StModel (the ST IP library's is
-    "fused_ip_ring_kernel<4, false, StModel>(...)"), the sweep's nx=7
-    instance a 7."""
+    "fused_ip_kernel<1>(IpArgs, IpBufs)" and the like; the ST libraries'
+    kernels carry StModel, the ring source's libraries build
+    "fused_ip_ring_kernel<4, ...>" (KsModel in fused_ip_ks_ring, StModel in
+    fused_ip_st), the sweep's nx=7 instance a 7."""
     st = kernel.endswith("_st")
-    symbol = ("fused_ip_ring_kernel" if kernel == "fused_ip_st"
+    symbol = ("fused_ip_ring_kernel"
+              if SOURCES.get(kernel) == "fused_ip_ring.cu"
               else f"{kernel.removesuffix('_st')}_kernel")
     return symbol in name and ("StModel" in name) == st
 
@@ -2052,21 +2089,19 @@ def main() -> int:
                     ("soft-corridor", SOFT_CORRIDOR),
                     ("soft-st", SOFT_ST), ("hard-st", HARD_ST)):
         timed(f"loop_vs_plain_{row}", phase_loop_vs_plain, dev, row, **kw)
-    timing = timed("timing_fused_gn", phase_timing, dev, COLD, WARM)
-    timing_ip = timed("timing_fused_ip", phase_timing, dev, IP_COLD,
-                      IP_WARM, split=split_ip)
+    timing = timed("timing_fused_gn", phase_timing, dev,
+                   **TIMING_ROWS["soft"])
+    timing_ip = timed("timing_fused_ip", phase_timing, dev,
+                      **TIMING_ROWS["hard"])
     timing_ric = timed("timing_riccati", phase_timing_riccati, dev)
     timing_sc = timed("timing_soft_corridor", phase_timing, dev,
-                      SOFT_CORRIDOR, {}, 10, 3, row="soft-corridor",
-                      split=split_b1b)
+                      **TIMING_ROWS["soft-corridor"])
     timing_hc = timed("timing_hard_corridor", phase_timing, dev,
-                      dict(HARD_CORRIDOR, ip_sqp_iters=5, ip_iters=10),
-                      dict(ip_sqp_iters=2, ip_iters=6), 10, 3,
-                      row="hard-corridor")
+                      **TIMING_ROWS["hard-corridor"])
     timing_st = timed("timing_fused_gn_st", phase_timing, dev,
-                      dict(COLD, **ST), WARM)
+                      **TIMING_ROWS["soft-st"])
     timing_ip_st = timed("timing_fused_ip_st", phase_timing, dev,
-                         dict(IP_COLD, **ST), IP_WARM, split=split_ip)
+                         **TIMING_ROWS["hard-st"])
     timing_ric_st = timed("timing_riccati_st", phase_timing_riccati, dev,
                           **ST)
     loop, lcfg, lp = timed(
@@ -2089,6 +2124,7 @@ def main() -> int:
         "(config_CA_ZAM_Over-1_1_forcespro.yaml)", **HARD_CORRIDOR)
     timed("profile_hard_corridor", phase_profile, dev, "hard-corridor",
           lcfg, lp, window=10, start=GATE_STEP)
+    hard_corridor = engine(lcfg.solver)
     loop_sc, lcfg, lp = timed(
         "loop_soft_corridor", phase_loop, dev, card, "soft-corridor",
         "al 3x4, default alphas, boundary rows", **SOFT_CORRIDOR)
@@ -2124,15 +2160,16 @@ def main() -> int:
                         soft, loop_sc, timing_sc, "warm_3x4", "cold_3x4",
                         checks_sc, build, timing_sc["split"])),
         kernel_line(hard, loop_ip, timing_ip, "warm_1x4", "cold_5x10",
-                    checks_ip, build, boundary_instance_line(
-                        hard, loop_hc, timing_hc, "warm_2x6", "cold_5x10",
-                        checks_hc, build), timing_ip["split"]),
+                    checks_ip, build, split=timing_ip["split"]),
+        kernel_line(hard_corridor, loop_hc, timing_hc, "warm_2x6",
+                    "cold_5x10", checks_hc, build),
         riccati_kernel_line(loop_xla, timing_ric, checks_ric, checks_vec,
                             build, (loop_xla_st, timing_ric_st, checks_ric_st,
                                     checks_vec_st)),
         kernel_line(soft_st, loop_st, timing_st, "warm_1x1", "cold_3x4",
                     checks_st, build, st_boundary_line(
-                        soft_st, *roads_st("_al_"), build)),
+                        soft_st, *roads_st("_al_"), build),
+                    timing_st["split"]),
         kernel_line(hard_st, loop_ip_st, timing_ip_st, "warm_1x4",
                     "cold_5x10", checks_ip_st, build, st_boundary_line(
                         hard_st, *roads_st("_ip_"), build),

@@ -3,11 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/kernels/lib<name>-<hash>.so`` beside the package (``build/`` is
 git-ignored), at first use.  The hash covers the source, every source it
-includes (``fused_gn_st.cu`` is ``fused_gn.cu`` with the ST model,
-``fused_ip_st.cu`` is ``fused_ip_ring.cu`` with it), every shared header
-``csrc/*.cuh`` and the flags, so an edited source or header
-builds anew and an unchanged one is loaded as it is.  The KS and ST
-libraries export the same C names; each is loaded on its own handle.
+includes (``fused_gn_st.cu`` is ``fused_gn.cu`` with the ST model;
+``fused_ip_st.cu`` and ``fused_ip_ks_ring.cu`` are ``fused_ip_ring.cu``
+with the ST model and with the KS model's boundary rows), every shared
+header ``csrc/*.cuh`` and the flags, so an edited source or header builds
+anew and an unchanged one is loaded as it is.  The fused libraries export
+the same C names; each is loaded on its own handle.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
@@ -34,6 +35,7 @@ SIGNATURES = {
     "fused_gn_st": ("fused_gn_solve", [_P] * 21),
     # fused_ip_ring.cu: the Newton state's 11 buffers after the others
     "fused_ip_st": ("fused_ip_solve", [_P] * 26),
+    "fused_ip_ks_ring": ("fused_ip_solve", [_P] * 26),
 }
 # a source that includes another source
 _INCLUDED_SOURCE = re.compile(r'#include "(\w+\.cu)"')

@@ -30,9 +30,10 @@
 //   load and store is (stage, field, lane) with the lane fastest, so a
 //   warp's accesses coalesce with no transpose.
 // - The chains run for lane l on thread l of warp 0: a whole warp busy, 32
-//   lanes at once.  __launch_bounds__ caps the registers at 128, so that
-//   16 warps fit an SM (at T = 4 the 512 blocks of the bench batch are all
-//   resident at once).
+//   lanes at once.  __launch_bounds__ caps the KS instances' registers at
+//   128, so that 16 warps fit an SM (at T = 4 the 512 blocks of the bench
+//   batch are all resident at once); the ST instances' cap is set by the
+//   blocks their shared memory lets an SM hold (GnMinBlocks).
 // - A Gauss-Newton step is a ring: warps 1..T-1 produce the operands of
 //   stages H, H-1, ..., 0 (rows, AL terms, the stage quadratic and (A, B);
 //   43 floats, the structural zeros and identity rows of Q, R, M, A and B
@@ -126,6 +127,20 @@ using Model = StModel;
 #else
 using Model = KsModel;
 #endif
+
+// Blocks an SM that __launch_bounds__ asks for at T threads a lane, which
+// caps the registers at 65536 / (32 T blocks) a thread.  KS: 16 / T, 16
+// warps an SM.  ST at T = 4: 2, the blocks its shared memory lets an SM
+// hold at H >= 18 (80,000 B a block at the bench horizon H = 30; 3 blocks
+// fit up to H = 17, where this cap, not shared memory, holds an SM to 2);
+// 4, as before, bought no residency at H = 30, only a register cap at
+// which the instance spilled 1,260 B a thread (PERF.md).  ST at T = 8:
+// 16 / T = 2 (at 1, with no spill, it took 1.6-1.7x as long as at 2: half
+// the lanes resident).
+template <class Mdl, int T>
+struct GnMinBlocks {
+  static constexpr int value = Mdl::ST && T == 4 ? 2 : 16 / T;
+};
 
 struct FgnArgs {
   int32_t B, H, al_iters, sqp_iters, n_alphas;
@@ -869,8 +884,9 @@ struct Solve {
   }
 };
 
-// 32 lanes and T warps a block; at most 128 registers a thread, so that 16
-// warps fit an SM.  __grid_constant__: the Solve object keeps references
+// 32 lanes and T warps a block; GnMinBlocks blocks an SM (KS: at most 128
+// registers a thread, so that 16 warps fit an SM).  __grid_constant__: the
+// Solve object keeps references
 // to the parameters, which then stay in the constant bank instead of a
 // local copy.  LAD: 1 the instance with the merit ladder (n_alphas > 0), 0
 // the unguarded step's, -1 either, as the call asks.  The KS library builds
@@ -880,7 +896,7 @@ struct Solve {
 // (PERF.md).  The ST library builds -1, which halves its build, the
 // slowest of the port's (its dual-number producers).
 template <int T, bool BND, class Mdl, int LAD>
-__global__ void __launch_bounds__(LPB * T, 16 / T)
+__global__ void __launch_bounds__(LPB * T, GnMinBlocks<Mdl, T>::value)
 fused_gn_kernel(const __grid_constant__ FgnArgs a,
                 const __grid_constant__ Bufs b) {
   extern __shared__ float smem_dyn[];

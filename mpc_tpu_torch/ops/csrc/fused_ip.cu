@@ -1,8 +1,12 @@
 // fused_ip.cu — the whole batched hard-constrained RTI-SQP solve in one
-// launch, for Hopper.
+// launch, for Hopper: the KS model without the road-boundary rows (B2).
 //
 // Replaces mpc_tpu/ops/fused_ip.py::_make_ip_kernel (the Pallas TPU kernel,
-// launched by _solve_ip_packed).  Computes, per lane: an initial rollout that
+// launched by _solve_ip_packed) for the KS model and the 14 rows a stage.
+// Its boundary-row branch (fused_ip.py:765, :783) and its ST branch
+// (:100-108) build from fused_ip_ring.cu, the same function on the ring of
+// stage operands, 32 lanes a block (fused_ip_ks_ring.cu, fused_ip_st.cu);
+// this source refuses boundary = 1.  Computes, per lane: an initial rollout that
 // caches the constraint rows; ip_sqp_iters RTI iterations, each of which
 // starts slacks and duals from the row margins (or from the warm duals
 // clipped to a band around the central path), runs ip_iters primal-dual
@@ -70,41 +74,18 @@
 //   __launch_bounds__ caps the registers at 168 so that 12 warps fit an SM;
 //   a spare warp of the ragged last block solves a copy of the last lane
 //   and stores nothing, so that every warp meets the same __syncthreads.
-// - No tensor cores: the products are 5x5 (7x7 for ST) in float32, and TF32
-//   would break the float32 bands.
-// - Road-boundary rows (BND, a template parameter: the instances without
-//   them compile as before): 6 more rows a stage, built by each stage's
-//   owner from the stage's 18 floats of models in device memory
-//   (fused_gn.py::linearize_boundaries) wherever the rows of a rollout are
-//   computed; a stage's slacks and duals take 20 rows in the owner's
-//   registers, the rows cache 69 floats a stage (68, padded odd) in
-//   shared memory, so a lane takes more shared memory and a block fewer
-//   lanes.
-//
-// - The model (Mdl, a template parameter: KsModel or StModel, orthogonal
-//   to SPT and BND).  This source builds the KS instances; fused_ip_st.cu
-//   is this source with FUSED_MODEL_ST defined, the ST instances (7 states,
-//   tire dynamics; st_model.cuh) in a library of their own.  The model
-//   sets the sizes of a lane's arrays (IpDims, Layout: (A, B) 63 floats a
-//   stage, K 14, the quadratic 55, X, ddX and xref 7, P 49; ~26 KB a lane
-//   at H=30 against 19,228 B for KS, so fewer lanes a block).  The ST
-//   rollouts run on thread 0 of the lane's warp, stage after stage: the
-//   tire dynamics couple heading, yaw rate and slip, so the increments
-//   that split the KS step by stage do not exist.  The ST (A, B) come from
-//   dual numbers (StModel::lin), written entry by entry into the cache.
+// - No tensor cores: the products are 5x5 in float32, and TF32 would
+//   break the float32 bands.
 //
 // Semantics kept from the TPU kernel on purpose: maxima, minima and clips
 // propagate NaN; the unguarded step commits a non-finite rollout; a
 // non-finite merit counts as 1e30 and a rung is taken on a strict "<".
 // Build without --use_fast_math.
 
+// st_model.cuh for StConsts: IpArgs is fused_ip_ring.cu's, field for field
 #include "st_model.cuh"
 
-#if defined(FUSED_MODEL_ST)
-using Model = StModel;
-#else
-using Model = KsModel;
-#endif
+constexpr int N = NX;  // the KS model's states
 
 #define TPL 32         // threads per lane: one warp
 #define MAX_SPT 2      // stages a thread holds, at most
@@ -114,17 +95,14 @@ using Model = KsModel;
 // bounds the lanes an SM holds (12 at H=30).
 #define MAX_LPB 12
 #define ROW_LD 45      // floats a stage in the rows cache (44, padded odd)
-#define ROW_LD_B 69    // the same with the boundary rows (68, padded odd)
 #define OBS_LD 7       // floats a stage of the obstacles (6, padded odd)
 #define FULL_MASK 0xffffffffu
 
-// The sizes a lane's arrays take for the model Mdl.
-template <class Mdl>
+// The sizes of a lane's arrays.
 struct IpDims {
-  static constexpr int N = Mdl::N;
   static constexpr int NAB = N * N + N * NU;  // (A, B) a stage
   // one stage quadratic: Q's upper triangle, R, M, qx, qu (36 floats,
-  // padded odd to 37, for KS; 55 for ST)
+  // padded odd to 37)
   static constexpr int QO_R = N * (N + 1) / 2;
   static constexpr int QO_M = QO_R + NU * NU;
   static constexpr int QO_QX = QO_M + N * NU;
@@ -168,47 +146,42 @@ struct IpBufs {
   float *U, *z_lo, *z_hi;   // warm state, updated in place
   float *X, *pviol, *diag;  // outputs
   int32_t* rung;            // (ip_sqp_iters, B) or null
-  const float* bnd;         // (B, H + 1, NBND) boundary models or null
 };
 
-// Offsets (floats) of one lane's arrays in shared memory for the model
-// Mdl; ``bnd``: the rows cache of the boundary rows' instance.
-template <class Mdl>
+// Offsets (floats) of one lane's arrays in shared memory.
 struct Layout {
-  static constexpr int NX_ = Mdl::N;  // states
-  using D = IpDims<Mdl>;
+  using D = IpDims;
   int rows, quad, ab, K, d, ddX, ddU, X, Xt, inc, U, Ut, xref, obs, P, p,
       stat, cst, total;
-  __host__ __device__ explicit Layout(int H, bool bnd = false) {
+  __host__ __device__ explicit Layout(int H) {
     const int S = H + 1;
     int o = 0;
-    rows = o;  o += (bnd ? ROW_LD_B : ROW_LD) * S;
+    rows = o;  o += ROW_LD * S;
     quad = o;  o += D::QUAD_LD * S;
     // a rollout's scratch shares the quadratics' space: the rollouts run
     // between the last Newton step of an RTI iteration and the next
     // quadratics
     Xt = quad;               // a ladder trial's states
-    inc = Xt + NX_ * S;       // a rollout's per-stage increments
-    Ut = inc + NX_ * H;       // a ladder trial's inputs
+    inc = Xt + N * S;       // a rollout's per-stage increments
+    Ut = inc + N * H;       // a ladder trial's inputs
     ab = o;    o += D::NAB * H;
-    K = o;     o += NU * NX_ * H;
+    K = o;     o += NU * N * H;
     d = o;     o += NU * H;
-    ddX = o;   o += NX_ * S;     // the Newton direction
+    ddX = o;   o += N * S;     // the Newton direction
     ddU = o;   o += NU * S;     // (zero at the terminal stage)
-    X = o;     o += NX_ * S;
+    X = o;     o += N * S;
     U = o;     o += NU * S;     // (zero at the terminal stage)
-    xref = o;  o += NX_ * S;
+    xref = o;  o += N * S;
     obs = o;   o += OBS_LD * S;
-    P = o;     o += NX_ * NX_;    // the terminal cost-to-go
-    p = o;     o += NX_;
+    P = o;     o += N * N;    // the terminal cost-to-go
+    p = o;     o += N;
     stat = o;  o += 1;          // the adjoint's stationarity
     cst = o;   o += D::NCST;
     total = o;
   }
 };
 
-// Index of Q[i][j] in its stored upper triangle (N states).
-template <int N>
+// Index of Q[i][j] in its stored upper triangle.
 __host__ __device__ __forceinline__ int ut(int i, int j) {
   return i <= j ? i * N - i * (i - 1) / 2 + j - i
                 : j * N - j * (j - 1) / 2 + i - j;
@@ -228,15 +201,6 @@ __device__ __forceinline__ float row_lin(const Rows& r, int i,
   if (i < 12) return r.box[i - 10] + dU[i - 10];
   return r.box[i - 10] + dX[i - 10];
 }
-// the same with the boundary rows, whose gradient is a circle row's
-__device__ __forceinline__ float row_lin(const BndRows& r, int i,
-                                         const float* dX,
-                                         const float dU[NU]) {
-  if (i < NR) return row_lin(static_cast<const Rows&>(r), i, dX, dU);
-  const float* c = r.bnd[i - NR];
-  return c[0] + c[1] * dX[0] + c[2] * dX[1] + c[3] * dX[4];
-}
-
 // Fraction-to-boundary: min(amin, -v / dv) where dv < 0.
 __device__ __forceinline__ float ftb(float v, float dv, float amin) {
   return nmin(amin, dv < 0.f ? -v / dv : BIG);
@@ -275,11 +239,9 @@ __device__ __forceinline__ float warp_max(float v) {
   return __shfl_sync(FULL_MASK, v, 0);
 }
 
-// One stage's Newton state, in its owner's registers (NRB rows a stage, N
-// states).
-template <int NRB, int N>
+// One stage's Newton state, in its owner's registers.
 struct StageState {
-  float sl[NRB], sh[NRB], zl[NRB], zh[NRB];  // slacks and duals, both sides
+  float sl[NR], sh[NR], zl[NR], zh[NR];  // slacks and duals, both sides
   float dx[N], du[NU];
 };
 
@@ -289,10 +251,9 @@ struct StageState {
 // one riccati_step (ks_rows.cuh) a stage; K and d, then ddX and ddU
 // (ddx_0 = 0, x0 pinned; ddu_k = d_k + K_k ddx_k; ddx_{k+1} = A ddx +
 // B ddu) into shared memory.
-template <class Mdl, class Args>
-__device__ void sweep_lane(const Args& a, float* sm, const Layout<Mdl>& L) {
-  constexpr int N = Mdl::N;
-  using D = IpDims<Mdl>;
+template <class Args>
+__device__ void sweep_lane(const Args& a, float* sm, const Layout& L) {
+  using D = IpDims;
   const int H = a.H;
   float P[N][N], p[N];
 #pragma unroll
@@ -310,7 +271,7 @@ __device__ void sweep_lane(const Args& a, float* sm, const Layout<Mdl>& L) {
     for (int i = 0; i < N; ++i) {
 #pragma unroll
       for (int c = 0; c < N; ++c) {
-        Q[i][c] = q[ut<N>(i, c)];
+        Q[i][c] = q[ut(i, c)];
         A[i][c] = abk[i * N + c];
       }
 #pragma unroll
@@ -373,10 +334,9 @@ __device__ void sweep_lane(const Args& a, float* sm, const Layout<Mdl>& L) {
 // memory is ``sm``, on one thread: lam_H = qx_H, g_u = qu_k + B' lam,
 // lam <- qx_k + A' lam, with qx, qu (lam = z_hi - z_lo) and (A, B) of the
 // final iterate in shared memory; the largest |g_u| into ``stat``.
-template <class Mdl, class Args>
-__device__ void adjoint_lane(const Args& a, float* sm, const Layout<Mdl>& L) {
-  constexpr int N = Mdl::N;
-  using D = IpDims<Mdl>;
+template <class Args>
+__device__ void adjoint_lane(const Args& a, float* sm, const Layout& L) {
+  using D = IpDims;
   float lam[N], stat = 0.f;
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -408,15 +368,10 @@ __device__ void adjoint_lane(const Args& a, float* sm, const Layout<Mdl>& L) {
 
 // One lane's solve, run by the 32 threads of its warp; the lanes of a
 // block meet at __syncthreads around the recursions that thread l of
-// warp 0 runs for lane l.  BND: with the 6 road-boundary rows a stage; Mdl:
-// the model.
-template <int SPT, bool BND, class Mdl>
+// warp 0 runs for lane l.
+template <int SPT>
 struct IpLane {
-  static constexpr int N = Mdl::N;          // states
-  using D = IpDims<Mdl>;
-  static constexpr int NRB = nrows<BND>();  // rows a stage
-  static constexpr int RLD = BND ? ROW_LD_B : ROW_LD;  // the rows cache's
-  using RowsT = RowsOf<BND>;
+  using D = IpDims;
   const IpArgs& a;
   const IpBufs& b;
   const int lane, t, w, lpb, H, S;
@@ -424,20 +379,20 @@ struct IpLane {
                            // nothing (the ragged block's spare warps)
   float* const block_sm;   // the block's shared memory
   float* const sm;         // this lane's
-  const Layout<Mdl> L;
-  StageState<NRB, N> st[SPT];
+  const Layout L;
+  StageState st[SPT];
 
   __device__ __forceinline__ IpLane(const IpArgs& a_, const IpBufs& b_,
                                     int lane_, bool live_, int t_, int w_,
                                     int lpb_, float* block_sm_,
-                                    const Layout<Mdl>& L_)
+                                    const Layout& L_)
       : a(a_), b(b_), lane(lane_), t(t_), w(w_), lpb(lpb_), H(a_.H),
         S(a_.H + 1), live(live_), block_sm(block_sm_),
         sm(block_sm_ + (size_t)w_ * L_.total), L(L_) {}
 
   // ---- shared-memory views
-  __device__ __forceinline__ RowsT& rows(int k) const {
-    return *reinterpret_cast<RowsT*>(sm + L.rows + k * RLD);
+  __device__ __forceinline__ Rows& rows(int k) const {
+    return *reinterpret_cast<Rows*>(sm + L.rows + k * ROW_LD);
   }
   __device__ __forceinline__ float* quad(int k) const {
     return sm + L.quad + k * D::QUAD_LD;
@@ -459,19 +414,12 @@ struct IpLane {
   }
 
   __device__ void fresh_rows(int k, const float x[N], const float u[NU],
-                             RowsT& r) const {
+                             Rows& r) const {
     const float* o = sm + L.obs + (a.moving ? k * OBS_LD : 0);
     float ob[6];
 #pragma unroll
     for (int i = 0; i < 6; ++i) ob[i] = o[i];
     compute_rows(a, x, u, ob, k == H, k == 0, r);
-    if constexpr (BND) {
-      const float* g = b.bnd + ((size_t)lane * S + k) * NBND;
-      float m[NBND];
-#pragma unroll
-      for (int i = 0; i < NBND; ++i) m[i] = g[i];
-      boundary_rows(a, x, m, r);
-    }
   }
 
   // ---- the lane's inputs into shared memory and registers
@@ -501,10 +449,10 @@ struct IpLane {
     for (int j = 0; j < SPT; ++j) {
       const int k = stage(j);
       if (k < 0) continue;
-      const float* zl = b.z_lo + (l * S + k) * NRB;
-      const float* zh = b.z_hi + (l * S + k) * NRB;
+      const float* zl = b.z_lo + (l * S + k) * NR;
+      const float* zh = b.z_hi + (l * S + k) * NR;
 #pragma unroll
-      for (int i = 0; i < NRB; ++i) {
+      for (int i = 0; i < NR; ++i) {
         st[j].zl[i] = zl[i];
         st[j].zh[i] = zh[i];
         st[j].sl[i] = st[j].sh[i] = 1.f;
@@ -527,10 +475,10 @@ struct IpLane {
     for (int j = 0; j < SPT; ++j) {
       const int k = stage(j);
       if (k < 0) continue;
-      float* zl = b.z_lo + (l * S + k) * NRB;
-      float* zh = b.z_hi + (l * S + k) * NRB;
+      float* zl = b.z_lo + (l * S + k) * NR;
+      float* zh = b.z_hi + (l * S + k) * NR;
 #pragma unroll
-      for (int i = 0; i < NRB; ++i) {
+      for (int i = 0; i < NR; ++i) {
         zl[i] = st[j].zl[i];
         zh[i] = st[j].zh[i];
       }
@@ -560,12 +508,6 @@ struct IpLane {
   // evaluations, with step_fn's own arithmetic) and then its running sum
   // on thread 0: steering and speed, heading, position.
   __device__ void rollout(const float* Us, float* Xs) const {
-    if constexpr (Mdl::ST)
-      rollout_chain(Us, Xs);
-    else
-      rollout_ks(Us, Xs);
-  }
-  __device__ void rollout_ks(const float* Us, float* Xs) const {
     float* inc = sm + L.inc;
     float kp[SPT][3];   // heading rates of k1, k2, k3 at each own stage
 #pragma unroll
@@ -635,31 +577,11 @@ struct IpLane {
     __syncwarp();
   }
 
-  // States from x0 under the inputs Us into Xs, stage after stage on
-  // thread 0 (the ST model: its step couples every state it moves).
-  __device__ void rollout_chain(const float* Us, float* Xs) const {
-    if (t == 0) {
-      float x[N], xn[N];
-#pragma unroll
-      for (int i = 0; i < N; ++i) x[i] = *cst(D::C_X0 + i);
-      for (int k = 0; k < H; ++k) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) Xs[k * N + i] = x[i];
-        Mdl::step(a, x, Us + k * NU, xn);
-#pragma unroll
-        for (int i = 0; i < N; ++i) x[i] = xn[i];
-      }
-#pragma unroll
-      for (int i = 0; i < N; ++i) Xs[H * N + i] = x[i];
-    }
-    __syncwarp();
-  }
-
   // max(lo - h, h - hi, 0) of row i (raw).
-  __device__ float row_viol(const RowsT& r, int i, bool is_term) const {
+  __device__ float row_viol(const Rows& r, int i, bool is_term) const {
     bool has_lo, has_hi;
     float lo, hi;
-    row_bounds_of<BND>(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
+    row_bounds_of<false>(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
     const float h = row_value(r, i);
     float vi = 0.f;
     if (has_hi) vi = nmax(vi, h - hi);
@@ -671,10 +593,10 @@ struct IpLane {
     return i == 0 ? vi * a.inv_fr_scale : vi;
   }
   // sum over the rows of their scaled violations
-  __device__ float penalty_viol(const RowsT& r, bool is_term) const {
+  __device__ float penalty_viol(const Rows& r, bool is_term) const {
     float v = 0.f;
 #pragma unroll
-    for (int i = 0; i < NRB; ++i) v = v + scaled(i, row_viol(r, i, is_term));
+    for (int i = 0; i < NR; ++i) v = v + scaled(i, row_viol(r, i, is_term));
     return v;
   }
 
@@ -691,7 +613,7 @@ struct IpLane {
       const bool is_term = k == H;
       const float* x = Xs + k * N;
       const float* u = Us + k * NU;
-      RowsT r;
+      Rows r;
       fresh_rows(k, x, u, r);
       if (write) rows(k) = r;
       if (merit) {
@@ -748,12 +670,12 @@ struct IpLane {
       const int k = stage(j);
       if (k < 0) continue;
       const bool is_term = k == H;
-      const RowsT& r = rows(k);
+      const Rows& r = rows(k);
 #pragma unroll
-      for (int i = 0; i < NRB; ++i) {
+      for (int i = 0; i < NR; ++i) {
         bool has_lo, has_hi;
         float lo, hi;
-        row_bounds_of<BND>(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
+        row_bounds_of<false>(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
         const float h = row_value(r, i);
         float sl = 1.f, zl = 0.f, sh = 1.f, zh = 0.f;
         if (has_lo) side_init(h - lo, st[j].zl[i], a.warm != 0, sl, zl);
@@ -781,15 +703,15 @@ struct IpLane {
       const int k = stage(j);
       if (k < 0) continue;
       const bool is_term = k == H;
-      const StageState<NRB, N>& s = st[j];
-      const RowsT& r = rows(k);
-      float gh[NRB], gn[NRB];
+      const StageState& s = st[j];
+      const Rows& r = rows(k);
+      float gh[NR], gn[NR];
       {
 #pragma unroll
-        for (int i = 0; i < NRB; ++i) {
+        for (int i = 0; i < NR; ++i) {
           bool has_lo, has_hi;
           float lo, hi;
-          row_bounds_of<BND>(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
+          row_bounds_of<false>(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
           const float c = row_lin(r, i, s.dx, s.du);
           float w = 0.f, sig = 0.f;
           if (has_hi) {
@@ -832,7 +754,7 @@ struct IpLane {
 #pragma unroll
       for (int i = 0; i < N; ++i) {
 #pragma unroll
-        for (int c = i; c < N; ++c) q[ut<N>(i, c)] = Q[i][c];
+        for (int c = i; c < N; ++c) q[ut(i, c)] = Q[i][c];
 #pragma unroll
         for (int c = 0; c < NU; ++c) q[D::QO_M + i * NU + c] = M[i][c];
         q[D::QO_QX + i] = qx[i];
@@ -850,26 +772,20 @@ struct IpLane {
 
   __device__ void store_ab(int k, const float* xk, const float* uk) const {
     float* o = ab(k);
-    if constexpr (Mdl::ST) {
-      Mdl::lin(a, xk, uk, [&](int i, int j, float v) {
-        o[j < N ? i * N + j : N * N + i * NU + j - N] = v;
-      });
-    } else {
-      float A[N][N], Bm[N][NU];
-      lin_step(a, xk, uk, A, Bm);
+    float A[N][N], Bm[N][NU];
+    lin_step(a, xk, uk, A, Bm);
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
+    for (int i = 0; i < N; ++i) {
 #pragma unroll
-        for (int c = 0; c < N; ++c) o[i * N + c] = A[i][c];
+      for (int c = 0; c < N; ++c) o[i * N + c] = A[i][c];
 #pragma unroll
-        for (int c = 0; c < NU; ++c) o[N * N + i * NU + c] = Bm[i][c];
-      }
+      for (int c = 0; c < NU; ++c) o[N * N + i * NU + c] = Bm[i][c];
     }
   }
 
   // Slack and dual steps of row i from the current (dX, dU) and the
   // Newton direction; a missing side steps by 0.
-  __device__ __forceinline__ void side_steps(const StageState<NRB, N>& s,
+  __device__ __forceinline__ void side_steps(const StageState& s,
                                              int i, bool has_lo, float lo,
                                              bool has_hi, float hi, float c,
                                              float jd, float mu_b, float& dsl,
@@ -902,15 +818,15 @@ struct IpLane {
       const int k = stage(j);
       if (k < 0) continue;
       const bool is_term = k == H;
-      StageState<NRB, N>& s = st[j];
-      const RowsT& r = rows(k);
+      StageState& s = st[j];
+      const Rows& r = rows(k);
       const float* ddx = sm + L.ddX + k * N;
       const float* ddu = sm + L.ddU + k * NU;
 #pragma unroll
-      for (int i = 0; i < NRB; ++i) {
+      for (int i = 0; i < NR; ++i) {
         bool has_lo, has_hi;
         float lo, hi;
-        row_bounds_of<BND>(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
+        row_bounds_of<false>(a, i, is_term, mind(), has_lo, lo, has_hi, hi);
         const float c = row_lin(r, i, s.dx, s.du);
         const float jd = row_lin(r, i, ddx, ddu) - row_value(r, i);
         float dsl, dzl, dsh, dzh;
@@ -958,7 +874,7 @@ struct IpLane {
   __device__ float newton(float mu_b, bool fill_ab) {
     stage_quads(mu_b, fill_ab);
     __syncthreads();
-    if (w == 0 && t < lpb) sweep_lane<Mdl>(a, block_sm + t * L.total, L);
+    if (w == 0 && t < lpb) sweep_lane(a, block_sm + t * L.total, L);
     __syncthreads();
     const float amin = warp_min(dual_pass<false>(mu_b, 0.f));
     const float alpha = nmin(1.f, TAU * amin);
@@ -997,7 +913,7 @@ struct IpLane {
   // cost at the final iterate; rows from the cache, (A, B) recomputed.
   // The per-stage terms on the owners, the adjoint on one thread.
   __device__ void diagnostics() {
-    const float zero[NRB] = {};
+    const float zero[NR] = {};
     const size_t l = (size_t)lane;
     float viol = 0.f, cost = 0.f;
 #pragma unroll
@@ -1005,10 +921,10 @@ struct IpLane {
       const int k = stage(j);
       if (k < 0) continue;
       const bool is_term = k == H;
-      const RowsT& r = rows(k);
-      float lr[NRB];
+      const Rows& r = rows(k);
+      float lr[NR];
 #pragma unroll
-      for (int i = 0; i < NRB; ++i) lr[i] = st[j].zh[i] - st[j].zl[i];
+      for (int i = 0; i < NR; ++i) lr[i] = st[j].zh[i] - st[j].zl[i];
       const float* x = sm + L.X + k * N;
       const float* u = sm + L.U + k * NU;
       float Q[N][N], R[NU][NU], M[N][NU], qx[N], qu[NU];
@@ -1021,9 +937,9 @@ struct IpLane {
 #pragma unroll
       for (int i = 0; i < NU; ++i) q[D::QO_QU + i] = qu[i];
       if (!is_term) store_ab(k, x, u);
-      float* pv = b.pviol + (l * S + k) * NRB;
+      float* pv = b.pviol + (l * S + k) * NR;
 #pragma unroll
-      for (int i = 0; i < NRB; ++i) {
+      for (int i = 0; i < NR; ++i) {
         const float vi = row_viol(r, i, is_term);
         if (live) pv[i] = vi;
         viol = nmax(viol, scaled(i, vi));
@@ -1038,7 +954,7 @@ struct IpLane {
     viol = warp_max(viol);
     cost = warp_sum(cost);
     __syncthreads();
-    if (w == 0 && t < lpb) adjoint_lane<Mdl>(a, block_sm + t * L.total, L);
+    if (w == 0 && t < lpb) adjoint_lane(a, block_sm + t * L.total, L);
     __syncthreads();
     const float stat = sm[L.stat];
     if (t == 0 && live) {
@@ -1053,7 +969,7 @@ struct IpLane {
 // One warp a lane, lanes_per_block warps a block.  __grid_constant__: the
 // IpLane object keeps references to the parameters, which then stay in the
 // constant bank instead of a local copy.
-template <int SPT, bool BND, class Mdl>
+template <int SPT>
 __global__ void __launch_bounds__(TPL * MAX_LPB)
 fused_ip_kernel(const __grid_constant__ IpArgs a,
                                 const __grid_constant__ IpBufs b) {
@@ -1062,8 +978,8 @@ fused_ip_kernel(const __grid_constant__ IpArgs a,
   const int lane = blockIdx.x * lpb + w;
   // a warp past the last lane solves a copy of it and stores nothing, so
   // that every warp of the block meets the same __syncthreads
-  const Layout<Mdl> L(a.H, BND);
-  IpLane<SPT, BND, Mdl> s(a, b, lane < a.B ? lane : a.B - 1, lane < a.B,
+  const Layout L(a.H);
+  IpLane<SPT> s(a, b, lane < a.B ? lane : a.B - 1, lane < a.B,
                 threadIdx.x % TPL, w, lpb, smem_dyn, L);
   s.load();
   s.rollout(s.sm + L.U, s.sm + L.X);
@@ -1084,9 +1000,9 @@ fused_ip_kernel(const __grid_constant__ IpArgs a,
 // an SM (occupancy API: registers and shared memory together), the most
 // lanes a block among equals.  Fills out[] as fused_ip_geometry does; the
 // most lanes a block is the most whose block fits an SM at all.
-template <int SPT, bool BND>
+template <int SPT>
 static int geometry(const IpArgs* args, int32_t out[6]) {
-  auto kernel = fused_ip_kernel<SPT, BND, Model>;
+  auto kernel = fused_ip_kernel<SPT>;
   int dev = 0, optin = 0, err;
   if ((err = cudaGetDevice(&dev))) return err;
   if ((err = cudaDeviceGetAttribute(
@@ -1096,7 +1012,7 @@ static int geometry(const IpArgs* args, int32_t out[6]) {
            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)))
     return err;
   const int lane_bytes =
-      Layout<Model>(args->H, BND).total * (int)sizeof(float);
+      Layout(args->H).total * (int)sizeof(float);
   int smem_lpb = optin / lane_bytes;
   if (smem_lpb > MAX_LPB) smem_lpb = MAX_LPB;
   int best = 0, best_per_sm = 0, max_lpb = 0, given_per_sm = 0;
@@ -1123,10 +1039,10 @@ static int geometry(const IpArgs* args, int32_t out[6]) {
   return 0;
 }
 
-template <int SPT, bool BND>
+template <int SPT>
 static int launch(const IpArgs* args, const IpBufs& b, void* stream) {
   int32_t g[6];
-  int err = geometry<SPT, BND>(args, g);
+  int err = geometry<SPT>(args, g);
   if (err) return err;
   const int lpb = g[0];
   if (lpb < 1 || lpb > g[5]) return (int)cudaErrorInvalidValue;
@@ -1140,7 +1056,7 @@ static int launch(const IpArgs* args, const IpBufs& b, void* stream) {
   const long need = (long)g[3] * (g[2] + 1024);
   int pct = (int)((100 * need + sm_bytes - 1) / sm_bytes);
   if (pct > 100) pct = 100;
-  auto kernel = fused_ip_kernel<SPT, BND, Model>;
+  auto kernel = fused_ip_kernel<SPT>;
   if ((err = cudaFuncSetAttribute(
            kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct)))
     return err;
@@ -1151,19 +1067,18 @@ static int launch(const IpArgs* args, const IpBufs& b, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Floats of one lane's shared memory at horizon H, with (boundary != 0) or
-// without the boundary rows, for this source's model (the Python side's
-// eligibility mirrors it).
+// Floats of one lane's shared memory at horizon H (the Python side's
+// eligibility mirrors it); -1 with the boundary rows, which this source
+// does not build.
 extern "C" int fused_ip_lane_floats(int H, int boundary) {
-  return Layout<Model>(H, boundary != 0).total;
+  return boundary ? -1 : Layout(H).total;
 }
 
-// The template instance of args: 2 (SPT - 1) + BND, for SPT =
-// ceil((H + 1) / 32) stages a thread and the boundary rows (BND) or none;
-// -1 outside the kernel's horizons.
+// The template instance of args: SPT = ceil((H + 1) / 32) stages a thread;
+// -1 outside the kernel's horizons or with the boundary rows.
 static int instance(const IpArgs* args) {
   const int spt = (args->H + TPL) / TPL;
-  return spt < 1 || spt > MAX_SPT ? -1 : 2 * (spt - 1) + (args->boundary != 0);
+  return spt < 1 || spt > MAX_SPT || args->boundary ? -1 : spt;
 }
 
 // The launch geometry at args: lanes per block (given or chosen), shared
@@ -1171,28 +1086,25 @@ static int instance(const IpArgs* args) {
 // most lanes a block's shared memory holds.
 extern "C" int fused_ip_geometry(const IpArgs* args, int32_t* out) {
   switch (instance(args)) {
-    case 0: return geometry<1, false>(args, out);
-    case 1: return geometry<1, true>(args, out);
-    case 2: return geometry<2, false>(args, out);
-    case 3: return geometry<2, true>(args, out);
+    case 1: return geometry<1>(args, out);
+    case 2: return geometry<2>(args, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// The buffers of fused_ip.py's KERNEL_ORDER; bnd, the boundary rows'
+// models, is refused here with the rows themselves (boundary = 1).
 extern "C" int fused_ip_solve(const IpArgs* args, const float* x0,
                               const float* xref, const float* obs,
                               const float* mind, const float* w, float* U,
                               float* lam_lo, float* lam_hi, float* X,
                               float* pviol, float* diag, int32_t* rung,
                               const float* bnd, void* stream) {
-  if (args->boundary && !bnd) return (int)cudaErrorInvalidValue;
-  IpBufs b{x0, xref, obs, mind, w, U, lam_lo, lam_hi, X, pviol, diag, rung,
-           bnd};
+  (void)bnd;
+  IpBufs b{x0, xref, obs, mind, w, U, lam_lo, lam_hi, X, pviol, diag, rung};
   switch (instance(args)) {
-    case 0: return launch<1, false>(args, b, stream);
-    case 1: return launch<1, true>(args, b, stream);
-    case 2: return launch<2, false>(args, b, stream);
-    case 3: return launch<2, true>(args, b, stream);
+    case 1: return launch<1>(args, b, stream);
+    case 2: return launch<2>(args, b, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

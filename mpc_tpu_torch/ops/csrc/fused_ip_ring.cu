@@ -1,10 +1,12 @@
 // fused_ip_ring.cu — the whole batched hard-constrained RTI-SQP solve in
 // one launch, for Hopper, on the ring of fused_gn.cu: the design of the ST
-// model's instances (fused_ip_st.cu).
+// model's instances (fused_ip_st.cu) and of the KS model's instance with
+// the road-boundary rows (fused_ip_ks_ring.cu).
 //
 // Replaces mpc_tpu/ops/fused_ip.py::_make_ip_kernel (the Pallas TPU kernel,
-// launched by _solve_ip_packed), model='st' (fused_ip.py:100-108).  The
-// function is fused_ip.cu's, whose notes say what it computes: per lane an
+// launched by _solve_ip_packed), model='st' (fused_ip.py:100-108) and its
+// boundary rows (fused_ip.py:765, :783).  The function is fused_ip.cu's,
+// whose notes say what it computes: per lane an
 // initial rollout; ip_sqp_iters RTI iterations, each of which starts slacks
 // and duals from the row margins (or from the warm duals), runs ip_iters
 // primal-dual Newton steps (sigma = z / s weighted stage quadratics, a
@@ -22,7 +24,9 @@
 // state in registers and shared memory, which holds 8 ST lanes an SM (26
 // KB of shared memory a lane), and runs those chains on one thread a
 // lane: 8 threads of an SM carried the rollouts and the sweep, and the
-// kernel was bound by their latency.
+// kernel was bound by their latency.  With the boundary rows the KS lane
+// takes 10,748 B at H=14 there, so 12 lanes an SM, and 17 of a warp's 32
+// threads idle in every separable phase at that horizon.
 //
 // What the design does about it.
 // - A block holds 32 lanes and T warps (T threads a lane, a template
@@ -41,15 +45,16 @@
 // - The Newton state leaves shared memory: slacks and duals (the duals in
 //   the caller's z buffers, in place), the primal step (dX, dU), the Newton
 //   direction (ddX, ddU), K, d and the (A, B) of the RTI iteration, filled
-//   once per iteration by StModel::lin, live in device memory that the
+//   once per iteration by the model's linearization (StModel::lin's dual
+//   numbers, KS lin_step's chain rule), live in device memory that the
 //   wrapper allocates, lanes fastest; a stage's producer reads and writes
 //   them coalesced.  The rows are recomputed where they are needed: a pure
 //   function of (X_k, U_k), the obstacles and the boundary models, the same
 //   bits as a cache of them.
 // - The separable phases run on all T warps, stage by stage: the slacks
-//   and duals at the start of a QP with the iterate's (A, B) (the dual
-//   numbers of StModel::lin, once an RTI iteration, into the device cache
-//   that the Newton steps' producers copy from), the fraction-to-boundary
+//   and duals at the start of a QP with the iterate's (A, B) (once an RTI
+//   iteration, into the device cache that the Newton steps' producers copy
+//   from), the fraction-to-boundary
 //   minimum and the slack and dual steps of each Newton step.  The minimum is a
 //   NaN-propagating nmin over per-thread partials (exact in any order);
 //   the complementarity gap is summed in stage order from each stage's
@@ -61,8 +66,11 @@
 //   rung by the sequential rule and the owners commit it.
 // - A thread past the last lane (the ragged last block) does no work and
 //   stores nothing but meets every barrier, named ones included.
-// - Lanes a block: 32.  __launch_bounds__ asks for IP_MIN_BLOCKS blocks an
-//   SM; fused_ip_geometry reports the blocks the occupancy API finds.
+// - Lanes a block: 32.  __launch_bounds__ asks for the model's
+//   IpMinBlocks blocks an SM; fused_ip_geometry reports the blocks the
+//   occupancy API finds.  A KS lane with the boundary rows takes 1,484 B
+//   of shared memory at H=14 (371 floats), a block ~47 KB: registers, not
+//   shared memory, decide the blocks an SM.
 // - Memory-level parallelism: the loads that a stage's work waits for go
 //   out together.  Slacks and duals of a separable phase's stage are
 //   fetched by cp.async into the thread's part of the ring's shared memory
@@ -77,6 +85,8 @@
 // non-finite merit counts as 1e30 and a rung is taken on a strict "<".
 // Build without --use_fast_math.
 
+#include <type_traits>
+
 #include "ring.cuh"
 
 #if defined(FUSED_MODEL_ST)
@@ -86,12 +96,20 @@ using Model = KsModel;
 #endif
 
 #define T_IP 4            // threads a lane of the library's instances
-// Blocks an SM that __launch_bounds__ asks for: 2 leave 255 registers a
-// thread and no spill; at 3 (168 registers) the kernel spilled ~350 B a
-// thread into local memory, whose traffic the L1 left beside three
-// blocks' shared memory could not hold, and a warm 1x4 solve took 1.5x as
-// long (PERF.md).
-#define IP_MIN_BLOCKS 2
+
+// Blocks an SM that __launch_bounds__ asks for, by model, as measured
+// (PERF.md).  ST: 2, 255 registers a thread and no spill; at 3 (168
+// registers) the kernel spilled ~350 B a thread into local memory, whose
+// traffic the L1 left beside three blocks' shared memory could not hold,
+// and a warm 1x4 solve took 1.5x as long.  KS (the boundary rows'
+// instance): 4, 128 registers and ~100 B of spills, the most that its
+// shared memory lets an SM hold (47,488 B a block at H=14), so that the
+// 512 blocks of B=16384 are all resident at once: at 3 (168 registers, no
+// spill) they ran in 1.3 waves and took 1.4x as long.
+template <class Mdl>
+struct IpMinBlocks {
+  static constexpr int value = Mdl::ST ? 2 : 4;
+};
 
 // ipqp constants (mpc_tpu_torch/ops/ipqp.py)
 #define S_FLOOR 1e-10f
@@ -131,14 +149,24 @@ struct IpRBufs {
   float *s_lo, *s_hi, *dX, *dU, *ddX, *ddU, *K, *d, *AB, *Xc, *Uc;
 };
 
+// Floats a lane of the ring's part of shared memory: the ring of stage
+// operands, which also holds the ladder's merits between rings and, in the
+// separable phases, each thread's slacks and duals of a stage (4 a row);
+// for KS with the boundary rows the latter are the larger (4 x 4 x 20 =
+// 320 against 6 x 43).
+template <class Mdl, bool BND>
+__host__ __device__ constexpr int ring_part_floats(int T) {
+  return ring_slots(T) * Ring<Mdl>::NOP > T * 4 * nrows<BND>()
+             ? ring_slots(T) * Ring<Mdl>::NOP
+             : T * 4 * nrows<BND>();
+}
+
 // Floats of one lane's shared memory: the threads' partials (T), the
-// ladder's slot, a value a stage (the gap, the cost), the ring of stage
-// operands (the ladder's merits between rings) and the sweep's P and p;
-// the same with or without the boundary rows.
-template <class Mdl>
+// ladder's slot, a value a stage (the gap, the cost), the ring's part and
+// the sweep's P and p.
+template <class Mdl, bool BND>
 __host__ __device__ __forceinline__ int ring_lane_floats(int H, int T) {
-  using RG = Ring<Mdl>;
-  return T + 1 + (H + 1) + ring_slots(T) * RG::NOP + RG::PSTR;
+  return T + 1 + (H + 1) + ring_part_floats<Mdl, BND>(T) + Ring<Mdl>::PSTR;
 }
 
 // Linearized value c_i = h_i + J_i . (dX, dU) of row i (sparse gradient;
@@ -187,6 +215,7 @@ struct IpRing {
   static constexpr int N = Mdl::N;  // states
   using RG = Ring<Mdl>;
   static constexpr int R = ring_slots(T);
+  static constexpr int RP = ring_part_floats<Mdl, BND>(T);
   static constexpr int NRB = nrows<BND>();  // rows a stage
   using RowsT = RowsOf<BND>;
   const IpArgs& a;
@@ -197,7 +226,8 @@ struct IpRing {
   float* const part;  // (T, LPB) the threads' partials
   int* const slot;    // (LPB) the ladder's best rung
   float* const sv;    // (H + 1, LPB) a value a stage
-  float* const ring;  // (R, NOP, LPB) the ring; the ladder's merits
+  float* const ring;  // (RP, LPB) the ring (R, NOP, LPB); the ladder's
+                      // merits; the separable phases' slacks and duals
   float* const pm;    // (LPB, PSTR) the sweep's P and p, lane by lane
   float mind;
 
@@ -207,7 +237,7 @@ struct IpRing {
         slot(reinterpret_cast<int*>(smem + T * LPB)),
         sv(smem + (T + 1) * LPB),
         ring(smem + (T + 1 + a_.H + 1) * LPB),
-        pm(smem + (T + 1 + a_.H + 1 + R * RG::NOP) * LPB + l_ * RG::PSTR) {
+        pm(smem + (T + 1 + a_.H + 1 + RP) * LPB + l_ * RG::PSTR) {
     L.B = a.B;
     L.lane = lane;
     mind = b.mind[L.lane];
@@ -365,8 +395,8 @@ struct IpRing {
   // during the separable phases: the slacks and duals of one stage (s_lo,
   // s_hi, z_lo, z_hi, row by row; field f at sz[f * LPB]).
   __device__ __forceinline__ float* sz_part() const {
-    static_assert(T * 4 * NRB <= R * RG::NOP,
-                  "a stage's slacks and duals a thread exceed the ring");
+    static_assert(T * 4 * NRB <= RP,
+                  "a stage's slacks and duals a thread exceed the ring's part");
     return ring + (size_t)w * 4 * NRB * LPB + l;
   }
   // the slacks and duals of stage k into sz_part() by cp.async, issued
@@ -871,7 +901,7 @@ struct IpRing {
 // keeps references to the parameters, which then stay in the constant bank
 // instead of a local copy.
 template <int T, bool BND, class Mdl>
-__global__ void __launch_bounds__(LPB * T, IP_MIN_BLOCKS)
+__global__ void __launch_bounds__(LPB * T, IpMinBlocks<Mdl>::value)
 fused_ip_ring_kernel(const __grid_constant__ IpArgs a,
                      const __grid_constant__ IpRBufs b) {
   extern __shared__ float smem_dyn[];
@@ -907,7 +937,7 @@ static int geometry(const IpArgs* args, int32_t out[6]) {
   if (args->lanes_per_block != 0 && args->lanes_per_block != LPB)
     return (int)cudaErrorInvalidValue;
   const int lane_bytes =
-      ring_lane_floats<Model>(args->H, T_IP) * (int)sizeof(float);
+      ring_lane_floats<Model, BND>(args->H, T_IP) * (int)sizeof(float);
   const int smem = LPB * lane_bytes;
   int dev = 0, err;
   if ((err = cudaGetDevice(&dev))) return err;
@@ -946,17 +976,30 @@ static int launch(const IpArgs* args, const IpRBufs& b, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Floats of one lane's shared memory at horizon H, the same with
-// (boundary != 0) or without the boundary rows (the Python side's
-// eligibility mirrors it).
+// f(std::bool_constant<BND>()) for the instance of args.  The ST library
+// builds both; the KS one the boundary rows' alone, and refuses a problem
+// without them (B2 without rows is fused_ip.cu's).
+template <class F>
+static int with_instance(const IpArgs* args, F f) {
+  if (args->boundary) return f(std::true_type());
+  if constexpr (Model::ST) {
+    return f(std::false_type());
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Floats of one lane's shared memory at horizon H with (boundary != 0) or
+// without the boundary rows (the Python side's eligibility mirrors it).
 extern "C" int fused_ip_lane_floats(int H, int boundary) {
-  (void)boundary;
-  return ring_lane_floats<Model>(H, T_IP);
+  return boundary ? ring_lane_floats<Model, true>(H, T_IP)
+                  : ring_lane_floats<Model, false>(H, T_IP);
 }
 
 extern "C" int fused_ip_geometry(const IpArgs* args, int32_t* out) {
-  return args->boundary ? geometry<true>(args, out)
-                        : geometry<false>(args, out);
+  return with_instance(args, [&](auto bnd) {
+    return geometry<decltype(bnd)::value>(args, out);
+  });
 }
 
 extern "C" int fused_ip_solve(const IpArgs* args, const float* x0,
@@ -972,6 +1015,7 @@ extern "C" int fused_ip_solve(const IpArgs* args, const float* x0,
   if (args->n_alphas > 0 && !(Xc && Uc)) return (int)cudaErrorInvalidValue;
   IpRBufs b{x0, xref, obs, mind, w, U, lam_lo, lam_hi, X, pviol, diag, rung,
             bnd, s_lo, s_hi, dX, dU, ddX, ddU, K, d, AB, Xc, Uc};
-  return args->boundary ? launch<true>(args, b, stream)
-                        : launch<false>(args, b, stream);
+  return with_instance(args, [&](auto bnd_) {
+    return launch<decltype(bnd_)::value>(args, b, stream);
+  });
 }

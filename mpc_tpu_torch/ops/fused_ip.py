@@ -24,11 +24,13 @@ One launch runs, for every lane::
 Two implementations of the same function:
 
 * the CUDA C++ kernels, launched by :func:`launch_ip` on CUDA tensors: for
-  the KS model ``csrc/fused_ip.cu`` (one warp per lane, a thread per stage,
-  the Newton state in registers and shared memory, every buffer lanes
-  leading); for the ST model ``csrc/fused_ip_ring.cu`` (32 lanes and 4
-  warps a block on fused_gn's ring of stage operands, the Newton state in
-  device memory, every buffer lanes fastest);
+  the KS model without road-boundary rows ``csrc/fused_ip.cu`` (one warp
+  per lane, a thread per stage, the Newton state in registers and shared
+  memory, every buffer lanes leading); for the KS model with them and for
+  the ST model ``csrc/fused_ip_ring.cu`` (32 lanes and 4 warps a block on
+  fused_gn's ring of stage operands, the Newton state in device memory,
+  every buffer lanes fastest), built as the libraries
+  ``fused_ip_ks_ring`` and ``fused_ip_st`` (:func:`ip_library`);
 * :func:`solve_batch_fused_ip_plain`, the plain PyTorch version over a
   leading lane axis, with the stage-independent work evaluated for all
   stages at once.  The CPU runs it, and the kernel is checked against it on
@@ -37,15 +39,15 @@ Two implementations of the same function:
 :func:`solve_batch_fused_ip` takes a CPU tensor to the plain version and a
 CUDA tensor to the kernel; nothing falls back from one to the other.
 
-Envelope (:func:`eligible_ip`): the KS or the ST model (the ST
-instances in a library of their own, ``csrc/fused_ip_st.cu``), method 'ip',
+Envelope (:func:`eligible_ip`): the KS or the ST model, method 'ip',
 forcespro or casadi rows, RK4 or Euler, static (B, 3, 2) or moving (B, H+1,
 3, 2) obstacles, with or without the 6 road-boundary rows (given the
 boundaries; their per-stage models are ``fused_gn.boundary_models``), cold
 or warm duals, any ``ip_sqp_iters x ip_iters`` budget, ``ip_alphas=()`` or
-a ladder of at most ``MAX_ALPHAS`` rungs, and a horizon within the model's
-kernel: KS at most ``MAX_HORIZON`` stages whose lane a block holds, ST a
-block of 32 lanes within a block's shared memory (``MAX_HORIZON_ST``).
+a ladder of at most ``MAX_ALPHAS`` rungs, and a horizon within the
+library's kernel: ``fused_ip.cu`` at most ``MAX_HORIZON`` stages whose lane
+a block holds, the ring source a block of 32 lanes within a block's shared
+memory (``MAX_HORIZON_ST``, ``MAX_HORIZON_KS_RING``).
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ from mpc_tpu_torch.ops import fused_gn as F
 from mpc_tpu_torch.ops import sqp as S
 from mpc_tpu_torch.ops.fused_gn import (
     MAX_ALPHAS, NBND, NU, NX, NX_ST, StConsts, _assemble_quad, _cols, _mat,
-    _mv, _row_bounds, _row_lin, _row_values, _vec, kernel_name, make_consts)
+    _mv, _row_bounds, _row_lin, _row_values, _vec, make_consts)
 from mpc_tpu_torch.ops.ipqp import (
     _MU0, _MU_MIN, _S_FLOOR, _S_MIN, _SIGMA_B, _TAU, _WARM_KAPPA, _Z_MAX)
 
@@ -84,37 +86,47 @@ def ab_floats(nx: int = NX) -> int:
     return (nx - 2) * (nx + NU) + 2
 
 
+def ring_part_floats(boundary: bool, nx: int = NX) -> int:
+    """Floats a lane of the ring kernel's ring part (``ring_part_floats``):
+    the ring of stage operands, or each thread's slacks and duals of a
+    stage (4 a row) where those are more (KS with the boundary rows)."""
+    T = RING_THREADS_PER_LANE
+    rows = F.NR + F.NB_ROWS if boundary else F.NR
+    return max(F.ring_slots(T) * F.ring_operand_floats(nx), T * 4 * rows)
+
+
 def lane_smem_bytes(H: int, boundary: bool = False, nx: int = NX) -> int:
     """Shared memory of one lane at horizon H in the library of the model
-    of state count nx.  KS: ``Layout`` in csrc/fused_ip.cu (rows cache, 45
-    floats a stage or 69 with the boundary rows, quadratics (whose space a
-    rollout's scratch shares), (A, B), K, d, ddX, ddU, X, U, xref,
-    obstacles, the terminal P and p, the stationarity, the lane's
-    constants: weights, x0 and the clearance).  ST: ``ring_lane_floats`` in
-    csrc/fused_ip_ring.cu (the threads' partials, the ladder's slot, a value
-    a stage, the ring of stage operands, the sweep's P and p; the same with
-    or without the boundary rows)."""
-    if nx == NX_ST:
+    of state count nx, with or without the boundary rows.  The ring source
+    (ST, or KS with the boundary rows): ``ring_lane_floats`` in
+    csrc/fused_ip_ring.cu (the threads' partials, the ladder's slot, a
+    value a stage, the ring part, the sweep's P and p).  KS without them:
+    ``Layout`` in csrc/fused_ip.cu (rows cache, 45 floats a stage,
+    quadratics (whose space a rollout's scratch shares), (A, B), K, d,
+    ddX, ddU, X, U, xref, obstacles, the terminal P and p, the
+    stationarity, the lane's constants: weights, x0 and the clearance)."""
+    if nx == NX_ST or boundary:
         T = RING_THREADS_PER_LANE
-        return 4 * (T + 1 + (H + 1) + F.ring_slots(T)
-                    * F.ring_operand_floats(nx) + F.sweep_floats(nx))
+        return 4 * (T + 1 + (H + 1) + ring_part_floats(boundary, nx)
+                    + F.sweep_floats(nx))
     S = H + 1
-    rows = 69 if boundary else 45
-    floats = (rows * S + quad_floats(nx) * S + (nx * nx + nx * NU) * H
+    floats = (45 * S + quad_floats(nx) * S + (nx * nx + nx * NU) * H
               + NU * nx * H + NU * H + nx * S + NU * S + nx * S + NU * S
               + nx * S + 7 * S + nx * nx + nx + 1 + (3 * nx + 3))
     return 4 * floats
 
 
-def _ring_max_horizon(nx: int = NX_ST) -> int:
+def _ring_max_horizon(nx: int = NX_ST, boundary: bool = True) -> int:
     """The longest horizon whose block of ``RING_LANES`` lanes fits a
     block's shared memory in the ring kernel (a lane's footprint grows by
     4 bytes a stage)."""
-    spare = SMEM_PER_BLOCK // RING_LANES - lane_smem_bytes(0, nx=nx)
+    spare = (SMEM_PER_BLOCK // RING_LANES
+             - lane_smem_bytes(0, boundary, nx=nx))
     return spare // 4
 
 
 MAX_HORIZON_ST = _ring_max_horizon()
+MAX_HORIZON_KS_RING = _ring_max_horizon(NX)
 
 
 def ineligible_reason_ip(cfg: S.SolverConfig, params: S.OcpParams):
@@ -137,13 +149,14 @@ def ineligible_reason_ip(cfg: S.SolverConfig, params: S.OcpParams):
         return (f"{len(cfg.ip_alphas)} ladder rungs, the kernel takes "
                 f"{MAX_ALPHAS}")
     H = cfg.horizon
-    if nx == NX_ST:   # the ring kernel: a thread loops over its stages
+    if ring_kernel(cfg):   # a thread loops over its stages
         lane = lane_smem_bytes(H, cfg.boundary_rows, nx)
         if RING_LANES * lane > SMEM_PER_BLOCK:
-            return (f"horizon {H}: a block of {RING_LANES} lanes of the ST "
-                    f"model needs {RING_LANES * lane} bytes of shared "
-                    f"memory ({lane} a lane), a block holds "
-                    f"{SMEM_PER_BLOCK}: H <= {_ring_max_horizon(nx)}")
+            return (f"horizon {H}: a block of {RING_LANES} lanes of the "
+                    f"{cfg.model.upper()} model needs {RING_LANES * lane} "
+                    f"bytes of shared memory ({lane} a lane), a block holds "
+                    f"{SMEM_PER_BLOCK}: H <= "
+                    f"{_ring_max_horizon(nx, cfg.boundary_rows)}")
         return None
     if H > MAX_HORIZON:
         return (f"horizon {H}: the kernel's warp holds at most "
@@ -575,9 +588,10 @@ def kernel_args_ip(cfg: S.SolverConfig, B: int, moving: bool,
 
 
 # the kernel's buffers in the order of fused_ip_solve's pointer arguments.
-# fused_ip.cu (KS): all lanes leading (the package's public layout), the
-# Newton state in the kernel's registers and shared memory, no scratch.
-# fused_ip_ring.cu (ST): all lanes fastest, then the Newton state's scratch.
+# fused_ip.cu (KS, no boundary rows): all lanes leading (the package's
+# public layout), the Newton state in the kernel's registers and shared
+# memory, no scratch.  fused_ip_ring.cu (ST; KS with the boundary rows):
+# all lanes fastest, then the Newton state's scratch.
 KERNEL_INPUTS = F.KERNEL_INPUTS                 # x0, xref, obs, mind, w
 KERNEL_STATE = ("U", "lam_lo", "lam_hi")        # updated in place
 KERNEL_OUTPUTS = ("X", "pviol", "diag")
@@ -595,8 +609,18 @@ _OUT_ORDER = ("X", "U", "lam_lo", "lam_hi", "pviol", "diag")
 
 
 def ring_kernel(cfg: S.SolverConfig) -> bool:
-    """Whether ``cfg``'s model runs on the ring kernel (the ST model)."""
-    return cfg.model == "st"
+    """Whether ``cfg`` runs on the ring kernel: the ST model, or the KS
+    model with the road-boundary rows."""
+    return ip_library(cfg) != "fused_ip"
+
+
+def ip_library(cfg: S.SolverConfig) -> str:
+    """The library that solves ``cfg``: ``fused_ip_st`` (the ST model),
+    ``fused_ip_ks_ring`` (KS with the boundary rows; both build
+    csrc/fused_ip_ring.cu) or ``fused_ip`` (csrc/fused_ip.cu)."""
+    if cfg.model == "st":
+        return "fused_ip_st"
+    return "fused_ip_ks_ring" if cfg.boundary_rows else "fused_ip"
 
 
 def _copied(t, shape):
@@ -616,9 +640,10 @@ def pack_ip(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
     when the ladder is on and ``trace_rungs`` asks for it; with boundary
     rows their models at the rollout of the warm start
     (``fused_gn.boundary_models``); KS-schema params of an ST problem
-    widened first (``sqp.normalize_params``).  KS: lanes leading and
-    contiguous (one lane's data in consecutive addresses, which the lane's
-    warp loads together); ST: the ring kernel's layout (:func:`_pack_ring`).
+    widened first (``sqp.normalize_params``).  fused_ip.cu: lanes leading
+    and contiguous (one lane's data in consecutive addresses, which the
+    lane's warp loads together); the ring kernel (:func:`ring_kernel`): its
+    own layout (:func:`_pack_ring`).
     """
     reason = ineligible_reason_ip(cfg, params)
     if reason is not None:
@@ -647,9 +672,6 @@ def pack_ip(cfg: S.SolverConfig, params: S.OcpParams, state: S.SqpState,
         lam_lo=_copied(state.lam_lo, (B, H + 1, nr)),
         lam_hi=_copied(state.lam_hi, (B, H + 1, nr)),
         X=empty(H + 1, nx), pviol=empty(H + 1, nr), diag=empty(4))
-    if cfg.boundary_rows:
-        # boundary_models makes a new tensor: no copy needed
-        bufs["bnd"] = F.boundary_models(cfg, params, state).contiguous()
     if cfg.ip_alphas and trace_rungs:
         bufs["rung"] = torch.empty((cfg.ip_sqp_iters, B), dtype=torch.int32,
                                    device=dev)
@@ -722,16 +744,19 @@ def _launch_ip(name: str, cfg: S.SolverConfig, bufs: dict,
 
 
 def launch_ip(cfg: S.SolverConfig, bufs: dict, lanes_per_block: int = 0):
-    """Launch the kernel of ``cfg``'s model once on the current stream over
-    packed ``bufs`` (the ST model: :func:`launch_ip_st`).
+    """Launch the kernel of ``cfg`` (:func:`ip_library`) once on the current
+    stream over packed ``bufs`` (the ST model: :func:`launch_ip_st`; KS
+    with the boundary rows: :func:`launch_ip_ks_ring`).
 
     The kernel updates U, lam_lo and lam_hi in place, where the TPU kernel
     aliased inputs to outputs, and writes X, pviol and diag.
     ``lanes_per_block`` 0 lets the kernel choose.  ``launch_ip.launches``
-    counts the launches of the KS kernel.
+    counts the launches of csrc/fused_ip.cu's kernel.
     """
     if cfg.model == "st":
         return launch_ip_st(cfg, bufs, lanes_per_block)
+    if cfg.boundary_rows:
+        return launch_ip_ks_ring(cfg, bufs, lanes_per_block)
     launch_ip.launches += 1
     return _launch_ip("fused_ip", cfg, bufs, lanes_per_block)
 
@@ -745,8 +770,21 @@ def launch_ip_st(cfg: S.SolverConfig, bufs: dict, lanes_per_block: int = 0):
     return _launch_ip("fused_ip_st", cfg, bufs, lanes_per_block)
 
 
+def launch_ip_ks_ring(cfg: S.SolverConfig, bufs: dict,
+                      lanes_per_block: int = 0):
+    """:func:`launch_ip` of the KS model with the boundary rows on the ring
+    kernel (csrc/fused_ip_ks_ring.cu); ``launch_ip_ks_ring.launches``
+    counts its launches."""
+    if ip_library(cfg) != "fused_ip_ks_ring":
+        raise ValueError("fused_ip_ks_ring solves the KS model with "
+                         "boundary rows")
+    launch_ip_ks_ring.launches += 1
+    return _launch_ip("fused_ip_ks_ring", cfg, bufs, lanes_per_block)
+
+
 launch_ip.launches = 0
 launch_ip_st.launches = 0
+launch_ip_ks_ring.launches = 0
 
 
 def geometry(cfg: S.SolverConfig, B: int, moving: bool = False,
@@ -760,7 +798,7 @@ def geometry(cfg: S.SolverConfig, B: int, moving: bool = False,
     from mpc_tpu_torch.ops import _build
     args = kernel_args_ip(cfg, B, moving, lanes_per_block)
     out = (ctypes.c_int32 * 6)()
-    fn = _build.load(kernel_name(cfg, "fused_ip")).fused_ip_geometry
+    fn = _build.load(ip_library(cfg)).fused_ip_geometry
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(ctypes.byref(args), out)
@@ -800,8 +838,9 @@ def solve_batch_fused_ip(cfg: S.SolverConfig, params: S.OcpParams,
     Runs on ``device`` (default: the GPU, see ``resolve_device``): CUDA
     tensors go to the kernel, CPU tensors to the plain version.  A problem
     outside the kernel's envelope (:func:`ineligible_reason_ip`: the AL
-    method, H > 63, a lane that does not fit a block, more than
-    ``MAX_ALPHAS`` rungs) goes to the per-lane path ``sqp.solve_batch``,
+    method, H > 63 on csrc/fused_ip.cu, a lane or a ring kernel's block of
+    32 that does not fit a block's shared memory, more than ``MAX_ALPHAS``
+    rungs) goes to the per-lane path ``sqp.solve_batch``,
     as the JAX package falls back to its vmapped solve; boundary rows
     without boundary data raise ``ValueError``, as that path's rows do.
     """

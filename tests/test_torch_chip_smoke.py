@@ -9,6 +9,7 @@ import torch
 import chip_smoke as cs
 from mpc_tpu_torch.models.vehicle import VEHICLE_2
 from mpc_tpu_torch.ops import fused_gn as TF
+from mpc_tpu_torch.ops import fused_ip as TFI
 from mpc_tpu_torch.ops import sqp as TS
 from mpc_tpu_torch.planner import closed_loop as tcl
 from mpc_tpu_torch.utils import synthetic as tsyn
@@ -112,7 +113,6 @@ def test_ip_stationarity_band_sits_above_float32_rounding():
     float64 part by more than tests/test_fused_ip.py's atol (5e-3) on some
     lanes, and by well under KKT_ATOL on every lane.  Every other band of
     the check holds on every lane, and the status is equal."""
-    from mpc_tpu_torch.ops import fused_ip as TFI
     B = 48
     lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, H, B, device="cpu",
                                     **cs.IP_COLD)
@@ -140,7 +140,6 @@ def test_rounding_lanes_are_the_ill_conditioned_ones():
     solve a QP so ill-conditioned that the plain version's float32 and
     float64 solves, committing the same rungs, leave the U band; the check
     excuses exactly those, decided without the kernel."""
-    from mpc_tpu_torch.ops import fused_ip as TFI
     lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, H, cs.B_CHECK, device="cpu",
                                     **cs.IP_COLD)
     lp = lp.map(lambda t: t[torch.tensor([283, 1709, 0, 1])])
@@ -229,10 +228,38 @@ def test_st_ip_row_runs_the_ring_source():
     assert not cs.kernel_symbol("fused_ip", ring)
     assert not cs.kernel_symbol(
         "fused_ip_st", "fused_ip_kernel<1, false, StModel>(IpArgs, IpBufs)")
-    assert cs.kernel_symbol(
-        "fused_ip", "fused_ip_kernel<1, false, KsModel>(IpArgs, IpBufs)")
+    assert cs.kernel_symbol("fused_ip", "fused_ip_kernel<1>(IpArgs, IpBufs)")
+    assert not cs.kernel_symbol(
+        "fused_ip_st", "fused_ip_ring_kernel<4, true, KsModel>(IpArgs, "
+        "IpRBufs)")
     assert (cs.ROOT / "mpc_tpu_torch/ops/csrc" / cs.SOURCES["fused_ip_st"]
             ).is_file()
+
+
+def test_hard_corridor_row_runs_the_ks_ring_library():
+    """The hard-corridor row (KS, boundary rows) runs the KS ring library,
+    the ring source's boundary instance: timed at its own geometry only,
+    its kernel told apart by its symbol from fused_ip.cu's and the ST
+    ring's, its own entry in the kernels line with the ring source and the
+    Pallas kernel's boundary branch."""
+    lcfg, _ = cs.bench_loop(n_lanes=2, device="cpu", **cs.HARD_CORRIDOR)
+    eng = cs.engine(lcfg.solver)
+    assert eng.name == "fused_ip_ks_ring" and ":765, :783" in eng.replaces
+    assert eng.sweep(lcfg.solver) == (0,)
+    assert cs._launchers()[eng.name] is TFI.launch_ip_ks_ring
+    ring = "fused_ip_ring_kernel<4, true, KsModel>(IpArgs, IpRBufs)"
+    assert cs.kernel_symbol("fused_ip_ks_ring", ring)
+    assert not cs.kernel_symbol("fused_ip", ring)
+    assert not cs.kernel_symbol("fused_ip_ks_ring",
+                                "fused_ip_kernel<1>(IpArgs, IpBufs)")
+    timing, loop, _, checks = _corridor_lines()
+    entry = {"registers": 168, "spill_stores": 0, "spill_loads": 0,
+             "smem_bytes_per_block": 47488, "geometry": {}}
+    line = cs.kernel_line(eng, loop, timing, "warm_2x6", "cold_5x10",
+                          checks, {eng.name: entry})
+    assert line["source"] == "mpc_tpu_torch/ops/csrc/fused_ip_ring.cu"
+    assert line["launches"] == 104 and line["route"] == "cuda"
+    assert "boundary_instance" not in line
 
 
 def test_splits_name_the_variants_of_the_warm_inputs():
@@ -256,6 +283,10 @@ def test_splits_name_the_variants_of_the_warm_inputs():
     icfg = TS.SolverConfig(horizon=4, **cs.IP_WARM)
     (name, (one, _, _)), = cs.split_ip(icfg, ocp, st).items()
     assert name == "warm_1x1" and (one.ip_sqp_iters, one.ip_iters) == (1, 1)
+    gcfg = TS.SolverConfig(horizon=4, **cs.SOFT_ST, vehicle=VEHICLE_2)
+    (name, (two, tocp, tst)), = cs.split_gn_st(gcfg, ocp, st).items()
+    assert name == "gn_st_warm_1x2" and tocp is ocp and tst is st
+    assert (two.al_iters, two.sqp_iters, two.model) == (1, 2, "st")
 
 
 def test_kernels_line_carries_the_st_instances():
@@ -369,7 +400,8 @@ def test_al_timing_sweeps_threads_per_lane():
 
 
 @pytest.mark.parametrize("kw,kernel,horizon", [
-    (cs.HARD_CORRIDOR, "fused_ip", 14), (cs.SOFT_CORRIDOR, "fused_gn", 30)],
+    (cs.HARD_CORRIDOR, "fused_ip_ks_ring", 14),
+    (cs.SOFT_CORRIDOR, "fused_gn", 30)],
     ids=["hard-corridor", "soft-corridor"])
 def test_corridor_rows_launch_their_kernel_once_a_solve(kw, kernel, horizon):
     """The corridor rows run their own budgets with boundary rows at their
@@ -468,17 +500,18 @@ def _corridor_lines():
             "active_boundary_lane_steps": 163290}
     entry = {"registers": 168, "spill_stores": 292, "spill_loads": 496,
              "smem_bytes_per_block": 128976, "geometry": {}}
-    build = {"fused_ip": dict(entry, boundary_instance=entry)}
+    build = {"fused_gn": dict(entry, boundary_instance=entry)}
     return timing, loop, build, {"case": errs}
 
 
 def test_kernels_line_carries_each_boundary_instance():
-    """The kernels line's entry of a fused kernel nests its boundary
-    instance with every key the line needs: launches of its corridor row,
-    the largest check error, its time, plain time, bound and what sets it,
-    the library call (none), and the glue of the rows' models."""
+    """The kernels line's entry of the AL kernel nests its boundary
+    instance (the soft-corridor row's) with every key the line needs:
+    launches of its corridor row, the largest check error, its time, plain
+    time, bound and what sets it, the library call (none), and the glue of
+    the rows' models."""
     timing, loop, build, checks = _corridor_lines()
-    eng = cs.engine(TS.SolverConfig(horizon=14, method="ip"))
+    eng = cs.engine(TS.SolverConfig(horizon=30))
     bnd = cs.boundary_instance_line(eng, loop, timing, "warm_2x6",
                                     "cold_5x10", checks, build)
     for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -501,7 +534,6 @@ def test_corridor_loop_line_counts_active_rows(monkeypatch):
     feasible, the lane-steps where a boundary row is active (states at
     y = 2.8 m, 1.2 m below the left edge) and the largest lateral y; a
     stand-in loop on the CPU gives the states."""
-    from mpc_tpu_torch.ops import fused_ip as TFI
     B, T = 4, cs.T_BENCH
     monkeypatch.setattr(cs, "B_BENCH", B)
     for name in ("synchronize", "reset_peak_memory_stats"):
@@ -510,7 +542,7 @@ def test_corridor_loop_line_counts_active_rows(monkeypatch):
     monkeypatch.setattr(cs, "cuda_ms", lambda fn: (1.0, fn()))
 
     def loop(lcfg, lp, device=None):
-        TFI.launch_ip.launches += 104
+        TFI.launch_ip_ks_ring.launches += 104
         X = torch.zeros(B, T, 5)
         X[:, 40:60, 1] = 4.0 - 1.2
         zero = torch.zeros(B, T)
@@ -526,6 +558,7 @@ def test_corridor_loop_line_counts_active_rows(monkeypatch):
     assert line["metric"] == "nmpc_solves_per_s_per_chip_h14"
     assert line["kernel_launches"] == 104
     assert line["launches_by_kernel"]["fused_gn"] == 0
+    assert line["launches_by_kernel"]["fused_ip"] == 0
     assert line["feasible_steps"] == line["total_solves"] == B * T
     assert line["active_boundary_lane_steps"] == B * 20
     assert line["max_lateral_y"] == pytest.approx(2.8)

@@ -215,12 +215,13 @@ def host_gn(libs, cfg, ocp, st, threads_per_lane=2):
 
 
 def host_ip(libs, cfg, ocp, st, lanes_per_block=2):
-    """The IP source of ``cfg``'s model on the host: KS a block of
-    ``lanes_per_block`` warps (B=5 lanes leave the last block ragged), ST
-    the ring source's block of 32 lanes and 4 warps (B=5 lanes of 32)."""
+    """The IP library of ``cfg`` on the host (``ip_library``): fused_ip.cu
+    a block of ``lanes_per_block`` warps (B=5 lanes leave the last block
+    ragged), the ring source (ST; KS with the boundary rows) a block of 32
+    lanes and 4 warps (B=5 lanes of 32)."""
     bufs = TFI.pack_ip(cfg, ocp, st, trace_rungs=True)
     ring = TFI.ring_kernel(cfg)
-    run_host(libs, TF.kernel_name(cfg, "fused_ip"), TFI.kernel_args_ip(
+    run_host(libs, TFI.ip_library(cfg), TFI.kernel_args_ip(
         cfg, ocp.x0.shape[0], ocp.obs_centers.dim() == 4,
         0 if ring else lanes_per_block), bufs,
         TFI.KERNEL_ORDER_RING if ring else TFI.KERNEL_ORDER)
@@ -390,21 +391,29 @@ def test_fused_ip_shared_memory_footprint_matches_the_source(host_libs,
                                                             horizon,
                                                             boundary):
     """``lane_smem_bytes``, which the eligibility reads, is the source's
-    own ``Layout`` of one lane's shared memory, with or without the
-    boundary rows (69 floats a stage of rows cache in place of 45), and the
-    geometry of that instance takes it."""
-    fn = host_libs["fused_ip"].fused_ip_lane_floats
+    own footprint of one lane's shared memory, and the geometry of that
+    instance takes it: without the boundary rows fused_ip.cu's ``Layout``
+    (at most 12 lanes a block), with them the KS ring library's
+    ``ring_lane_floats`` (a block of 32 lanes; each thread's slacks and
+    duals of a stage, 4 x 20 floats, set its ring part)."""
+    cfg = TS.SolverConfig(horizon=horizon, method="ip",
+                          boundary_rows=boundary)
+    lib = host_libs[TFI.ip_library(cfg)]
+    fn = lib.fused_ip_lane_floats
     fn.restype = ctypes.c_int
     want = TFI.lane_smem_bytes(horizon, boundary)
     assert 4 * fn(horizon, int(boundary)) == want
-    cfg = TS.SolverConfig(horizon=horizon, method="ip",
-                          boundary_rows=boundary)
     out = (ctypes.c_int32 * 6)()
-    geo = host_libs["fused_ip"].fused_ip_geometry
+    geo = lib.fused_ip_geometry
     geo.restype = ctypes.c_int
     assert geo(ctypes.byref(TFI.kernel_args_ip(cfg, 64, False)), out) == 0
     assert out[1] == want
-    assert out[5] == min(12, TFI.SMEM_PER_BLOCK // want)
+    if boundary:
+        lanes = TFI.RING_LANES
+        assert (out[0], out[2], out[5]) == (lanes, lanes * want, lanes)
+        assert TFI.ring_part_floats(True) == 4 * 4 * 20 > 6 * 43
+    else:
+        assert out[5] == min(12, TFI.SMEM_PER_BLOCK // want)
 
 
 def corridor_ocp(**kw):
@@ -434,9 +443,9 @@ def test_fused_gn_source_with_boundary_rows(host_libs):
 
 
 def test_fused_ip_source_with_boundary_rows(host_libs):
-    """The IP source's boundary instance (2x6, warm duals, the ladder, B=5
-    at 2 lanes a block, the last block ragged) on a bending road whose
-    rows bind."""
+    """The KS IP library with the boundary rows, the ring source's instance
+    (2x6, warm duals, the ladder, B=5 lanes of a block of 32), on a bending
+    road whose rows bind."""
     cfg, ocp = corridor_ocp(method="ip", ip_sqp_iters=2, ip_iters=6,
                             ip_warm_duals=True)
     st = TS.init_state(cfg, batch=B)
@@ -449,6 +458,78 @@ def test_fused_ip_source_with_boundary_rows(host_libs):
     assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
     torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
                                rtol=0.0, atol=1e-3)
+
+
+def test_fused_ip_ks_ring_ragged_lanes_at_the_corridor_horizon(host_libs):
+    """The KS ring library at the hard-corridor row's horizon (H=14: 15
+    stages over a block's 4 warps) and its warm-up budget (5x10, warm
+    duals, the default ladder), B=5 lanes of a block of 32, moving
+    obstacles, inside a road 4 m either side of the reference."""
+    cfg, ocp = bench_ocp(horizon=14, moving=True, method="ip",
+                         ip_sqp_iters=5, ip_iters=10, ip_warm_duals=True,
+                         boundary_rows=True)
+    ocp = cs.with_road_boundaries(ocp)
+    assert TFI.ip_library(cfg) == "fused_ip_ks_ring" and cfg.ip_alphas
+    st = TS.init_state(cfg, batch=B)
+    bufs, ker = host_ip(host_libs, cfg, ocp, st)
+    pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
+        cfg, ocp, st, follow=bufs.get("rung")), st.mu)
+    assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
+    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
+                               rtol=0.0, atol=1e-3)
+    assert ker.X.shape == (B, 15, 5) and ker.state.lam_lo.shape[-1] == 20
+
+
+@pytest.mark.parametrize("case", ["ring-bound", "fused_ip-refuses-rows"])
+def test_ks_boundary_rows_envelope_is_the_ring_sources(host_libs, case,
+                                                       monkeypatch):
+    """KS with the boundary rows runs on the ring library up to its own
+    bound (a block of 32 lanes within a block's shared memory:
+    MAX_HORIZON_KS_RING in, one stage more out, past fused_ip.cu's H <= 63)
+    and past it goes to the per-lane path ``sqp.solve_batch``;
+    fused_ip.cu refuses the boundary rows, and the ring library a KS
+    problem without them."""
+    if case == "fused_ip-refuses-rows":
+        for boundary, name in ((1, "fused_ip"), (0, "fused_ip_ks_ring")):
+            cfg = TS.SolverConfig(horizon=14, method="ip",
+                                  boundary_rows=bool(boundary))
+            args = TFI.kernel_args_ip(cfg, 64, False)
+            args.boundary = boundary
+            lib = host_libs[name]
+            out = (ctypes.c_int32 * 6)()
+            lib.fused_ip_geometry.restype = ctypes.c_int
+            assert lib.fused_ip_geometry(ctypes.byref(args), out) != 0
+            solve = lib.fused_ip_solve
+            solve.restype = ctypes.c_int
+            nptr = len(_build.SIGNATURES[name][1])
+            assert solve(ctypes.byref(args),
+                         *[ctypes.c_void_p(0)] * nptr) != 0
+        lanes = host_libs["fused_ip"].fused_ip_lane_floats
+        lanes.restype = ctypes.c_int
+        assert lanes(14, 1) == -1
+        return
+    fn = host_libs["fused_ip_ks_ring"].fused_ip_lane_floats
+    fn.restype = ctypes.c_int
+    most = TFI.MAX_HORIZON_KS_RING
+    block = 4 * TFI.RING_LANES
+    assert block * fn(most, 1) <= TFI.SMEM_PER_BLOCK < block * fn(most + 1, 1)
+    assert most > TFI.MAX_HORIZON == 63
+    per_lane = []
+    monkeypatch.setattr(TS, "solve_batch",
+                        lambda *a, **k: per_lane.append(a) or "per-lane")
+    # the envelope reads the problem's schema, not its stage count
+    cfg, ocp = bench_ocp(method="ip", boundary_rows=True)
+    ocp = cs.with_road_boundaries(ocp)
+    for Hs, fits in ((most, True), (most + 1, False)):
+        cfg = dataclasses.replace(cfg, horizon=Hs)
+        reason = TFI.ineligible_reason_ip(cfg, ocp)
+        assert (reason is None) == fits, reason
+        if not fits:
+            assert f"H <= {most}" in reason and "KS model" in reason
+            assert TFI.solve_batch_fused_ip(
+                cfg, ocp, TS.init_state(cfg, batch=B),
+                device="cpu") == "per-lane"
+    assert len(per_lane) == 1
 
 
 def host_riccati(libs, quad, QH, qH, dyn, reg):
