@@ -95,7 +95,8 @@ Phases, each printing one JSON line (``"phase": ...``):
 6. loop     ``closed_loop_batch_vec`` at B=16384, H=30, T=100 with 4
             cold-start solves, for the soft row (al 1x1, ``alphas=()``), the
             hard row (ip 1x4, warm duals, ``ip_alphas=()``) and the xla row
-            (the soft row on ``engine='xla'``), then hard-corridor and
+            (the soft row on ``engine='xla'``, XLA_STEPS steps), then
+            hard-corridor and
             soft-corridor inside a straight road with edges at y = +-4 m,
             then the ST rows: soft-st and hard-st (the soft and hard rows'
             budgets, model='st') and xla-st (one cold start and
@@ -126,14 +127,34 @@ Phases, each printing one JSON line (``"phase": ...``):
             and within the bands of the CPU run; and ``torch.profiler``
             over warm steps of the deployment's loop;
 
-then the card's name and power limit, the kernels line, and as the last
+9. fleet    scenario fleets (``parallel.multi``) through the fused kernels
+            and the serving API: (a) the four forcespro configs of
+            FLEET tiled to B=16384 lanes (ip 2x6, the ladder, boundary
+            rows beside dummy ones, moving obstacles, H=12, T=100) through
+            ``closed_loop_batch_vec`` on fused_ip_ks_ring alone, its
+            step-0 solve on 256 copies of three configs and its step-50
+            solve on 256 lanes against the plain version (its cold starts
+            and its step 0, where the plain version parts from itself in
+            float64 on whole configs, measured a config each), every
+            lane-step feasible over its own length or held to the plain
+            loop, the copies of a config within the IP bands, solves/s,
+            ms a step, peak memory and a profiled window; (b) the same
+            batch served by ``init_batch_carry`` and T calls of
+            ``closed_loop_batch_step``, equal to (a) at atol 0; (c)
+            ``BatchedOnlinePlanner.from_scenarios`` on the four configs
+            for 8 disturbed steps, against the same on the CPU; (d) the
+            casadi lane-following pair at B=1024 on fused_gn's ladder
+            instance within 0.05 m of its goldens; (e) ``OnlinePlanner``
+            on the deployment config, ms a step, no kernel;
+
+then the card's name and power limit, the kernels line (with each
+kernel's launches in the fleet phase), and as the last
 line ``{"ok": true, "device": {...}}``.  A phase that fails raises: the
 script then exits non-zero and prints no last line.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 import json
 import re
 import subprocess
@@ -159,6 +180,11 @@ IP_COLD = dict(method="ip", ip_sqp_iters=5, ip_iters=10, ip_alphas=())
 IP_WARM = dict(method="ip", ip_sqp_iters=1, ip_iters=4, ip_warm_duals=True,
                ip_alphas=())
 XLA_WARM = dict(engine="xla", **WARM)
+# the xla row's steps after its 4 cold starts: its loop is bound by its
+# host's eager launches (~0.13 s a Gauss-Newton step, PERF.md) and timed
+# by its counted run, and this cut makes room in the script's time limit
+# for the fleet phase
+XLA_STEPS = 25
 # The ST rows: the 7-state single-track model with tire dynamics
 # (model='st', VEHICLE_2, which bench_loop adds) at the bench budgets of the
 # soft and hard rows, on the same overtake workload (its starts lifted to
@@ -231,7 +257,7 @@ IP_STATE_BANDS = {"lam_hi": (5e-2, 5e-2), "lam_lo": (5e-2, 5e-2)}
 RIC_BANDS = {"K": (2e-3, 2e-3), "d": (2e-3, 2e-3), "dV1": (1e-2, 0.0),
              "dV2": (1e-2, 0.0)}
 # A loop whose counted run takes longer than this is timed once, not best
-# of 3
+# of 3 (as is a loop on engine='xla', host-bound however short)
 ONE_TIMED_RUN_S = 20.0
 # A ladder choice may lose to the best rung by rounding: at most this much
 # of max(|best merit|, 1) under the plain version's merits.  The plain
@@ -723,37 +749,61 @@ def loop_inputs(dev, lcfg, lp, steps):
     """{step: (ocp, state)}: the inputs the closed loop of ``lcfg`` hands
     its solve at each of ``steps``, the loop run on the card."""
     from mpc_tpu_torch.planner import closed_loop as cl
-    solve = functools.partial(cl.select_engine(
-        lcfg.solver, lp.boundaries is not None), device=dev)
-    state = cl._batch_cold_start(lcfg, lp, solve)
-    n = lp.x_init.shape[0]
-    carry = (0, lp.x_init, state,
-             torch.zeros((n,), dtype=torch.int64, device=dev))
+    carry = cl.init_batch_carry(lcfg, lp, dev)
     window, step_obs, make_ocp = cl._batch_helpers(lcfg, lp)
     out = {}
     for k in range(max(steps) + 1):
         if k in steps:
-            _, x, st, bases = carry
+            _, x, st, _, bases = carry
             out[k] = (make_ocp(x, window(k, x, bases)[0], step_obs(k)), st)
-        carry, _ = cl._batched_step(lcfg, lp, solve, carry, None)
+        carry, _ = cl.closed_loop_batch_step(lcfg, lp, carry, device=dev)
     return out
 
 
-def gate_calibration(name, cfg, ocp, state):
+def gate_calibration(name, cfg, ocp, state, kernel=False, groups=1):
     """The plain version's own float32 and float64 solves at one input:
-    the share of lanes on which they agree in status and within each
-    band (no gate: it says where the gates can hold)."""
+    the share of lanes on which they agree in status and within each band
+    (no gate: it says where the gates can hold).  With ``kernel``, the
+    kernel launches once, both solves replay its rungs, and the line adds
+    the share of lanes on which the kernel agrees with the float32 one,
+    the state bands (the duals) included.  With ``groups`` > 1 each share
+    is a list, a group of lanes (lane % ``groups``: a config of a tiled
+    fleet) each."""
     eng = engine(cfg)
-    p32 = eng.solution(cfg, eng.plain(cfg, ocp, state), state)
+
+    def share(ok):
+        out = [float(ok[g::groups].double().mean()) for g in range(groups)]
+        return out if groups > 1 else out[0]
+    follow, line = None, {}
+    if kernel:
+        bufs = eng.pack(cfg, ocp, state, trace_rungs=eng.ladder(cfg))
+        eng.launch(cfg, bufs)
+        ker = eng.solution(cfg, eng.unpack(bufs), state)
+        follow = bufs["rung"] if eng.ladder(cfg) else None
+    p32 = eng.solution(cfg, eng.plain(cfg, ocp, state, follow=follow), state)
     ocp64, st64 = as_float64(ocp, state)
-    p64 = eng.solution(cfg, eng.plain(cfg, ocp64, st64), st64)
+    p64 = eng.solution(cfg, eng.plain(cfg, ocp64, st64, follow=follow), st64)
     torch.cuda.synchronize()
-    agree = {f: float(lanes_close(getattr(p32, f).double(), getattr(p64, f),
-                                  *band).double().mean())
+    agree = {f: share(lanes_close(getattr(p32, f).double(), getattr(p64, f),
+                                  *band))
              for f, band in eng.bands.items()}
-    agree["status"] = float((p32.status == p64.status).double().mean())
+    agree["status"] = share(p32.status == p64.status)
+    if kernel:
+        line["kernel_vs_plain_float32_lane_agreement"] = {
+            **{f: share(lanes_close(getattr(ker, f), getattr(p32, f), *band))
+               for f, band in eng.bands.items()},
+            **{f: share(lanes_close(getattr(ker.state, f),
+                                    getattr(p32.state, f), rtol, atol))
+               for f, (rtol, atol, _) in eng.state_bands.items()},
+            "status": share(ker.status == p32.status)}
+        line["kernel_vs_plain_float32_max_abs_err"] = {
+            **{f: max_abs(getattr(ker, f), getattr(p32, f))
+               for f in eng.bands},
+            **{f: max_abs(getattr(ker.state, f), getattr(p32.state, f))
+               for f in eng.state_bands}}
     emit({"phase": "check", "kernel": eng.name, "case": name,
-          "plain_float32_vs_float64_lane_agreement": agree,
+          "lanes": int(ocp.x0.shape[0]), "budget": eng.budget(cfg),
+          "plain_float32_vs_float64_lane_agreement": agree, **line,
           "active_boundary_rows": active_boundary_rows(
               cfg, p32.X, ocp.boundaries, ocp.boundary_signs)})
 
@@ -1465,6 +1515,30 @@ def row_kernel(lcfg):
                        + lcfg.n_steps * scfg.al_iters * scfg.sqp_iters)
 
 
+def counted(fn):
+    """``fn()`` with every kernel's launches counted from 0 and the device
+    synchronized around it: (its result, launches by kernel, wall s on
+    the host clock, peak device bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, launch_counts(), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def require_row_kernel(name, lcfg, launches):
+    """The row's kernel launched as often as the loop solves, no other."""
+    kernel, want = row_kernel(lcfg)
+    require(launches[kernel] == want,
+            f"{name}: {kernel} launches {launches[kernel]}, want {want}")
+    others = {k: n for k, n in launches.items() if k != kernel and n}
+    require(not others, f"{name}: other kernels launched: {others}")
+    return kernel
+
+
 def infeasible_vs_plain(dev, row, lcfg, lp, status, most=64):
     """The first steps of (at most ``most``) lanes with an infeasible step
     in the card's loop, up to their last first infeasible step, on the card
@@ -1485,7 +1559,8 @@ def phase_loop(dev, card, row, budget, steps=T_BENCH, **kw):
     a first run (the row's kernel alone, as often as the row needs it) and
     its peak device memory, then solves/s with CUDA events, best of 3 (the
     counted run itself, on the host clock around it, when it took longer
-    than ONE_TIMED_RUN_S: such a loop is bound by its host).  Every step
+    than ONE_TIMED_RUN_S or ran on engine='xla': such a loop is bound by
+    its host).  Every step
     must be feasible, except in a corridor row, whose infeasible steps are
     counted and held against the plain version
     (:func:`infeasible_vs_plain`); a corridor row also counts the
@@ -1496,7 +1571,6 @@ def phase_loop(dev, card, row, budget, steps=T_BENCH, **kw):
     lcfg, lp = bench_loop(n_lanes=B_BENCH, device=dev, **kw)
     lcfg = dataclasses.replace(lcfg, n_steps=steps)
     corridor = kw.get("corridor", False)
-    kernel, want = row_kernel(lcfg)
 
     def run():
         res = cl.closed_loop_batch_vec(lcfg, lp, device=dev)
@@ -1505,25 +1579,15 @@ def phase_loop(dev, card, row, budget, steps=T_BENCH, **kw):
                     + res.cost.sum())
         return feasible, checksum, res
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()                  # the main path's run
-    t0 = time.perf_counter()
-    feasible, checksum, res = run()
-    torch.cuda.synchronize()
-    counted_s = time.perf_counter() - t0
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    # the main path's run
+    (feasible, checksum, res), launches, counted_s, peak = counted(run)
     total = B_BENCH * steps
     require(tuple(res.X.shape) == (B_BENCH, steps, S.solver_nx(lcfg.solver)),
             "loop X shape")
     require(bool(torch.isfinite(checksum)), "loop checksum is not finite")
     require(corridor or int(feasible) == total,
             f"{row}: feasible steps {int(feasible)} of {total}")
-    require(launches[kernel] == want,
-            f"{row}: {kernel} launches {launches[kernel]}, want {want}")
-    others = {k: n for k, n in launches.items() if k != kernel and n}
-    require(not others, f"{row}: other kernels launched: {others}")
+    kernel = require_row_kernel(row, lcfg, launches)
     extra = {}
     if corridor:
         extra["active_boundary_lane_steps"] = active_boundary_rows(
@@ -1537,10 +1601,13 @@ def phase_loop(dev, card, row, budget, steps=T_BENCH, **kw):
         extra["max_abs_beta"] = float(res.X[..., 6].abs().max())
     del res
 
-    # a loop whose counted run took over ONE_TIMED_RUN_S (host-bound) is
-    # timed by that run; the others by CUDA events, best of 3 after it
-    best = counted_s if counted_s > ONE_TIMED_RUN_S else float("inf")
-    timed_runs = 0 if counted_s > ONE_TIMED_RUN_S else 3
+    # a loop bound by its host (its counted run over ONE_TIMED_RUN_S, or on
+    # engine='xla', whose eager glue sets its pace) is timed by that run;
+    # the others by CUDA events, best of 3 after it
+    host_bound = (counted_s > ONE_TIMED_RUN_S
+                  or lcfg.solver.engine == "xla")
+    best = counted_s if host_bound else float("inf")
+    timed_runs = 0 if host_bound else 3
     for _ in range(timed_runs):
         ms, (feasible, checksum, _) = cuda_ms(run)
         require(int(feasible) == total, "feasible steps changed between runs")
@@ -1603,19 +1670,14 @@ def phase_profile(dev, row, lcfg, lp, window=None, start=0):
         def body():
             cl.closed_loop_batch_vec(lcfg, lp, device=dev)
     else:
-        solve = functools.partial(cl.select_engine(
-            lcfg.solver, lp.boundaries is not None), device=dev)
-        state = cl._batch_cold_start(lcfg, lp, solve)
-        n = lp.x_init.shape[0]
-        carry = (0, lp.x_init, state,
-                 torch.zeros((n,), dtype=torch.int64, device=dev))
+        carry = cl.init_batch_carry(lcfg, lp, dev)
         for _ in range(start):
-            carry, _ = cl._batched_step(lcfg, lp, solve, carry, None)
+            carry, _ = cl.closed_loop_batch_step(lcfg, lp, carry, device=dev)
 
         def body():
             c = carry
             for _ in range(window):
-                c, _ = cl._batched_step(lcfg, lp, solve, c, None)
+                c, _ = cl.closed_loop_batch_step(lcfg, lp, c, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     activities = [ProfilerActivity.CUDA]
@@ -1923,6 +1985,361 @@ def phase_planner(dev, card):
     return out
 
 
+# The fleet phase: scenario fleets (parallel.multi) through the fused
+# kernels, and the serving API on the same batch.
+FLEET = ("config_CA_ZAM_Over-1_1_forcespro.yaml",    # boundary rows
+         "config_CA_SYN_Moving-1.yaml",              # a moving obstacle
+         "config_CA_ZAM_Over-1_1_forcespro_ref.yaml",
+         "config_LF_ZAM_Tutorial-1_2_T-1.yaml")
+FLEET_LF = (("config_LF_ZAM_Over-1_1.yaml", "zam_lf_casadi"),
+            ("config_LF_USA_Lanker-2_18_T-1.yaml", "usa_lf_casadi"))
+B_FLEET = 16384           # 4,096 lanes of each forcespro config
+B_FLEET_LF = 1024         # 512 lanes of each casadi config
+FLEET_CHECK_LANES = 256   # lanes of the solve held to the plain version
+FLEET_PROFILE = dict(start=GATE_STEP, window=10)
+ONLINE_STEPS = 8
+ONLINE_NOISE = 0.02       # m of position noise a lane and step
+LATENCY_STEPS = 5
+GOLDEN_BAND = 0.05        # a batched lane against its single run,
+                          # tests/test_multi_scenario.py:36
+TRACK_BAND = 1.0          # tests/test_online.py:95-157
+
+
+def fleet_configs(names):
+    from mpc_tpu_torch.io.config import load_config
+    return [load_config(str(ROOT / "configs" / n), str(ROOT / "scenarios"))
+            for n in names]
+
+
+def fleet_batch(dev, names, lanes, steps=None):
+    """``make_multi_scenario_batch`` over the configs ``names``, tiled to
+    ``lanes`` lanes (lane i a copy of config i % len(names)): (lcfg,
+    params, each lane's own length (B,), the configs); ``steps`` cuts T
+    (a rehearsal)."""
+    from mpc_tpu_torch.parallel import multi
+    cfgs = fleet_configs(names)
+    lcfg, lp, lens = multi.make_multi_scenario_batch(cfgs, noised=False,
+                                                     device=dev)
+    if steps is not None:
+        lcfg = dataclasses.replace(lcfg, n_steps=steps)
+    idx = torch.arange(lanes, device=dev) % len(cfgs)
+    return (lcfg, lp.map(lambda t: t[idx]),
+            torch.tensor(lens, device=dev)[idx], cfgs)
+
+
+def copies_agree(res, n_configs):
+    """Per config, the share of its copies whose X and U lie within the IP
+    bands of its first copy's and whose status equals it at every step."""
+    out = []
+    for s in range(n_configs):
+        X, U, st = (getattr(res, f)[s::n_configs]
+                    for f in ("X", "U", "status"))
+        ok = (lanes_close(X, X[:1].expand_as(X), *IP_BANDS["X"])
+              & lanes_close(U, U[:1].expand_as(U), *IP_BANDS["U"])
+              & (st == st[:1]).all(1))
+        out.append(float(ok.double().mean()))
+    return out
+
+
+def cold_start_inputs(lcfg, lp):
+    """[(cfg, ocp, state)]: what each of the loop's cold-start solves is
+    handed (the warm-up budget; each state the kernel's own from the solve
+    before), recorded through ``_batch_cold_start`` itself."""
+    from mpc_tpu_torch.planner import closed_loop as cl
+    dev = lp.x_init.device
+    solve, ins = cl._serving_engine(lcfg, lp, dev), []
+
+    def record(cfg, ocp, state):
+        ins.append((cfg, ocp, state.map(torch.clone)))
+        return solve(cfg, ocp, state)
+    cl._batch_cold_start(lcfg, lp, record)
+    return ins
+
+
+def fleet_checks(dev, lcfg, lp, check_lanes, check_step):
+    """The fleet's solves against their plain version, on its first
+    ``check_lanes`` lanes (copies of the four configs, lane i of config
+    i % 4) unless said.  The loop's step-0 solve by :func:`compare` on
+    ``check_lanes`` copies of the three configs other than the deployment
+    (lane i % 4 != 0); its solve at ``check_step`` by :func:`compare` (at
+    step 50 the deployment's boundary rows bind).  Where the plain
+    version's own float32 and float64 solves part on whole configs' copies,
+    more than the rounding share allows, :func:`gate_calibration`
+    measures, a config each: each cold-start solve (the warm-up budget)
+    with the kernel's agreement, and step 0 (the deployment's
+    stationarity).  Returns the max abs errors of the compared solves."""
+    n = len(FLEET)
+    lane = torch.arange(lp.x_init.shape[0], device=dev)
+    held = lp.map(lambda t: t[lane[lane % n != 0][:check_lanes]])
+    sub = lp.map(lambda t: t[:check_lanes])
+    for i, (cfg, ocp, state) in enumerate(cold_start_inputs(lcfg, sub)):
+        gate_calibration(f"fleet_cold{i}_by_config", cfg, ocp, state,
+                         kernel=True, groups=n)
+    ins = loop_inputs(dev, lcfg, sub, (0, check_step))
+    gate_calibration("fleet_step0_by_config", lcfg.solver, *ins[0],
+                     kernel=True, groups=n)
+    errs = {}
+    _, errs["step0"] = compare("fleet_step0", lcfg.solver,
+                               *loop_inputs(dev, lcfg, held, (0,))[0])
+    _, errs[f"step{check_step}"] = compare(f"fleet_step{check_step}",
+                                           lcfg.solver, *ins[check_step])
+    return errs
+
+
+def fleet_forcespro(dev, lanes=B_FLEET, check_lanes=FLEET_CHECK_LANES,
+                    profile=FLEET_PROFILE, steps=None,
+                    check_step=LOOP_CHECK_STEP):
+    """(a) and (b): the four forcespro configs tiled to ``lanes`` lanes (ip
+    2x6 warm duals, the 5-rung ladder, boundary rows with the dummy
+    polylines 1e6 m out on three configs, moving obstacles, H=12, T=100,
+    2 cold starts).  :func:`fleet_checks` holds its solves to the plain
+    version; ``closed_loop_batch_vec`` (``plan_multi``'s loop) with its
+    launches counted (fused_ip_ks_ring alone, a launch a solve), every
+    lane-step feasible over the lane's own length (an infeasible one held
+    to the plain loop on the CPU), the copies of a config within the IP
+    bands of each other; the loop once more timed with CUDA events; a
+    profiled window of steps; then ``init_batch_carry`` and T calls of
+    ``closed_loop_batch_step`` fed no measurement, equal to the loop at
+    atol 0.  ``steps`` cuts T (a rehearsal)."""
+    from mpc_tpu_torch.planner import closed_loop as cl
+    lcfg, lp, lens, cfgs = fleet_batch(dev, FLEET, lanes, steps)
+    n, T = len(cfgs), lcfg.n_steps
+    check_err = fleet_checks(dev, lcfg, lp, check_lanes, check_step)
+
+    def loop():
+        return cl.closed_loop_batch_vec(lcfg, lp, device=dev)
+    res, launches, counted_s, peak = counted(loop)
+    kernel = require_row_kernel("fleet", lcfg, launches)
+    require(tuple(res.X.shape) == (lanes, T, 5), "fleet: X shape")
+    require(bool(torch.isfinite(res.X).all()), "fleet: non-finite states")
+    valid = torch.arange(T, device=dev)[None] < lens[:, None]
+    status = torch.where(valid, res.status, torch.zeros_like(res.status))
+    infeasible = status < 0
+    agree = copies_agree(res, n)
+    require(min(agree) >= MIN_LANE_AGREEMENT,
+            f"fleet: the copies of a config disagree: {agree}")
+    if bool(infeasible.any()):   # the copies agree: hold each first copy
+        infeasible_vs_plain(dev, "fleet", lcfg, lp, status[:n])
+    ms, again = cuda_ms(loop)
+    require(torch.equal(again.status, res.status),
+            "fleet: the statuses changed between runs")
+    rerun_identical = bool(torch.equal(again.X, res.X))
+    del again
+    prof = phase_profile(dev, "fleet", lcfg, lp, **profile)
+    step_ms = min(ms, counted_s * 1e3) / T
+
+    carry, serve_launches, _, _ = counted(
+        lambda: cl.init_batch_carry(lcfg, lp, dev))
+    outs = []
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(T):
+        carry, out = cl.closed_loop_batch_step(lcfg, lp, carry, device=dev)
+        outs.append(out[:3])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = {k: v + serve_launches[k]
+                      for k, v in launch_counts().items()}
+    require_row_kernel("fleet serving", lcfg, serve_launches)
+    X, U, S = (torch.stack(f, 1) for f in zip(*outs))
+    require(torch.equal(X, res.X) and torch.equal(U, res.U)
+            and torch.equal(S, res.status),
+            "fleet: the serving chain differs from the loop")
+    return {
+        "configs": list(FLEET), "lanes": lanes,
+        "lane_lengths": sorted(set(lens.tolist())),
+        "horizon": lcfg.solver.horizon, "steps": T,
+        "cold_start_solves": lcfg.cold_start_solves,
+        "budget": f"{lcfg.solver.ip_sqp_iters}x{lcfg.solver.ip_iters}",
+        "ip_alphas": list(lcfg.solver.ip_alphas),
+        "kernel": kernel, "launches_by_kernel": launches,
+        "check_step": check_step, "check_lanes": check_lanes,
+        "check_max_abs_err": check_err,
+        "infeasible_lane_steps": int(infeasible.sum()),
+        "infeasible_lanes_by_config": [
+            int(infeasible[s::n].any(1).sum()) for s in range(n)],
+        "copies_agreement": agree,
+        "solves_per_s": lanes * T / (step_ms * T / 1e3),
+        "step_ms": step_ms, "counted_run_s": counted_s, "timed_run_ms": ms,
+        "rerun_identical_X": rerun_identical,
+        "peak_device_memory_bytes": peak,
+        "profile": {k: prof[k] for k in (
+            "window_steps", "device_busy_ms", "kernel_ms",
+            "kernel_launches_seen", "linearize_boundaries_kernels_ms",
+            "copy_kernels_ms", "device_launches")},
+        "profile_idle_share": 1.0 - prof["device_busy_ms"]
+                              / (profile["window"] * step_ms),
+        "serving": {"launches_by_kernel": serve_launches,
+                    "step_ms": serve_s * 1e3 / T,
+                    "equal_to_loop_atol0": True}}
+
+
+def fleet_online(dev, steps=ONLINE_STEPS):
+    """(c) ``BatchedOnlinePlanner.from_scenarios`` on the four forcespro
+    configs for ``steps`` steps, the plant the port's RK4 step with
+    ONLINE_NOISE m of position noise a lane and step (a seeded
+    generator), on the card and on the CPU (the plain version) from the
+    same noise: the loops within the closed-loop bands with equal
+    feasibility, and every lane within TRACK_BAND m of its own reference
+    path unless the plain run ends as far out too (within the X band of
+    it).  The JAX package's own fleet has the deployment config's lane
+    infeasible at step 1 and 1.06 m out after 8 steps (its horizon is the
+    batch's 12, not its own 14)."""
+    from mpc_tpu_torch.models import dynamics as dyn
+    from mpc_tpu_torch.planner.online import BatchedOnlinePlanner
+    cfgs = fleet_configs(FLEET)
+    gen = torch.Generator().manual_seed(0)
+    noise = ONLINE_NOISE * torch.randn((steps, len(cfgs), 2), generator=gen)
+
+    def drive(device):
+        fleet = BatchedOnlinePlanner.from_scenarios(cfgs, device=device)
+        s = fleet.lcfg.solver
+        plant = dyn.make_step_fn("rk4", s.dt, s.wheelbase)
+        x = fleet.params.x_init
+        X, status, step_s = [], [], []
+        for k in range(steps):
+            t0 = time.perf_counter()
+            u, info = fleet.step(x)        # numpy: the device is done
+            step_s.append(time.perf_counter() - t0)
+            X.append(x.cpu())
+            status.append(torch.as_tensor(info.status))
+            x = plant(x, torch.as_tensor(u, device=x.device))
+            x[:, :2] += noise[k].to(x.device)
+        return (fleet.lcfg, torch.stack(X, 1), torch.stack(status, 1),
+                x.cpu(), step_s)
+
+    (lcfg, X, status, x_end, step_s), launches, _, _ = counted(
+        lambda: drive(dev))
+    _, X_p, status_p, x_end_p, _ = drive("cpu")
+    err_x = max_abs(X, X_p)
+
+    def distance(x):
+        return [float(np.min(np.linalg.norm(
+            c.reference_path - x[i, :2].double().numpy(), axis=1)))
+            for i, c in enumerate(cfgs)]
+    d, d_p = distance(x_end), distance(x_end_p)
+    kernel = engine(lcfg.solver).name
+    want = lcfg.cold_start_solves + steps
+    require(launches[kernel] == want and sum(launches.values()) == want,
+            f"fleet online: launches {launches}, want {want} of {kernel}")
+    require(err_x < LOOP_BANDS["X"] and torch.equal(status >= 0,
+                                                    status_p >= 0),
+            "fleet online: the card's fleet differs from the plain one")
+    far = [i for i in range(len(cfgs)) if d[i] >= TRACK_BAND and not (
+        d_p[i] >= TRACK_BAND and abs(d[i] - d_p[i]) < LOOP_BANDS["X"])]
+    require(not far, f"fleet online: lanes {far} left their reference")
+    return {"lanes": len(cfgs), "steps": steps, "noise_m": ONLINE_NOISE,
+            "launches_by_kernel": launches,
+            "step_ms": [t * 1e3 for t in step_s],
+            "status": status.tolist(), "plain_status": status_p.tolist(),
+            "max_abs_err_X_vs_plain": err_x,
+            "distance_to_reference_m": d, "plain_distance_m": d_p}
+
+
+def fleet_lf_pair(dev, lanes=B_FLEET_LF, steps=None):
+    """(d) The casadi lane-following pair tiled to ``lanes`` lanes (al 3x4,
+    the 6-rung ladder, H=10, no rows, T=70): fused_gn's ladder instance a
+    launch a step, every lane within GOLDEN_BAND m of its single run's
+    float64 golden over its own length, every step feasible there; ms a
+    step the lower of the counted run (host clock) and a rerun timed with
+    CUDA events, as (a); ``steps`` cuts T (a rehearsal)."""
+    from mpc_tpu_torch.planner import closed_loop as cl
+    lcfg, lp, lens, cfgs = fleet_batch(dev, [c for c, _ in FLEET_LF], lanes,
+                                       steps)
+    def loop():
+        return cl.closed_loop_batch_vec(lcfg, lp, device=dev)
+    res, launches, wall_s, peak = counted(loop)
+    kernel = require_row_kernel("fleet-lf", lcfg, launches)
+    ms, again = cuda_ms(loop)
+    require(torch.equal(again.status, res.status),
+            "fleet-lf: the statuses changed between runs")
+    del again
+    step_ms = min(ms, wall_s * 1e3) / lcfg.n_steps
+    errs = {}
+    for i, (_, tag) in enumerate(FLEET_LF):
+        gold = torch.tensor(np.loadtxt(
+            ROOT / "tests" / "goldens" / f"{tag}_states.txt"))
+        require(bool((lens[i::2] == gold.shape[0]).all()),
+                f"fleet-lf: {tag} length")
+        L = min(gold.shape[0], lcfg.n_steps)
+        errs[tag] = max_abs(res.X[i::2, :L, :2].cpu(),
+                            gold[None, :L, :2].expand(lanes // 2, L, 2))
+        require(errs[tag] < GOLDEN_BAND,
+                f"fleet-lf: {tag} lanes {errs[tag]} m from the golden")
+        require(bool((res.status[i::2, :L] >= 0).all()),
+                f"fleet-lf: an infeasible step in a {tag} lane")
+    from mpc_tpu_torch.ops import fused_gn as F
+    return {"configs": [c for c, _ in FLEET_LF], "lanes": lanes,
+            "horizon": lcfg.solver.horizon, "steps": lcfg.n_steps,
+            "budget": f"{lcfg.solver.al_iters}x{lcfg.solver.sqp_iters}",
+            "alphas": list(lcfg.solver.alphas), "kernel": kernel,
+            "geometry": F.geometry(lcfg.solver, lanes),
+            "launches_by_kernel": launches,
+            "max_abs_err_xy_vs_golden": errs,
+            "solves_per_s": lanes * 1e3 / step_ms, "step_ms": step_ms,
+            "counted_run_s": wall_s, "timed_run_ms": ms,
+            "peak_device_memory_bytes": peak}
+
+
+def fleet_latency(dev, steps=LATENCY_STEPS):
+    """(e) ``OnlinePlanner`` on the deployment config for ``steps`` steps
+    fed the RK4 plant: ms a step (the host clock around ``step``, which
+    returns numpy), no kernel launched (the per-lane path), every step
+    feasible."""
+    from mpc_tpu_torch.models import dynamics as dyn
+    from mpc_tpu_torch.planner.online import OnlinePlanner
+    planner = OnlinePlanner(fleet_configs([DEPLOYMENT])[0], device=dev)
+    s = planner.lcfg.solver
+    plant = dyn.make_step_fn("rk4", s.dt, s.wheelbase)
+
+    def drive():
+        x, out = planner.params.x_init, []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            u, info = planner.step(x)
+            out.append(((time.perf_counter() - t0) * 1e3, info.status))
+            x = plant(x, torch.as_tensor(u, device=dev))
+        return out
+    out, launches, _, _ = counted(drive)
+    require(not any(launches.values()),
+            f"online planner: kernels launched {launches}")
+    require(all(st >= 0 for _, st in out),
+            f"online planner: infeasible steps {out}")
+    ms = [m for m, _ in out]
+    return {"config": DEPLOYMENT, "steps": steps, "step_ms": ms,
+            "median_step_ms": float(np.median(ms)),
+            "status": [st for _, st in out], "launches_by_kernel": launches}
+
+
+def phase_fleet(dev, card):
+    """Scenario fleets through the fused kernels and the serving API: (a)
+    and (b) :func:`fleet_forcespro`, (c) :func:`fleet_online`, (d)
+    :func:`fleet_lf_pair`, (e) :func:`fleet_latency`; one line."""
+    name, limit = [s.strip() for s in card.split(",", 1)]
+    line, seconds = {"phase": "fleet"}, {}
+    for piece, fn in (("forcespro", fleet_forcespro),
+                      ("online", fleet_online), ("lf_pair", fleet_lf_pair),
+                      ("online_latency", fleet_latency)):
+        t0 = time.perf_counter()
+        line[piece] = fn(dev)
+        seconds[piece] = time.perf_counter() - t0
+    line.update(seconds=seconds, gpu=name, power_limit=limit)
+    emit(line)
+    return line
+
+
+def fleet_launches(fleet, kernel):
+    """A kernel's launches in each counted run of the fleet phase."""
+    return {"plan_multi": fleet["forcespro"]["launches_by_kernel"][kernel],
+            "serving": fleet["forcespro"]["serving"]["launches_by_kernel"][
+                kernel],
+            "online": fleet["online"]["launches_by_kernel"][kernel],
+            "lf_pair": fleet["lf_pair"]["launches_by_kernel"][kernel],
+            "online_latency":
+                fleet["online_latency"]["launches_by_kernel"][kernel]}
+
+
 def boundary_instance_line(eng, loop, timing, warm, cold, checks, build,
                            split=None):
     """The boundary-row instance of one fused kernel in its corridor row:
@@ -2116,7 +2533,8 @@ def main() -> int:
     hard = engine(lcfg.solver)
     loop_xla, lcfg, lp = timed(
         "loop_xla", phase_loop, dev, card, "xla",
-        "al 1x1, alphas=() (unguarded RTI step), engine='xla'", **XLA_WARM)
+        f"al 1x1, alphas=() (unguarded RTI step), engine='xla', "
+        f"{XLA_STEPS} steps", steps=XLA_STEPS, **XLA_WARM)
     timed("profile_xla", phase_profile, dev, "xla", lcfg, lp, window=5)
     loop_hc, lcfg, lp = timed(
         "loop_hard_corridor", phase_loop, dev, card, "hard-corridor",
@@ -2175,6 +2593,9 @@ def main() -> int:
                         hard_st, *roads_st("_ip_"), build),
                     timing_ip_st["split"])]
     timed("planner", phase_planner, dev, card)
+    fleet = timed("fleet", phase_fleet, dev, card)
+    for line in kernels:
+        line["fleet_launches"] = fleet_launches(fleet, line["name"])
     print(card, flush=True)
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})

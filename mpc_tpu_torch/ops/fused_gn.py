@@ -1520,15 +1520,13 @@ def solve_batch_fused(cfg: S.SolverConfig, params: S.OcpParams,
 
     Runs on ``device`` (default: the GPU, see ``resolve_device``): CUDA
     tensors go to the kernel of the model (KS or ST), CPU tensors to the
-    plain version.  An AL problem outside the kernel's envelope goes to
+    plain version.  A problem outside the kernel's envelope goes to
     ``sqp_vec.solve_batch_vec`` on every device, as the JAX package falls
-    back; the IP method raises ``NotImplementedError``.
+    back, and from there the IP method to the per-lane path
+    ``sqp.solve_batch``.
     """
     dev = resolve_device(device)
-    reason = ineligible_reason(cfg, params)
-    if reason is not None:
-        if cfg.method != "al":
-            raise NotImplementedError(reason)
+    if ineligible_reason(cfg, params) is not None:
         from mpc_tpu_torch.ops import sqp_vec
         return sqp_vec.solve_batch_vec(cfg, params, state, device=dev)
     params = _to(S.normalize_params(cfg, params), dev)

@@ -81,12 +81,11 @@ def solve_batch_vec(cfg: S.SolverConfig, params: S.OcpParams,
     Runs on ``device`` (default: the GPU, see ``resolve_device``); the
     inputs are moved there.  ``sweep``, ``rungs`` and ``follow`` are the
     hooks of :func:`_gn_iteration_vec`; ``follow`` is
-    (al_iters * sqp_iters, B).
+    (al_iters * sqp_iters, B).  Another method than AL goes to the
+    per-lane path ``sqp.solve_batch``, as in the JAX package.
     """
     if cfg.method != "al":
-        raise NotImplementedError(
-            f"method '{cfg.method}': this is the AL engine; the JAX package "
-            "solves it on its per-lane path, the port's sqp.solve_batch")
+        return S.solve_batch(cfg, params, state, device=device)
     S.check_backend(cfg)
     dev = resolve_device(device)
     params = _to(S.normalize_params(cfg, params), dev)

@@ -15,7 +15,10 @@ solves each step with one launch of a fused kernel (``ops.fused_gn``,
 JAX package falls back to its vmapped path (``engine='xla'`` with
 ``method='ip'``).  :func:`run_closed_loop` is one lane's loop, and
 :func:`init_carry` / :func:`closed_loop_chunk` run it a few steps at a
-time from an explicit carry.  The JAX package traces the steps into one
+time from an explicit carry.  :func:`init_batch_carry` /
+:func:`closed_loop_batch_step` serve the batched loop a step at a time
+from measured states, through the same step as
+:func:`closed_loop_batch_vec`.  The JAX package traces the steps into one
 ``lax.scan`` and compiles it with ``closed_loop_jit``; here the steps are a
 Python loop over eager PyTorch ops and kernel launches, so that wrapper has
 no counterpart.
@@ -459,15 +462,15 @@ def _batch_cold_start(lcfg: LoopConfig, params: LoopParams, batched_solve):
 
 
 def _batched_step(lcfg: LoopConfig, params: LoopParams, batched_solve,
-                  carry, gen):
+                  carry):
     """One closed-loop step over all lanes.
 
-    carry = (step_idx, x (B, NX), SqpState batch, bases (B,)); ``gen`` is
-    the noise generator (None when noise_std == 0).  Returns (new_carry,
-    (x, u_applied, status, viol, cost, stat)).
+    carry = (step_idx, x (B, NX), SqpState batch, noise generator or None
+    (no noise), bases (B,)), :func:`init_carry`'s layout.  Returns
+    (new_carry, (x, u_applied, status, viol, cost, stat)).
     """
     batched_window, step_obs, make_ocp = _batch_helpers(lcfg, params)
-    step_idx, x, sqp_state, prev_bases = carry
+    step_idx, x, sqp_state, gen, prev_bases = carry
     x_ref, bases = batched_window(step_idx, x, prev_bases)
     ocp = make_ocp(x, x_ref, step_obs(step_idx))
     sol = batched_solve(_tightened_solver_cfg(lcfg), _tighten_ocp(lcfg, ocp),
@@ -481,7 +484,7 @@ def _batched_step(lcfg: LoopConfig, params: LoopParams, batched_solve,
     x_next = _plant_step(lcfg, x, u_apply)
     warm = _shift_state(sol.state)
     out = (x, u_apply, status, sol.viol, sol.cost, sol.kkt_stat)
-    return (step_idx + 1, x_next, warm, bases), out
+    return (step_idx + 1, x_next, warm, gen, bases), out
 
 
 def _generator(lcfg: LoopConfig, noise_key, dev):
@@ -495,14 +498,23 @@ def _generator(lcfg: LoopConfig, noise_key, dev):
 
 
 def _run_steps(lcfg: LoopConfig, params: LoopParams, batched_solve, carry,
-               gen, n_steps: int):
+               n_steps: int):
     """``n_steps`` steps of :func:`_batched_step` over lanes-leading
     ``params``; returns (carry, LoopResult (B, n_steps, ...))."""
     outs = []
     for _ in range(n_steps):
-        carry, out = _batched_step(lcfg, params, batched_solve, carry, gen)
+        carry, out = _batched_step(lcfg, params, batched_solve, carry)
         outs.append(out)
     return carry, LoopResult(*(torch.stack(f, dim=1) for f in zip(*outs)))
+
+
+def _batch_carry(lcfg: LoopConfig, params: LoopParams, batched_solve, dev):
+    """The carry of a batched loop at step 0 on ``dev``, warm-up solves
+    included; ``params`` are on ``dev``."""
+    n = params.x_init.shape[0]
+    state = _batch_cold_start(lcfg, params, batched_solve)
+    return (0, params.x_init, state, _generator(lcfg, params.noise_key, dev),
+            torch.zeros((n,), dtype=torch.int64, device=dev))
 
 
 def _loop(lcfg: LoopConfig, params: LoopParams, engine, dev) -> LoopResult:
@@ -510,13 +522,8 @@ def _loop(lcfg: LoopConfig, params: LoopParams, engine, dev) -> LoopResult:
     ``engine``, from its cold start."""
     batched_solve = functools.partial(engine, device=dev)
     params = params.map(lambda t: t.to(dev))
-    n = params.x_init.shape[0]
-    state = _batch_cold_start(lcfg, params, batched_solve)
-    carry = (0, params.x_init, state,
-             torch.zeros((n,), dtype=torch.int64, device=dev))
-    gen = _generator(lcfg, params.noise_key, dev)
-    return _run_steps(lcfg, params, batched_solve, carry, gen,
-                      lcfg.n_steps)[1]
+    carry = _batch_carry(lcfg, params, batched_solve, dev)
+    return _run_steps(lcfg, params, batched_solve, carry, lcfg.n_steps)[1]
 
 
 def closed_loop_batch(lcfg: LoopConfig, params: LoopParams,
@@ -538,11 +545,9 @@ def closed_loop_batch_vec(lcfg: LoopConfig, params: LoopParams,
     :func:`select_engine` picks the per-lane solve, this is
     :func:`closed_loop_batch`.
     """
-    dev = resolve_device(device)
-    engine = select_engine(lcfg.solver, params.boundaries is not None)
-    if engine is sqp.solve_batch:
-        return closed_loop_batch(lcfg, params, dev)
-    return _loop(lcfg, params, engine, dev)
+    return _loop(lcfg, params,
+                 select_engine(lcfg.solver, params.boundaries is not None),
+                 resolve_device(device))
 
 
 def _lane(params: LoopParams) -> LoopParams:
@@ -581,11 +586,11 @@ def closed_loop_chunk(lcfg: LoopConfig, params: LoopParams, carry,
     dev = resolve_device(device)
     lanes = _lane(params).map(lambda t: t.to(dev))
     step, x, state, gen, base = carry
-    c = (step, x[None], state.map(lambda t: t[None]), base[None])
+    c = (step, x[None], state.map(lambda t: t[None]), gen, base[None])
     c, res = _run_steps(lcfg, lanes,
                         functools.partial(sqp.solve_batch, device=dev), c,
-                        gen, n_steps)
-    step, x, state, bases = c
+                        n_steps)
+    step, x, state, gen, bases = c
     return ((step, x[0], state.map(lambda t: t[0]), gen, bases[0]),
             LoopResult(*(f[0] for f in res)))
 
@@ -597,3 +602,46 @@ def run_closed_loop(lcfg: LoopConfig, params: LoopParams,
     stagewise field one stage, holding the last."""
     carry = init_carry(lcfg, params, device)
     return closed_loop_chunk(lcfg, params, carry, lcfg.n_steps, device)[1]
+
+
+def _serving_engine(lcfg: LoopConfig, params: LoopParams, dev):
+    """The batched solve of the serving step on ``dev``:
+    :func:`select_engine`'s, which is the per-lane ``sqp.solve_batch``
+    where the JAX package serves with its vmapped solve."""
+    return functools.partial(
+        select_engine(lcfg.solver, params.boundaries is not None),
+        device=dev)
+
+
+def init_batch_carry(lcfg: LoopConfig, params: LoopParams, device=None):
+    """The serving carry of lanes-leading ``params`` at step 0, the
+    configured warm-up solves included, on ``device`` (default: the GPU):
+    (step, x (B, NX), SqpState batch, noise generator or None, bases (B,)),
+    :func:`closed_loop_batch_vec`'s own starting carry."""
+    dev = resolve_device(device)
+    params = params.map(lambda t: t.to(dev))
+    return _batch_carry(lcfg, params, _serving_engine(lcfg, params, dev),
+                        dev)
+
+
+def closed_loop_batch_step(lcfg: LoopConfig, params: LoopParams, carry,
+                           x_measured=None, device=None):
+    """ONE batched warm NMPC step over externally measured states.
+
+    The serving counterpart of :func:`closed_loop_batch_vec`: the plant is
+    outside the loop (a fleet of vehicles), so each call solves every
+    lane's warm problem once from ``x_measured`` ((B, NX); ``None`` takes
+    the carry's own predicted states, and then a chain of calls reproduces
+    ``closed_loop_batch_vec`` exactly, noise included) and returns
+    (new_carry, (x, u_applied, status, viol, cost, stat)).  The carry
+    comes from :func:`init_batch_carry`; its generator advances in place.
+    Runs on ``device`` (default: the GPU), where the fused kernels launch.
+    """
+    dev = resolve_device(device)
+    params = params.map(lambda t: t.to(dev))
+    if x_measured is not None:
+        step, _, state, gen, bases = carry
+        carry = (step, torch.as_tensor(x_measured).to(
+            device=dev, dtype=params.x_init.dtype), state, gen, bases)
+    return _batched_step(lcfg, params, _serving_engine(lcfg, params, dev),
+                         carry)

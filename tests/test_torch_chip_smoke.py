@@ -179,7 +179,8 @@ def test_unported_kernel_bound_from_its_shapes():
 
 @pytest.mark.parametrize("kw,kernel,launches", [
     (cs.WARM, "fused_gn", 104), (cs.IP_WARM, "fused_ip", 104),
-    (cs.XLA_WARM, "riccati", 148), (cs.SOFT_ST, "fused_gn_st", 104),
+    (cs.XLA_WARM, "riccati", 48 + cs.XLA_STEPS),
+    (cs.SOFT_ST, "fused_gn_st", 104),
     (cs.HARD_ST, "fused_ip_st", 104),
     (cs.XLA_ST, "riccati", 12 + cs.XLA_ST_STEPS)],
     ids=["soft", "hard", "xla", "soft-st", "hard-st", "xla-st"])
@@ -187,9 +188,11 @@ def test_each_row_launches_its_kernel_as_often_as_it_solves(kw, kernel,
                                                             launches):
     """One fused launch per cold start and step (the ST library's for the
     ST rows); one sweep per Gauss-Newton step on the xla engine: 4 cold
-    starts at 3x4 and 100 steps at 1x1 (XLA_ST_STEPS in the xla-st
+    starts at 3x4 and XLA_STEPS steps at 1x1 (XLA_ST_STEPS in the xla-st
     row, after one cold start)."""
     lcfg, _ = cs.bench_loop(n_lanes=2, device="cpu", **kw)
+    if kw is cs.XLA_WARM:
+        lcfg = dataclasses.replace(lcfg, n_steps=cs.XLA_STEPS)
     if kw is cs.XLA_ST:
         lcfg = dataclasses.replace(lcfg, n_steps=cs.XLA_ST_STEPS)
     assert cs.row_kernel(lcfg) == (kernel, launches)
@@ -599,3 +602,110 @@ def test_planner_c2_rehearsal(planner_rehearsal, monkeypatch):
     monkeypatch.setattr(cs, "launch_counts", lambda: {"fused_ip": 1})
     with pytest.raises(cs.CheckFailed, match="launched kernels"):
         cs.planner_c2_solve(dev, horizon=64, lanes=2)
+
+
+@pytest.fixture
+def fleet_rehearsal(planner_rehearsal, monkeypatch):
+    """The fleet phase's pieces on the CPU: each fused wrapper's call
+    counted as a launch of the kernel ``chip_smoke.engine`` names (on the
+    CPU the wrappers run the plain version, which launches nothing), the
+    kernel checks, the float64 calibrations, the profile and the kernel's
+    geometry recorded instead of run."""
+    for mod, fn in ((TFI, "solve_batch_fused_ip"),
+                    (TF, "solve_batch_fused")):
+        def counting(cfg, params, state, device=None,
+                     _real=getattr(mod, fn)):
+            cs._launchers()[cs.engine(cfg).name].launches += 1
+            return _real(cfg, params, state, device=device)
+        monkeypatch.setattr(mod, fn, counting)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    monkeypatch.setattr(TF, "geometry", lambda cfg, B: {"lanes": B})
+    seen = {"compare": [], "calibration": []}
+
+    def compare(name, cfg, ocp, state):
+        seen["compare"].append((name, cfg, ocp))
+        return None, {"X": 0.0, "U": 0.0}
+
+    def calibration(name, cfg, ocp, state, kernel=False, groups=1):
+        assert kernel and groups == len(cs.FLEET)
+        seen["calibration"].append((name, cfg, ocp))
+
+    def profile(dev, row, lcfg, lp, start, window):
+        seen["profile"] = (row, start, window)
+        return {"window_steps": "", "device_busy_ms": 1.0, "kernel_ms": 0.5,
+                "kernel_launches_seen": window, "copy_kernels_ms": 0.0,
+                "linearize_boundaries_kernels_ms": 0.2,
+                "device_launches": 1}
+    monkeypatch.setattr(cs, "compare", compare)
+    monkeypatch.setattr(cs, "gate_calibration", calibration)
+    monkeypatch.setattr(cs, "phase_profile", profile)
+    return seen
+
+
+def test_fleet_phase_names_its_kernels():
+    """The forcespro fleet runs the KS ring library with the boundary rows
+    (fused_ip_ks_ring) and the casadi pair fused_gn's ladder instance."""
+    dev = torch.device("cpu")
+    lcfg, lp, lens, _ = cs.fleet_batch(dev, cs.FLEET, 8)
+    assert cs.row_kernel(lcfg) == ("fused_ip_ks_ring", 102)
+    assert lcfg.solver.horizon == 12 and lcfg.solver.ip_alphas
+    assert lens.tolist() == [30, 100, 30, 91] * 2
+    assert torch.equal(lp.x_init[4:], lp.x_init[:4])
+    lcfg, _, lens, _ = cs.fleet_batch(dev, [c for c, _ in cs.FLEET_LF], 8)
+    assert cs.row_kernel(lcfg) == ("fused_gn", 70)
+    assert lcfg.solver.alphas and lcfg.solver.horizon == 10
+    assert lens.tolist() == [30, 70] * 4
+
+
+def test_fleet_forcespro_rehearsal(fleet_rehearsal):
+    """(a) and (b) at B=8, T=2: the step-0 solve of the three configs other
+    than the deployment and the loop's solve at step 1 on all four held to
+    the plain version, the cold starts and step 0 calibrated a config
+    each; a launch a solve, the infeasible step of the deployment config's
+    copies held to the plain loop, the copies in agreement and the serving
+    chain equal to the loop."""
+    line = cs.fleet_forcespro(torch.device("cpu"), lanes=8, check_lanes=4,
+                              steps=2, check_step=1)
+    assert line["launches_by_kernel"]["fused_ip_ks_ring"] == 4
+    assert line["serving"]["launches_by_kernel"]["fused_ip_ks_ring"] == 4
+    assert line["copies_agreement"] == [1.0] * 4
+    assert line["infeasible_lanes_by_config"] == [2, 0, 0, 0]
+    held = fleet_rehearsal["compare"]
+    assert [name for name, _, _ in held] == ["fleet_step0", "fleet_step1"]
+    assert sorted(line["check_max_abs_err"]) == ["step0", "step1"]
+    name, cfg, ocp = held[0]   # lanes 1, 2, 3, 5: dummy rows only
+    assert ocp.x0.shape[0] == 4 and cfg.ip_sqp_iters == 2
+    assert float(ocp.boundaries[..., 1].abs().min()) > 1e5
+    name, cfg, ocp = held[1]
+    assert line["check_step"] == 1 and cfg.ip_sqp_iters == 2
+    assert ocp.x0.shape[0] == 4 and ocp.obs_centers.dim() == 4
+    assert float(ocp.boundaries[1:, ..., 1].abs().min()) > 1e5
+    assert float(ocp.boundaries[0, ..., 1].abs().max()) < 1e3
+    calibrated = fleet_rehearsal["calibration"]
+    assert [name for name, _, _ in calibrated] == [
+        "fleet_cold0_by_config", "fleet_cold1_by_config",
+        "fleet_step0_by_config"]
+    for name, cfg, ocp in calibrated:   # lanes 0-3: a copy of each config
+        assert ocp.x0.shape[0] == 4, name
+        assert float(ocp.boundaries[0, ..., 1].abs().max()) < 1e3, name
+    assert [(c.ip_sqp_iters, c.ip_iters) for _, c, _ in calibrated] == [
+        (5, 10), (5, 10), (2, 6)]
+    assert fleet_rehearsal["profile"] == ("fleet", cs.GATE_STEP, 10)
+
+
+def test_fleet_online_and_lf_rehearsal(fleet_rehearsal):
+    """(c), (d) and (e) cut short: the disturbed fleet against itself on
+    the CPU, the casadi pair within its goldens, the online planner with
+    no launch."""
+    dev = torch.device("cpu")
+    online = cs.fleet_online(dev, steps=2)
+    assert online["launches_by_kernel"]["fused_ip_ks_ring"] == 4
+    assert online["max_abs_err_X_vs_plain"] == 0.0
+    lf = cs.fleet_lf_pair(dev, lanes=4, steps=3)
+    assert lf["launches_by_kernel"]["fused_gn"] == 3
+    assert lf["step_ms"] == pytest.approx(1.0 / 3)   # the stubbed clock
+    assert lf["geometry"] == {"lanes": 4}
+    assert max(lf["max_abs_err_xy_vs_golden"].values()) < cs.GOLDEN_BAND
+    latency = cs.fleet_latency(dev, steps=1)
+    assert not any(latency["launches_by_kernel"].values())

@@ -119,8 +119,18 @@ def _tocp(H=4, B=2, **kw):
     return convert.ocp_params(ocp_numpy(H, B, **kw))
 
 
+def assert_same_solution(got, ref):
+    """Two Solutions equal field by field, the warm state's too."""
+    for f in TS.Solution._fields:
+        a, b = getattr(got, f), getattr(ref, f)
+        for x, y in (zip(a, b) if f == "state" else [(a, b)]):
+            assert torch.equal(x, y), f
+
+
 @pytest.mark.parametrize("kw,error,match", [
-    (dict(method="ip"), NotImplementedError, "IP"),
+    # the IP method: the wrapper goes to sqp_vec, which hands it to the
+    # per-lane path sqp.solve_batch, as the JAX package falls back
+    (dict(method="ip"), None, "IP"),
     # no boundary data: the wrapper goes to sqp_vec, whose rows raise, as
     # the JAX package's fallback does
     (dict(boundary_rows=True), ValueError, "boundaries"),
@@ -128,9 +138,9 @@ def _tocp(H=4, B=2, **kw):
     (dict(alphas=tuple(0.5 ** i for i in range(17))), None, "rungs"),
 ])
 def test_out_of_envelope_raises(kw, error, match):
-    """Outside the kernel's envelope the IP method raises, a KS AL problem
-    goes to ``sqp_vec.solve_batch_vec`` as in the JAX package (which raises
-    where boundary rows have no data)."""
+    """Outside the kernel's envelope a KS AL problem goes to
+    ``sqp_vec.solve_batch_vec`` as in the JAX package (which raises where
+    boundary rows have no data), the IP method on to ``sqp.solve_batch``."""
     from mpc_tpu_torch.ops import sqp_vec as TSV
     cfg = _tcfg(**kw)
     p = _tocp()
@@ -139,6 +149,10 @@ def test_out_of_envelope_raises(kw, error, match):
     st = TS.init_state(cfg, batch=2)
     if error is None:
         got = TF.solve_batch_fused(cfg, p, st, device="cpu")
+        if cfg.method == "ip":
+            assert_same_solution(got, TS.solve_batch(cfg, p, st,
+                                                     device="cpu"))
+            return
         ref = TSV.solve_batch_vec(cfg, p, st, device="cpu")
         assert torch.equal(got.U, ref.U) and torch.equal(got.status,
                                                          ref.status)

@@ -18,7 +18,8 @@ from mpc_tpu.ops import sqp_vec as JV
 from mpc_tpu_torch import convert
 from mpc_tpu_torch.ops import sqp as TS
 from mpc_tpu_torch.ops import sqp_vec as TV
-from tests.test_torch_fused_gn import (assert_solutions_close, jax_state,
+from tests.test_torch_fused_gn import (assert_same_solution,
+                                       assert_solutions_close, jax_state,
                                        ocp_numpy)
 
 
@@ -118,12 +119,17 @@ def test_pick_takes_nan_first_like_jnp_argmin():
     (dict(lqr_backend="pscan"), "ROADMAP queue A, item 6"),
 ])
 def test_out_of_envelope_raises(kw, match):
-    """The AL engine refuses the IP method, naming the per-lane path that
-    solves it, and the parallel-scan sweep, naming its ROADMAP item."""
+    """The AL engine hands the IP method to the per-lane path that solves
+    it (``match`` names it), as the JAX package does, and refuses the
+    parallel-scan sweep, naming its ROADMAP item."""
     cfg = TS.SolverConfig(horizon=4, **kw)
+    p, st = convert.ocp_params(ocp_numpy(4, 2)), TS.init_state(cfg, batch=2)
+    if cfg.method == "ip":
+        assert_same_solution(TV.solve_batch_vec(cfg, p, st, device="cpu"),
+                             TS.solve_batch(cfg, p, st, device="cpu"))
+        return
     with pytest.raises(NotImplementedError, match=match):
-        TV.solve_batch_vec(cfg, convert.ocp_params(ocp_numpy(4, 2)),
-                           TS.init_state(cfg, batch=2), device="cpu")
+        TV.solve_batch_vec(cfg, p, st, device="cpu")
 
 
 def test_entry_point_needs_a_gpu_unless_cpu_is_asked_for():
