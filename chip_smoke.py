@@ -146,9 +146,26 @@ Phases, each printing one JSON line (``"phase": ...``):
             casadi lane-following pair at B=1024 on fused_gn's ladder
             instance within 0.05 m of its goldens; (e) ``OnlinePlanner``
             on the deployment config, ms a step, no kernel;
+10. sharded lanes over ranks (``parallel.mesh``, ``parallel.batch``) on
+            the one card: (a) one rank, ``init_distributed('nccl')`` a
+            no-op at world size 1, a (1, 1) mesh: the soft row (al 1x1,
+            alphas=(), B=16384, T=20) through ``closed_loop_batch_sharded``
+            equal to ``closed_loop_batch_vec`` at atol 0, on fused_gn, and
+            ``summarize_loop`` equal to the host's reduction; (b) two
+            ranks spawned with gloo, each on ``cuda:0`` (NCCL refuses two
+            ranks on one device), a (2, 1) mesh: the same loop (8192 lanes
+            a rank) and the hard row's cold 5x10 step-0 solve on fused_ip,
+            each gathered and equal to the one-call result at atol 0
+            where the half batch takes the same kernel instance (threads a
+            lane, lanes a block), else within the loop or IP bands; (c)
+            ``entry.dryrun_multichip(2)`` in the same ranks (the per-lane
+            loop with the parallel-scan sweep's stages over sp=2, the
+            engine-sharded loop on fused_gn, the open-loop IP solve), its
+            line; (d) ms a solve of the per-lane AL path at B=16384, al
+            1x1, ``lqr_backend`` 'scan' against 'pscan', H=30 and 128;
 
 then the card's name and power limit, the kernels line (with each
-kernel's launches in the fleet phase), and as the last
+kernel's launches in the fleet and the sharded phases), and as the last
 line ``{"ok": true, "device": {...}}``.  A phase that fails raises: the
 script then exits non-zero and prints no last line.
 """
@@ -156,6 +173,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2340,6 +2358,341 @@ def fleet_launches(fleet, kernel):
                 fleet["online_latency"]["launches_by_kernel"][kernel]}
 
 
+# --------------------------------------------------------------------------
+# sharded: lanes over ranks (parallel.mesh, parallel.batch) and pscan
+# --------------------------------------------------------------------------
+
+SHARDED_STEPS = 20        # steps of the soft row's sharded loop
+SHARDED_RANKS = 2         # ranks that share the one card in (b) and (c)
+SHARDED_TIMEOUT_S = 240.0  # the spawned ranks' limit, start-up included
+PSCAN_HORIZONS = (30, 128)  # the per-lane solve's scan/pscan timing
+PSCAN_BAND = 1e-3         # U of pscan against scan (tests/test_pscan.py)
+
+
+def sharded_rows(dev, lanes=B_BENCH, steps=SHARDED_STEPS):
+    """The sharded phase's two loads at B=16384 (``lanes``): the soft row
+    (al 1x1, alphas=(), H=30) as a SHARDED_STEPS-step loop, and the hard
+    row's cold 5x10 solve of its step 0 (cfg, ocp, state)."""
+    from mpc_tpu_torch.ops import sqp as S
+    lcfg, lp = bench_loop(n_lanes=lanes, device=dev, method="al", **WARM)
+    lcfg = dataclasses.replace(lcfg, n_steps=steps)
+    hcfg, hlp = bench_loop(n_lanes=lanes, device=dev, **IP_COLD)
+    state = S.init_state(hcfg.solver, device=dev, batch=lanes)
+    return lcfg, lp, (hcfg.solver, ocp_at(hcfg, hlp, 0), state)
+
+
+def loop_summary_host(res):
+    """``summarize_loop``'s four numbers, reduced on the host (float64)."""
+    status = res.status.cpu().numpy()
+    return (int((status == 1).sum()), int((status < 0).sum()),
+            float(res.viol.double().max()),
+            float(res.cost.double().sum()) / status.size)
+
+
+def sharded_one_rank(dev, lcfg, lp):
+    """(a): one rank, ``init_distributed(backend='nccl')`` a no-op at world
+    size 1, a (1, 1) mesh; the sharded soft loop against
+    ``closed_loop_batch_vec`` at atol 0 and ``summarize_loop`` against the
+    host's reduction."""
+    from mpc_tpu_torch.parallel import batch as pb
+    from mpc_tpu_torch.parallel import mesh as pm
+    from mpc_tpu_torch.planner import closed_loop as cl
+    pm.init_distributed(backend="nccl")
+    mesh = pm.make_mesh()
+    require(mesh.shape == {"dp": 1, "sp": 1}, f"one-rank mesh {mesh.shape}")
+    (res, census), launches, wall, peak = counted(
+        lambda: pb.collective_census(pb.closed_loop_batch_sharded, lcfg, lp,
+                                     mesh, device=dev))
+    kernel = require_row_kernel("sharded-one-rank", lcfg, launches)
+    ref = cl.closed_loop_batch_vec(lcfg, lp, device=dev)
+    for f in ("X", "U", "status"):
+        require(torch.equal(getattr(res, f), getattr(ref, f)),
+                f"sharded (1, 1) loop {f} != closed_loop_batch_vec")
+    summ = [float(v) for v in pb.summarize_loop(res, mesh)]
+    host = loop_summary_host(res)
+    require(summ[:3] == list(host[:3]) and abs(summ[3] - host[3])
+            <= 1e-6 * abs(host[3]), f"summarize_loop {summ} != host {host}")
+    require(int(summ[1]) == 0, f"{int(summ[1])} infeasible lane-steps")
+    return {"mesh": mesh.shape, "kernel": kernel, "launches": launches,
+            "collectives": census, "equal_atol0": ["X", "U", "status"],
+            "summary": summ, "summary_host": host, "wall_s": wall,
+            "peak_device_memory_bytes": peak}, ref
+
+
+def _sharded_rank(rank, port, out_dir):
+    """One rank of (b) and (c) on the card it shares: gloo, a (2, 1) mesh
+    for the soft loop and the hard solve (each gathered and held to the
+    one-call results that ``out_dir/ref.pt`` holds, with the sizes, the
+    rank's device, or None for ``cuda:{LOCAL_RANK % device_count}``, and
+    a hook the rank calls first), then ``entry.dryrun_multichip(2)``; its
+    results go to ``rank_<r>.pt``."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(SHARDED_RANKS), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mpc_tpu_torch import entry
+    from mpc_tpu_torch.parallel import batch as pb
+    from mpc_tpu_torch.parallel import mesh as pm
+    out = {"rank": rank}
+    try:
+        ref = torch.load(os.path.join(out_dir, "ref.pt"), weights_only=False)
+        if ref["hook"] is not None:
+            ref["hook"](rank)
+        dev = pm.local_device(ref["device"])
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        pm.init_distributed("gloo")
+        mesh = pm.make_mesh((SHARDED_RANKS, 1))
+        out.update(device=str(dev), backend=torch.distributed.get_backend(),
+                   mesh=dict(mesh.shape), coords=dict(mesh.coords))
+        ref = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+               for k, v in ref.items()}
+        lanes = ref["lanes"]
+        lcfg, lp, (hcfg, hocp, hstate) = sharded_rows(dev, lanes,
+                                                      ref["steps"])
+
+        def soft():
+            return pm.gather_lanes(pb.closed_loop_batch_sharded(
+                lcfg, lp, mesh, device=dev), mesh)
+
+        (res, census), launches, wall, _ = counted(
+            lambda: pb.collective_census(soft))
+        out["soft"] = {"launches": launches, "wall_s": wall,
+                       "collectives": census,
+                       "lanes_per_rank": lanes // SHARDED_RANKS,
+                       "max_abs_err": {f: max_abs(getattr(res, f), ref[f])
+                                       for f in ("X", "U")},
+                       "equal": {f: bool(torch.equal(getattr(res, f),
+                                                     ref[f]))
+                                 for f in ("X", "U", "status")},
+                       "in_loop_bands": {
+                           f: float(lanes_close(getattr(res, f), ref[f],
+                                                0.0, LOOP_BANDS[f])
+                                    .float().mean()) for f in ("X", "U")}}
+
+        def hard():
+            return pm.gather_lanes(pb.solve_batch_sharded(
+                hcfg, hocp, hstate, mesh, device=dev), mesh)
+
+        (sol, census), launches, wall, _ = counted(
+            lambda: pb.collective_census(hard))
+        out["hard"] = {"launches": launches, "wall_s": wall,
+                       "collectives": census,
+                       "max_abs_err": {f: max_abs(getattr(sol, f),
+                                                  ref["hard_" + f])
+                                       for f in ("X", "U")},
+                       "equal": {f: bool(torch.equal(getattr(sol, f),
+                                                     ref["hard_" + f]))
+                                 for f in ("X", "U", "status")},
+                       "in_ip_bands": {
+                           f: float(lanes_close(getattr(sol, f),
+                                                ref["hard_" + f],
+                                                *IP_BANDS[f])
+                                    .float().mean()) for f in ("X", "U")}}
+        del res, sol, lp, hocp, hstate
+        torch.cuda.empty_cache()
+        (line, census), launches, wall, _ = counted(
+            lambda: pb.collective_census(entry.dryrun_multichip,
+                                         SHARDED_RANKS, device=dev))
+        out["dryrun"] = {"line": line, "launches": launches, "wall_s": wall,
+                         "collectives": len(census),
+                         "collective_ops": sorted({c["op"] for c in census}),
+                         "collective_devices": sorted(
+                             {c["device"] for c in census}),
+                         "collective_backends": sorted(
+                             {c["backend"] for c in census})}
+    except BaseException:
+        import traceback
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        torch.save(out, os.path.join(out_dir, f"rank_{rank}.pt"))
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(fn, out_dir, nprocs=SHARDED_RANKS):
+    """``fn(rank, port, out_dir)`` in ``nprocs`` spawned processes; each
+    rank's saved results (``out_dir/rank_<r>.pt``).  A rank that raises,
+    dies or outlives SHARDED_TIMEOUT_S fails the phase (and every rank is
+    stopped)."""
+    import socket
+    import torch.multiprocessing as mp
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.start_processes(fn, args=(port, out_dir), nprocs=nprocs,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            require(time.monotonic() <= deadline, "sharded ranks still "
+                    f"running after {SHARDED_TIMEOUT_S} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise CheckFailed(f"a sharded rank failed: {e}") from None
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [torch.load(os.path.join(out_dir, f"rank_{r}.pt"),
+                       weights_only=False) for r in range(nprocs)]
+
+
+def sharded_two_ranks(dev, lcfg, loop, hard, hard_ref, rank_device=None,
+                      hook=None):
+    """(b) and (c): two gloo ranks, each on ``cuda:0`` (``rank_device``),
+    ``hook(rank)`` run first in each.  The soft loop's X and U equal (a)'s
+    at atol 0 where both ranks' half batch takes the same fused_gn
+    instance (threads a lane) as the whole batch, else lie in the loop
+    bands; the same for the hard solve against the one-call fused_ip
+    (lanes a block; else the IP bands).  The dry run's asserts hold in
+    both ranks, its engine-sharded loop launches fused_gn, and rank 0
+    prints its line."""
+    import tempfile
+    from mpc_tpu_torch.ops import fused_gn as F
+    from mpc_tpu_torch.ops import fused_ip as FI
+    lanes = loop.X.shape[0]
+    half = lanes // SHARDED_RANKS
+    geometry = {"fused_gn": [F.geometry(lcfg.solver, b)
+                             for b in (lanes, half)],
+                "fused_ip": [FI.geometry(hard[0], b) for b in (lanes, half)]}
+    # the instance: threads a lane (fused_gn), lanes a block (fused_ip)
+    same = {k: g[0][knob] == g[1][knob] for (k, g), knob in zip(
+        geometry.items(), ("threads_per_lane", "lanes_per_block"))}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    torch.save({"X": loop.X.cpu(), "U": loop.U.cpu(),
+                "status": loop.status.cpu(), "hard_X": hard_ref.X.cpu(),
+                "hard_U": hard_ref.U.cpu(),
+                "hard_status": hard_ref.status.cpu(), "lanes": lanes,
+                "steps": lcfg.n_steps, "device": rank_device, "hook": hook},
+               f"{out_dir}/ref.pt")
+    want = rank_device or "cuda:0"
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_sharded_rank, out_dir)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        require(r["backend"] == "gloo" and r["device"] == want,
+                f"rank {r['rank']}: {r['backend']} on {r['device']}")
+        for piece, kernel, key in (("soft", "fused_gn", "in_loop_bands"),
+                                   ("hard", "fused_ip", "in_ip_bands")):
+            p = r[piece]
+            require(p["launches"][kernel] > 0,
+                    f"rank {r['rank']} {piece}: {kernel} not launched")
+            if same[kernel]:
+                require(all(p["equal"].values()),
+                        f"rank {r['rank']} {piece}: same {kernel} instance, "
+                        f"not equal at atol 0: {p['max_abs_err']}")
+            else:
+                require(min(p[key].values()) >= MIN_LANE_AGREEMENT,
+                        f"rank {r['rank']} {piece}: lanes in band {p[key]}")
+        # the dry run's engine-sharded loop; its IP solve, with the loop's
+        # stage axis, takes the per-lane path (entry.dryrun_multichip)
+        require(r["dryrun"]["launches"]["fused_gn"] > 0,
+                f"rank {r['rank']} dry run: {r['dryrun']['launches']}")
+    return {"ranks": ranks, "wall_s": wall, "geometry": geometry,
+            "same_instance_as_one_call": same,
+            "applied": {k: "atol 0" if v else
+                        ("loop bands" if k == "fused_gn" else "IP bands")
+                        for k, v in same.items()}}
+
+
+def pscan_timing(dev, card, lanes=B_BENCH, horizons=PSCAN_HORIZONS):
+    """(d): ms per solve of the per-lane AL path ``sqp.solve_batch`` at the
+    bench point (al 1x1, alphas=()), B=16384, lqr_backend 'scan' against
+    'pscan', unsharded, at each of PSCAN_HORIZONS (a horizon whose scan
+    solve takes past ONE_TIMED_RUN_S is the last): a counted call, then
+    the best of up to 3 on CUDA events; pscan's U held to scan's on
+    MIN_LANE_AGREEMENT of the lanes at PSCAN_BAND."""
+    from mpc_tpu_torch.ops import sqp as S
+    name, limit = [s.strip() for s in card.split(",", 1)]
+    rows = []
+    for Hs in horizons:
+        lcfg, lp = bench_loop(horizon=Hs, n_lanes=lanes, device=dev,
+                              method="al", **WARM)
+        ocp = ocp_at(lcfg, lp, 0)
+        row, sols = {"horizon": Hs, "batch": lanes, "budget": "al 1x1"}, {}
+        for backend in ("scan", "pscan"):
+            cfg = dataclasses.replace(lcfg.solver, lqr_backend=backend)
+            st = S.init_state(cfg, device=dev, batch=lanes)
+            sols[backend], launches, first, peak = counted(
+                lambda: S.solve_batch(cfg, ocp, st, device=dev))
+            require(not any(launches.values()),
+                    f"per-lane solve launched {launches}")
+            times = [cuda_ms(lambda: S.solve_batch(cfg, ocp, st,
+                                                   device=dev))[0]]
+            reps = max(1, min(3, int(ONE_TIMED_RUN_S / 4e-3 / times[0])))
+            times += [cuda_ms(lambda: S.solve_batch(cfg, ocp, st,
+                                                    device=dev))[0]
+                      for _ in range(reps - 1)]
+            row[backend] = {"ms": min(times), "reps": reps,
+                            "counted_call_s": first,
+                            "peak_device_memory_bytes": peak}
+        ok = lanes_close(sols["pscan"].U, sols["scan"].U, PSCAN_BAND,
+                         PSCAN_BAND)
+        row["pscan_vs_scan_max_abs_err_U"] = max_abs(sols["pscan"].U,
+                                                     sols["scan"].U)
+        row["lanes_within_band"] = float(ok.float().mean())
+        require(row["lanes_within_band"] >= MIN_LANE_AGREEMENT,
+                f"pscan H={Hs}: {row['lanes_within_band']} of lanes within "
+                f"{PSCAN_BAND} of scan")
+        row["pscan_over_scan"] = row["pscan"]["ms"] / row["scan"]["ms"]
+        rows.append(row)
+        del sols, lp, ocp
+        if row["scan"]["ms"] > 1e3 * ONE_TIMED_RUN_S:
+            break
+    return {"rows": rows, "gpu": name, "power_limit": limit}
+
+
+def phase_sharded(dev, card, lanes=B_BENCH, steps=SHARDED_STEPS,
+                  horizons=PSCAN_HORIZONS, rank_device=None, hook=None):
+    """Lanes over ranks on the one card: (a) one rank (:func:`sharded_one_
+    rank`), (b) and (c) two gloo ranks (:func:`sharded_two_ranks`: the soft
+    loop, the hard solve, the dry run), (d) :func:`pscan_timing`; one
+    line."""
+    from mpc_tpu_torch.ops import fused_ip as FI
+    name, limit = [s.strip() for s in card.split(",", 1)]
+    seconds = {}
+    t0 = time.perf_counter()
+    lcfg, lp, hard = sharded_rows(dev, lanes, steps)
+    one, loop = sharded_one_rank(dev, lcfg, lp)
+    hard_ref, launches, _, _ = counted(
+        lambda: FI.solve_batch_fused_ip(*hard, device=dev))
+    require(launches["fused_ip"] == 1, f"one-call hard solve: {launches}")
+    seconds["one_rank"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = sharded_two_ranks(dev, lcfg, loop, hard, hard_ref, rank_device,
+                            hook)
+    seconds["two_ranks"] = time.perf_counter() - t0
+    del loop, lp, hard, hard_ref
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    timing = pscan_timing(dev, card, lanes, horizons)
+    seconds["pscan_timing"] = time.perf_counter() - t0
+    line = {"phase": "sharded", "one_rank": one, "two_ranks": two,
+            "dryrun_line": two["ranks"][0]["dryrun"]["line"],
+            "pscan_timing": timing, "seconds": seconds, "gpu": name,
+            "power_limit": limit}
+    emit(line)
+    return line
+
+
+def sharded_launches(sharded, kernel):
+    """A kernel's launches in each counted run of the sharded phase: (a),
+    and per rank the soft loop, the hard solve and the dry run of (b) and
+    (c)."""
+    ranks = sharded["two_ranks"]["ranks"]
+    return {"one_rank": sharded["one_rank"]["launches"][kernel],
+            **{piece: [r[piece]["launches"][kernel] for r in ranks]
+               for piece in ("soft", "hard", "dryrun")}}
+
+
 def boundary_instance_line(eng, loop, timing, warm, cold, checks, build,
                            split=None):
     """The boundary-row instance of one fused kernel in its corridor row:
@@ -2594,8 +2947,10 @@ def main() -> int:
                     timing_ip_st["split"])]
     timed("planner", phase_planner, dev, card)
     fleet = timed("fleet", phase_fleet, dev, card)
+    sharded = timed("sharded", phase_sharded, dev, card)
     for line in kernels:
         line["fleet_launches"] = fleet_launches(fleet, line["name"])
+        line["sharded_launches"] = sharded_launches(sharded, line["name"])
     print(card, flush=True)
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})
@@ -2606,4 +2961,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    # Every phase is done, every rank joined and the last line printed:
+    # leave without the interpreter's teardown, in which a library's
+    # static destructor once aborted the process after a passing run
+    # ("terminate called without an active exception", exit 134).
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

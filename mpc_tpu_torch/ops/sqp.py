@@ -11,7 +11,8 @@ the KKT residuals (``torch.func.grad`` of the merit through the rollout).
 :func:`solve_batch` is the per-lane path of the JAX package (its vmapped
 ``sqp.solve``), written once over a leading lane axis; :func:`solve` is it
 at one lane.  ``method='al'`` runs the batched AL algorithm of
-``ops.sqp_vec`` with the per-lane sweep ``riccati.backward_pass``;
+``ops.sqp_vec`` with the per-lane sweep ``riccati.backward_pass``, or
+``ops.pscan``'s for ``lqr_backend='pscan'``;
 ``method='ip'`` runs the RTI-SQP over the interior-point stagewise QP
 (``ops.ipqp``).  The fused engines are ``ops.fused_gn`` and
 ``ops.fused_ip``.
@@ -24,6 +25,7 @@ of all line-search rungs are one call.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -631,21 +633,27 @@ def _solve_ip(cfg: SolverConfig, params: OcpParams,
                     viol=viol_max, cost=cost, merit=cost)
 
 
-def check_backend(cfg: SolverConfig) -> None:
-    """Raise for the options of the JAX package's solve that the port does
-    not run yet: the parallel-scan sweep and a sharded stage axis."""
-    if cfg.lqr_backend == "pscan":
-        raise NotImplementedError(
-            "lqr_backend='pscan': the parallel-scan sweep is ROADMAP queue "
-            "A, item 6 (multi-GPU and support code)")
-    if cfg.stage_axis is not None:
-        raise NotImplementedError(
-            f"stage_axis={cfg.stage_axis!r}: sharding the stage axis is "
-            "ROADMAP queue A, item 6 (multi-GPU and support code)")
+def lqr_sweep(cfg: SolverConfig, mesh=None):
+    """The per-lane AL path's Riccati sweep for ``cfg.lqr_backend``:
+    ``riccati.backward_pass`` ('scan') or ``pscan.backward_pass_pscan``
+    ('pscan'), the latter with its stage axis sharded over the ranks of
+    ``mesh`` along ``cfg.stage_axis`` when that is set.  A stage axis
+    without a mesh raises ``ValueError`` (the JAX package needs an ambient
+    mesh there)."""
+    if cfg.lqr_backend != "pscan":
+        return riccati.backward_pass
+    from mpc_tpu_torch.ops import pscan
+    if cfg.stage_axis is None:
+        return pscan.backward_pass_pscan
+    if mesh is None:
+        raise ValueError(f"stage_axis={cfg.stage_axis!r} needs a mesh "
+                         "(parallel.mesh.make_mesh) to shard the stages")
+    return functools.partial(pscan.backward_pass_pscan, mesh=mesh,
+                             axis=cfg.stage_axis)
 
 
 def solve_batch(cfg: SolverConfig, params: OcpParams, state: SqpState,
-                device=None) -> Solution:
+                device=None, mesh=None) -> Solution:
     """The per-lane solve of every lane (``mpc_tpu``'s ``sqp.solve_batch``,
     the vmapped ``sqp.solve``), lanes leading.
 
@@ -653,13 +661,14 @@ def solve_batch(cfg: SolverConfig, params: OcpParams, state: SqpState,
     inputs are moved there, in their own dtype (float32 or float64).
     ``method='al'``: ``al_iters`` multiplier updates around ``sqp_iters``
     Gauss-Newton steps, the batched algorithm of ``ops.sqp_vec`` with the
-    sweep :func:`riccati.backward_pass`; ``method='ip'``: :func:`_solve_ip`.
+    sweep :func:`lqr_sweep` picks (``mesh``: the ranks its stage axis is
+    sharded over); ``method='ip'``: :func:`_solve_ip`, which has its own
+    sweep and ignores ``lqr_backend``, as in the JAX package.
     """
-    check_backend(cfg)
     if cfg.method == "al":
         from mpc_tpu_torch.ops import sqp_vec
         return sqp_vec.solve_batch_vec(cfg, params, state, device=device,
-                                       sweep=riccati.backward_pass)
+                                       sweep=lqr_sweep(cfg, mesh))
     dev = resolve_device(device)
     params = map_tensors(normalize_params(cfg, params), lambda t: t.to(dev))
     state = state.map(lambda t: t.to(dev))

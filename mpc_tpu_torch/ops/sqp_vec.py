@@ -82,11 +82,12 @@ def solve_batch_vec(cfg: S.SolverConfig, params: S.OcpParams,
     inputs are moved there.  ``sweep``, ``rungs`` and ``follow`` are the
     hooks of :func:`_gn_iteration_vec`; ``follow`` is
     (al_iters * sqp_iters, B).  Another method than AL goes to the
-    per-lane path ``sqp.solve_batch``, as in the JAX package.
+    per-lane path ``sqp.solve_batch``, as in the JAX package.  As there,
+    ``lqr_backend`` and ``stage_axis`` are not read: the sweep is
+    ``sweep`` or the lanes-leading one.
     """
     if cfg.method != "al":
         return S.solve_batch(cfg, params, state, device=device)
-    S.check_backend(cfg)
     dev = resolve_device(device)
     params = _to(S.normalize_params(cfg, params), dev)
     state = _to(state, dev)

@@ -324,12 +324,11 @@ def select_engine(scfg: sqp.SolverConfig, have_boundaries: bool = False):
     outside its kernel's envelope on to its fallback).  Boundary rows
     without boundary data: ``'auto'`` AL goes to ``sqp_vec`` (whose rows
     then raise ``ValueError``), ``'fused'`` and IP raise ``ValueError`` as
-    the JAX package does.  On ``engine='xla'``, ``lqr_backend='pscan'``
-    and a sharded stage axis raise ``NotImplementedError``
-    (``sqp.check_backend``); the fused kernels have no such option.
+    the JAX package does.  The lanes-leading engine and the fused kernels
+    read neither ``lqr_backend`` nor ``stage_axis``, as in the JAX
+    package: on ``engine='xla'`` a 'pscan' solve is the 'scan' one.
     """
     if scfg.engine == "xla":
-        sqp.check_backend(scfg)
         return (sqp.solve_batch if scfg.method == "ip"
                 else sqp_vec.solve_batch_vec)
     if scfg.boundary_rows and not have_boundaries:
@@ -465,8 +464,9 @@ def _batched_step(lcfg: LoopConfig, params: LoopParams, batched_solve,
                   carry):
     """One closed-loop step over all lanes.
 
-    carry = (step_idx, x (B, NX), SqpState batch, noise generator or None
-    (no noise), bases (B,)), :func:`init_carry`'s layout.  Returns
+    carry = (step_idx, x (B, NX), SqpState batch, noise generator or
+    :class:`LaneNoise` or None (no noise), bases (B,)), :func:`init_carry`'s
+    layout.  Returns
     (new_carry, (x, u_applied, status, viol, cost, stat)).
     """
     batched_window, step_obs, make_ocp = _batch_helpers(lcfg, params)
@@ -478,13 +478,33 @@ def _batched_step(lcfg: LoopConfig, params: LoopParams, batched_solve,
     status = _step_status(lcfg, lcfg.solver, ocp, sol)
     u_apply = sol.U[:, 0]
     if gen is not None:
-        u_apply = u_apply + lcfg.noise_std * torch.randn(
-            u_apply.shape, generator=gen, dtype=u_apply.dtype,
-            device=u_apply.device)
+        u_apply = u_apply + lcfg.noise_std * _noise(gen, u_apply)
     x_next = _plant_step(lcfg, x, u_apply)
     warm = _shift_state(sol.state)
     out = (x, u_apply, status, sol.viol, sol.cost, sol.kkt_stat)
     return (step_idx + 1, x_next, warm, gen, bases), out
+
+
+class LaneNoise(NamedTuple):
+    """The noise of lanes lo..lo+b of a batch of ``total``: each step
+    draws the whole batch's noise from ``gen`` and keeps those rows, so a
+    block of lanes run on its own (``parallel.batch``) draws what the
+    whole batch draws for it."""
+
+    gen: torch.Generator
+    lo: int
+    total: int
+
+
+def _noise(gen, u):
+    """One step's actuation noise of the lanes of ``u`` (B, NU) from a
+    generator or a :class:`LaneNoise`."""
+    if isinstance(gen, LaneNoise):
+        full = torch.randn((gen.total,) + u.shape[1:], generator=gen.gen,
+                           dtype=u.dtype, device=u.device)
+        return full[gen.lo:gen.lo + u.shape[0]]
+    return torch.randn(u.shape, generator=gen, dtype=u.dtype,
+                       device=u.device)
 
 
 def _generator(lcfg: LoopConfig, noise_key, dev):

@@ -7,6 +7,12 @@ and the progress bases) is saved between chunks, so that a run cut at step
 k and resumed is the uninterrupted run, noise included.  The leaves of the
 carry go to ``step_{step:08d}.pt`` with ``torch.save``; a
 ``torch.Generator`` is saved as its ``get_state()``.
+
+A loop whose lanes split over ranks (``parallel.batch``) saves one file a
+rank, ``step_{step:08d}/rank_{rank:05d}.pt``, each with its rank's lanes
+and the mesh's shape: each rank writes and reads only its own lanes (the
+JAX package hands orbax its shards for the same reason), and a run
+resumes on a mesh of the same shape.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import os
 from typing import Any, Optional
 
 import torch
+from torch import distributed as dist
 from torch.utils import _pytree as pytree
 
 
@@ -25,12 +32,27 @@ def _saved(leaf):
     return leaf
 
 
-def save_checkpoint(path: str, state: Any, step: int) -> str:
+def _rank_file(path: str, step: int, mesh) -> str:
+    rank = dist.get_rank() if mesh.device_mesh is not None else 0
+    return os.path.join(os.path.abspath(path), f"step_{step:08d}",
+                        f"rank_{rank:05d}.pt")
+
+
+def save_checkpoint(path: str, state: Any, step: int, mesh=None) -> str:
     """Save the leaves of ``state`` (tensors, generators, numbers, None)
-    at ``step``; returns the file written."""
+    at ``step``; returns the file written.  With ``mesh``
+    (``parallel.mesh.Mesh``) ``state`` is this rank's and goes to a file
+    of its own."""
+    leaves = [_saved(leaf) for leaf in pytree.tree_leaves(state)]
+    if mesh is not None:
+        target = _rank_file(path, step, mesh)
+        os.makedirs(os.path.dirname(target), exist_ok=True)
+        torch.save({"mesh": [mesh.size("dp"), mesh.size("sp")],
+                    "leaves": leaves}, target)
+        return target
     os.makedirs(path, exist_ok=True)
     target = os.path.join(os.path.abspath(path), f"step_{step:08d}.pt")
-    torch.save([_saved(leaf) for leaf in pytree.tree_leaves(state)], target)
+    torch.save(leaves, target)
     return target
 
 
@@ -53,17 +75,27 @@ def _restored(saved, like):
     return saved
 
 
-def restore_checkpoint(path: str, like: Any, step: Optional[int] = None
-                       ) -> Any:
+def restore_checkpoint(path: str, like: Any, step: Optional[int] = None,
+                       mesh=None) -> Any:
     """The state saved at ``step`` (default: the latest) in the structure,
     dtypes and devices of ``like``; a generator is a new one in the saved
-    state."""
+    state.  With ``mesh``: this rank's file, which must come from a mesh
+    of the same shape (``ValueError`` otherwise)."""
     if step is None:
         step = latest_step(path)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {path}")
-    saved = torch.load(os.path.join(path, f"step_{step:08d}.pt"),
-                       weights_only=True)
+    if mesh is not None:
+        got = torch.load(_rank_file(path, step, mesh), weights_only=True)
+        want = [mesh.size("dp"), mesh.size("sp")]
+        if got["mesh"] != want:
+            raise ValueError(f"checkpoint of step {step} was saved on a "
+                             f"(dp, sp) = {tuple(got['mesh'])} mesh, not "
+                             f"{tuple(want)}")
+        saved = got["leaves"]
+    else:
+        saved = torch.load(os.path.join(path, f"step_{step:08d}.pt"),
+                           weights_only=True)
     leaves, spec = pytree.tree_flatten(like)
     if len(saved) != len(leaves):
         raise ValueError(f"checkpoint of step {step} has {len(saved)} "

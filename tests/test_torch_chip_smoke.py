@@ -1,6 +1,7 @@
 """The choices ``chip_smoke.py`` makes on the card, checked on the CPU: the
 tolerance of its ladder-rung gate, and the track its loop phases run on."""
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -709,3 +710,83 @@ def test_fleet_online_and_lf_rehearsal(fleet_rehearsal):
     assert max(lf["max_abs_err_xy_vs_golden"].values()) < cs.GOLDEN_BAND
     latency = cs.fleet_latency(dev, steps=1)
     assert not any(latency["launches_by_kernel"].values())
+
+
+@pytest.fixture
+def sharded_rehearsal(fleet_rehearsal, monkeypatch):
+    """The sharded phase's pieces on the CPU: the fleet rehearsal's stubs,
+    one geometry for every batch (the fused kernels' instance then does
+    not depend on B, so the ranks are held at atol 0)."""
+    one = {"threads_per_lane": 4, "lanes_per_block": 12}
+    monkeypatch.setattr(TF, "geometry", lambda cfg, B: one)
+    monkeypatch.setattr(TFI, "geometry", lambda cfg, B: one)
+
+
+def test_sharded_phase_rehearsal(sharded_rehearsal, planner_rehearsal):
+    """(a) to (d) at B=4, T=2 and H=6: the one-rank loop equal to
+    ``closed_loop_batch_vec``, two gloo ranks spawned (the CPU standing in
+    for their ``cuda:0``) launching fused_gn and fused_ip and equal at
+    atol 0, the dry run's line (its engine-sharded loop on fused_gn, its
+    IP solve on the per-lane path), scan against pscan; its line's names
+    and budgets, and the kernels line's ``sharded_launches``."""
+    from tests import torch_ranks
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    line = cs.phase_sharded(torch.device("cpu"), card, lanes=4, steps=2,
+                            horizons=(6,), rank_device="cpu",
+                            hook=torch_ranks.count_fused_calls)
+    assert planner_rehearsal[-1] is line and line["phase"] == "sharded"
+    assert sorted(line["seconds"]) == ["one_rank", "pscan_timing",
+                                       "two_ranks"]
+    one = line["one_rank"]
+    assert one["mesh"] == {"dp": 1, "sp": 1} and one["collectives"] == []
+    # four cold starts and two steps, a launch each
+    assert one["kernel"] == "fused_gn" and one["launches"]["fused_gn"] == 6
+    assert one["equal_atol0"] == ["X", "U", "status"]
+    two = line["two_ranks"]
+    assert two["applied"] == {"fused_gn": "atol 0", "fused_ip": "atol 0"}
+    for r, rank in enumerate(two["ranks"]):
+        assert (rank["rank"], rank["backend"], rank["device"]) == (
+            r, "gloo", "cpu")
+        assert rank["mesh"] == {"dp": 2, "sp": 1}
+        assert rank["soft"]["lanes_per_rank"] == 2
+        assert all(rank["soft"]["equal"].values())
+        assert all(rank["hard"]["equal"].values())
+        assert {c["op"] for c in rank["soft"]["collectives"]} == {
+            "all_gather"}
+        assert rank["dryrun"]["collective_backends"] == ["gloo"]
+        assert "all_gather" in rank["dryrun"]["collective_ops"]
+    assert line["dryrun_line"].startswith("dryrun_multichip(2): ok")
+    assert "sp (pscan sharded)" in line["dryrun_line"]
+    row, = line["pscan_timing"]["rows"]
+    assert (row["horizon"], row["batch"], row["budget"]) == (6, 4, "al 1x1")
+    assert row["scan"]["ms"] == row["pscan"]["ms"] == 1.0  # stubbed clock
+    assert row["lanes_within_band"] == 1.0
+    assert line["power_limit"] == "700.00 W"
+    gn = cs.sharded_launches(line, "fused_gn")
+    assert gn["one_rank"] == 6 and gn["soft"] == [6, 6]
+    assert gn["hard"] == [0, 0] and min(gn["dryrun"]) > 0
+    ip = cs.sharded_launches(line, "fused_ip")
+    assert ip["hard"] == [1, 1] and ip["dryrun"] == [0, 0]
+    assert cs.sharded_launches(line, "riccati")["soft"] == [0, 0]
+
+
+def test_ranks_share_the_one_card(monkeypatch):
+    """Two ranks on a machine with one card both take ``cuda:0``."""
+    from mpc_tpu_torch.parallel import mesh as pm
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for rank in ("0", "1"):
+        monkeypatch.setenv("LOCAL_RANK", rank)
+        assert pm.local_device() == torch.device("cuda", 0)
+
+
+def test_a_failing_rank_fails_the_sharded_phase(sharded_rehearsal):
+    """A rank that raises stops the others and fails the phase."""
+    from tests import torch_ranks
+    lcfg, _, hard = cs.sharded_rows(torch.device("cpu"), 2, 1)
+    done = types.SimpleNamespace(X=torch.zeros(2, 1, 5),
+                                 U=torch.zeros(2, 1, 2),
+                                 status=torch.zeros(2, 1))
+    with pytest.raises(cs.CheckFailed, match="a sharded rank failed"):
+        cs.sharded_two_ranks(torch.device("cpu"), lcfg, done, hard, done,
+                             rank_device="cpu",
+                             hook=torch_ranks.fail_on_rank_one)

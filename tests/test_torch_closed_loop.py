@@ -240,27 +240,38 @@ def test_ip_warmup_budget_is_5x10_and_selects_the_ip_kernel():
 
 # boundary rows without boundary data raise the JAX package's ValueError
 NO_DATA = (ValueError, "boundaries")
-A6 = (NotImplementedError, "ROADMAP queue A, item 6")
+# engine='xla' reads no lqr_backend (mpc_tpu/ops/sqp_vec.py): 'pscan' is
+# the 'scan' loop at atol 0
+SCAN = "same loop as lqr_backend='scan'"
 
 
 @pytest.mark.parametrize("solver_kw,loop_kw,raises", [
     (dict(method="ip", boundary_rows=True), {}, NO_DATA),
     (dict(boundary_rows=True), {}, NO_DATA),
-    (dict(engine="xla", lqr_backend="pscan"), {}, A6),
+    (dict(engine="xla", lqr_backend="pscan"), {}, SCAN),
     (dict(engine="xla", method="ip", ip_sqp_iters=1, ip_iters=2), {}, None),
     (dict(engine="fused", boundary_rows=True), {}, NO_DATA),
 ], ids=["ip", "boundary_rows", "xla-pscan", "xla-ip", "fused-boundary_rows"])
 def test_out_of_envelope_raises(solver_kw, loop_kw, raises):
     """The envelope's edges: ``engine='xla'`` with ``method='ip'`` runs the
     loop on the per-lane solve (``closed_loop_batch``, as the JAX package
-    falls back there); the parallel-scan sweep raises
-    ``NotImplementedError`` naming its ROADMAP item; boundary rows without
-    boundary data (the bench loop has none) raise the ``ValueError`` that
-    the JAX package raises there."""
+    falls back there); ``lqr_backend='pscan'`` on ``engine='xla'`` is the
+    'scan' loop at atol 0, since that engine reads no ``lqr_backend`` (as
+    in the JAX package); boundary rows without boundary data (the bench
+    loop has none) raise the ``ValueError`` that the JAX package raises
+    there."""
     lcfg, p = tsyn.make_bench_loop(3, 4, 2, device="cpu")
     lcfg = dataclasses.replace(
         lcfg, solver=dataclasses.replace(lcfg.solver, **solver_kw),
         **loop_kw)
+    if raises == SCAN:
+        scan = dataclasses.replace(lcfg, solver=dataclasses.replace(
+            lcfg.solver, lqr_backend="scan"))
+        got = tcl.closed_loop_batch_vec(lcfg, p, device="cpu")
+        ref = tcl.closed_loop_batch_vec(scan, p, device="cpu")
+        for f in tcl.LoopResult._fields:
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+        return
     if raises is None:
         assert tcl.select_engine(lcfg.solver) is TS.solve_batch
         got = tcl.closed_loop_batch_vec(lcfg, p, device="cpu")

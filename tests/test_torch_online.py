@@ -243,3 +243,39 @@ def test_serving_needs_a_gpu_unless_cpu_is_asked_for():
         BatchedOnlinePlanner(c, n_lanes=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         OnlinePlanner(c)
+
+
+def test_st_casadi_first_step_spread_is_the_references():
+    """OnlinePlanner on model='st' with the casadi AL budget (the ZAM LF
+    config): the cold first step's steering rate is ill-conditioned in
+    the JAX package itself, whose float32 planner swings between the rate
+    bounds (-0.4, 0.0, +0.4 rad/s) under a 1e-6 move of the measured
+    state; the port's first steering rate is one of those three outcomes
+    (within 1e-5), its acceleration and the step after it agree with
+    JAX's within 5e-3."""
+    from mpc_tpu.models.vehicle import VEHICLE_2 as JV2
+    from mpc_tpu.planner import online as jon
+    from mpc_tpu_torch.models.vehicle import VEHICLE_2
+    name = LF_PAIR[0]
+    from mpc_tpu.io.config import load_config as jax_load_config
+    jc = dataclasses.replace(jax_load_config(os.path.join(CFG, name), SCN),
+                             dynamics_model="st", vehicle=JV2)
+    c = dataclasses.replace(load_config(os.path.join(CFG, name), SCN),
+                            dynamics_model="st", vehicle=VEHICLE_2)
+    planner = OnlinePlanner(c, device="cpu")
+    assert c.framework == "casadi" and planner.lcfg.solver.method == "al"
+    x0, rng = planner.params.x_init[:5].numpy(), np.random.default_rng(1)
+    xs = [_measured(x0, planner.lcfg.solver.dt, k, rng) for k in range(2)]
+    move = np.float32(1e-6) * np.array([1, 1, 0, 1, 0.1], np.float32)
+    firsts, seconds = [], []
+    for sign in (0.0, 1.0, -1.0):
+        ref = jon.OnlinePlanner(jc)
+        firsts.append(np.asarray(ref.step(xs[0] + sign * move)[0]))
+        seconds.append(np.asarray(ref.step(xs[1] + sign * move)[0]))
+    steer = sorted(float(u[0]) for u in firsts)
+    assert steer[-1] - steer[0] >= 0.4 - 1e-6, steer   # JAX's own spread
+    u, _ = planner.step(xs[0])
+    assert min(abs(float(u[0]) - s) for s in steer) <= 1e-5, (u, steer)
+    np.testing.assert_allclose(u[1], firsts[0][1], rtol=0, atol=5e-3)
+    u, _ = planner.step(xs[1])
+    np.testing.assert_allclose(u, seconds[0], rtol=0, atol=5e-3)

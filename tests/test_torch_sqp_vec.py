@@ -5,6 +5,8 @@ are held against JAX's in ``tests/test_torch_sqp_model.py``.
 On the CPU the engine's Riccati sweep is the plain version; the CUDA
 kernel takes its place on the GPU (``chip_smoke.py``).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -114,22 +116,26 @@ def test_pick_takes_nan_first_like_jnp_argmin():
         0, 0, 2]
 
 
+# the ids are the cases' names from before the parallel-scan sweep was
+# ported (the second names the ROADMAP item that ported it)
 @pytest.mark.parametrize("kw,match", [
     (dict(method="ip"), "sqp.solve_batch"),
-    (dict(lqr_backend="pscan"), "ROADMAP queue A, item 6"),
-])
+    (dict(lqr_backend="pscan"), None),
+], ids=["kw0-sqp.solve_batch", "kw1-ROADMAP queue A, item 6"])
 def test_out_of_envelope_raises(kw, match):
     """The AL engine hands the IP method to the per-lane path that solves
-    it (``match`` names it), as the JAX package does, and refuses the
-    parallel-scan sweep, naming its ROADMAP item."""
+    it (``match`` names it), as the JAX package does, and reads no
+    ``lqr_backend``, as ``mpc_tpu/ops/sqp_vec.py`` reads none: a 'pscan'
+    solve is the 'scan' solve at atol 0."""
     cfg = TS.SolverConfig(horizon=4, **kw)
     p, st = convert.ocp_params(ocp_numpy(4, 2)), TS.init_state(cfg, batch=2)
     if cfg.method == "ip":
         assert_same_solution(TV.solve_batch_vec(cfg, p, st, device="cpu"),
                              TS.solve_batch(cfg, p, st, device="cpu"))
         return
-    with pytest.raises(NotImplementedError, match=match):
-        TV.solve_batch_vec(cfg, p, st, device="cpu")
+    scan = dataclasses.replace(cfg, lqr_backend="scan")
+    assert_same_solution(TV.solve_batch_vec(cfg, p, st, device="cpu"),
+                         TV.solve_batch_vec(scan, p, st, device="cpu"))
 
 
 def test_entry_point_needs_a_gpu_unless_cpu_is_asked_for():
