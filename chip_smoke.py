@@ -120,7 +120,8 @@ Phases, each printing one JSON line (``"phase": ...``):
             tests/test_closed_loop.py's atol 1e-4); the deployment config
             (``configs/config_CA_ZAM_Over-1_1_forcespro.yaml``) through the
             CLI in a subprocess, plain (exit 0, the native library, no -7
-            step) and with ``--rti1`` (exit 0), the two side by side;
+            step) and with ``--rti1`` (exit 0), the two side by side
+            and beside the goldens;
             C2's two routes, the IP wrapper past its envelope (H=64, B=64,
             float64 on both sides) and the xla IP loop (B=256, T=10), each
             with no kernel launched
@@ -132,10 +133,14 @@ Phases, each printing one JSON line (``"phase": ...``):
             FLEET tiled to B=16384 lanes (ip 2x6, the ladder, boundary
             rows beside dummy ones, moving obstacles, H=12, T=100) through
             ``closed_loop_batch_vec`` on fused_ip_ks_ring alone, its
-            step-0 solve on 256 copies of three configs and its step-50
-            solve on 256 lanes against the plain version (its cold starts
-            and its step 0, where the plain version parts from itself in
-            float64 on whole configs, measured a config each), every
+            two cold-start solves on 256 lanes held config by config
+            (every config on which the plain version's float32 and
+            float64 solves agree; the line names the others with that
+            share; config 3's one dual that is not unique at cold start
+            0 left out), its step-0 solve on 256 copies of three configs
+            and its step-50 solve on 256 lanes against the plain version
+            (step 0, where the plain version parts from itself on the
+            deployment's copies, measured a config each), every
             lane-step feasible over its own length or held to the plain
             loop, the copies of a config within the IP bands, solves/s,
             ms a step, peak memory and a profiled window; (b) the same
@@ -161,17 +166,41 @@ Phases, each printing one JSON line (``"phase": ...``):
             ``entry.dryrun_multichip(2)`` in the same ranks (the per-lane
             loop with the parallel-scan sweep's stages over sp=2, the
             engine-sharded loop on fused_gn, the open-loop IP solve), its
-            line; (d) ms a solve of the per-lane AL path at B=16384, al
-            1x1, ``lqr_backend`` 'scan' against 'pscan', H=30 and 128;
+            line; (e) ``mpc_tpu_torch.entry``'s path on its defaults in
+            one rank spawned as a launcher starts one (WORLD_SIZE=1): a
+            group of one on NCCL, ``entry()`` and ``dryrun_multichip(1)``
+            on ``cuda:0``, every collective through NCCL on the card,
+            entry's results and the dry run's outcome equal at atol 0 to
+            the same path in this process; that dry run passes, or fails
+            exactly as ENTRY_C4 says (its open-loop IP step on the fused
+            IP kernel, which leaves lane 0 unconverged in float32, as
+            the JAX package's kernel does on the same step); (d) ms a
+            solve of the per-lane AL path at B=16384, al 1x1,
+            ``lqr_backend`` 'scan' against 'pscan', H=30 and 128;
 
-then the card's name and power limit, the kernels line (with each
-kernel's launches in the fleet and the sharded phases), and as the last
-line ``{"ok": true, "device": {...}}``.  A phase that fails raises: the
-script then exits non-zero and prints no last line.
+The pieces no timed phase reads run first, in the untimed section
+(``phase_untimed``): while nvcc builds, the plain loops of 4 and of C2 run
+on the CPU in WORKERS worker processes, the goldens and C2 of 8 on the
+card here, and each check of 3 whose library is built here; once every
+library is built, the other checks, the fleet's checks of 9 (a) and the
+entry point's NCCL rank of 10 (e) in the workers, the CLI's two runs of 8
+in processes of their own, and the rows of 4 on the card here.  The timed
+phases (5, 6, 7, the planner's profile, 9, 10) follow, with the card and
+the host to themselves.
+
+Then it prints the card's name and power limit, the kernels line (with
+each kernel's launches in the fleet and the sharded phases), and as the
+last line ``{"ok": true, "device": {...}}``, after an explicit teardown,
+and leaves by ``os._exit``, before the C++ libraries' static destructors
+(one of them aborts at times after the last line).  A phase that fails raises:
+the script then exits non-zero and prints no last line.
 """
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
+import gc
+import io
 import json
 import os
 import re
@@ -302,10 +331,25 @@ C2_SOLVE = dict(horizon=64, lanes=64)   # H=64: past the IP kernel's 63
 C2_LOOP = dict(lanes=256, steps=10)
 LOOP_BANDS = {"X": 5e-2, "U": 5e-3}     # tests/test_torch_closed_loop.py
 PROFILE_STEPS = 3
+# loop_vs_plain: each row's budget, its lanes and steps
+LOOP_VS_PLAIN_ROWS = {
+    "soft": WARM, "hard": IP_WARM, "soft-xla": XLA_WARM,
+    "soft-xla-backoff": dict(rti_margin=0.1, rti_amax_scale=0.9,
+                             **XLA_WARM),
+    "hard-gate1": dict(gate_stages=1, **IP_WARM),
+    "hard-corridor": HARD_CORRIDOR, "soft-corridor": SOFT_CORRIDOR,
+    "soft-st": SOFT_ST, "hard-st": HARD_ST}
+LVP_LANES, LVP_STEPS = 64, 10
+
+
+_captured = None   # the lines a worker's task emits, or None: print them
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    if _captured is not None:
+        _captured.append(obj)
+    else:
+        print(json.dumps(obj), flush=True)
 
 
 class CheckFailed(RuntimeError):
@@ -370,16 +414,16 @@ def main_entry(entries, instance=1, boundary=False, ladder=False):
 
 
 def phase_build():
-    """Build every kernel; per kernel the registers, spills and shared
+    """Build every kernel (waiting for the nvcc processes
+    ``_build.start_all`` started); per kernel the registers, spills and shared
     memory a block of its main-path entry (static from ``-Xptxas -v``; the
     fused kernels' dynamic shared memory and geometry at the bench shape),
     and every entry function's figures."""
     from mpc_tpu_torch.ops import _build
     from mpc_tpu_torch.ops import fused_gn as F
     from mpc_tpu_torch.ops import fused_ip as FI
-    t0 = time.perf_counter()
     logs = _build.build_all()
-    seconds = time.perf_counter() - t0
+    seconds = _build.seconds()
 
     def geometry(kw):
         lcfg, _ = bench_loop(n_lanes=B_BENCH, device="cpu", **kw)
@@ -422,7 +466,8 @@ def phase_build():
                            ladder=bgeo["ladder"]),
                 smem_bytes_per_block=bgeo["smem_bytes_per_block"],
                 geometry=bgeo)
-    emit({"phase": "build", "seconds": seconds, "kernels": info})
+    emit({"phase": "build", "seconds": max(seconds.values(), default=0.0),
+          "seconds_by_library": seconds, "kernels": info})
     return info
 
 
@@ -564,8 +609,8 @@ def compare(name, cfg, ocp, state, bufs=None, plain=None):
     ``bufs``: the kernel's buffers after a launch on (cfg, ocp, state), or
     None to launch here; ``plain``: the plain version's outputs on the same
     inputs, or None to compute them (with the ladder on, the plain version
-    always runs here, replaying the kernel's rungs).  Returns (kernel
-    Solution, max abs errors)."""
+    always runs here, replaying the kernel's rungs).  The gates are
+    :func:`hold`'s.  Returns (kernel Solution, max abs errors)."""
     eng = engine(cfg)
     ladder = eng.ladder(cfg)
     if bufs is None:
@@ -576,17 +621,13 @@ def compare(name, cfg, ocp, state, bufs=None, plain=None):
         require(torch.equal(bufs["status"], ker.status),
                 f"{name}: the kernel's status is not the mapping of its "
                 "diagnostics")
-    extra = {}
+    extra, rungs, trace = {}, None, None
     if ladder:
-        chosen, trace, own = bufs["rung"], [], []
-        plain = eng.plain(cfg, ocp, state, trace, follow=chosen)
+        rungs, trace, own = bufs["rung"], [], []
+        plain = eng.plain(cfg, ocp, state, trace, follow=rungs)
         free = eng.solution(cfg, eng.plain(cfg, ocp, state, own), state)
-        regret = torch.stack([rung_regret(c, m)
-                              for c, (_, m) in zip(chosen, trace)])
-        differs = chosen != torch.stack([r for r, _ in own])
+        differs = rungs != torch.stack([r for r, _ in own])
         extra = {
-            "max_rung_regret": float(regret.max()),
-            "rung_choices": int(chosen.numel()),
             "rung_choices_unlike_free_plain": int(differs.sum()),
             "lanes_unlike_free_plain": int(differs.any(0).sum()),
             "status_agreement_free_plain":
@@ -595,12 +636,34 @@ def compare(name, cfg, ocp, state, bufs=None, plain=None):
         plain = eng.plain(cfg, ocp, state)
     pln = eng.solution(cfg, plain, state)
     torch.cuda.synchronize()
+    return ker, hold(name, cfg, ocp, state, ker, pln, rungs, trace, extra)
 
+
+def hold(name, cfg, ocp, state, ker, pln, rungs=None, trace=None,
+         extra=None, p64=None, unheld=None):
+    """The gates of a kernel's solution ``ker`` against the plain
+    version's ``pln`` on the same inputs, on every lane: each band of the
+    engine on every lane (a lane excused where the plain version's own
+    float32 and float64 solves part by more than the band, at most
+    MAX_ROUNDING_SHARE of the lanes), the duals and the status on their
+    shares of lanes, and with the ladder (``rungs`` the kernel's choices,
+    ``trace`` the plain version's merits replaying them) each choice within
+    TIE_RTOL of the best rung.  ``p64``: the plain float64 solution
+    replaying the same rungs, or None to compute it where needed.
+    ``unheld`` {dual: bool mask of its entries}: entries left out of the
+    dual's band, their departure reported.  Emits the check line; returns
+    the max abs errors."""
+    eng = engine(cfg)
+    extra = dict(extra or {})
+    if rungs is not None:
+        regret = torch.stack([rung_regret(c, m)
+                              for c, (_, m) in zip(rungs, trace)])
+        extra.update(max_rung_regret=float(regret.max()),
+                     rung_choices=int(rungs.numel()))
     errs, agree, need = {}, {}, {}
     inband = {f: lanes_close(getattr(ker, f), getattr(pln, f), *band)
               for f, band in eng.bands.items()}
-    noisy = rounding_lanes(eng, cfg, ocp, state, pln, inband,
-                           bufs["rung"] if ladder else None)
+    noisy = rounding_lanes(eng, cfg, ocp, state, pln, inband, rungs, p64)
     for f in eng.bands:
         errs[f] = max_abs(getattr(ker, f), getattr(pln, f))
         agree[f] = float((inband[f] | noisy[f]).double().mean())
@@ -609,6 +672,14 @@ def compare(name, cfg, ocp, state, bufs=None, plain=None):
     extra["rounding_lanes"] = n_noisy
     for f, (rtol, atol, lanes) in eng.state_bands.items():
         a, b = getattr(ker.state, f), getattr(pln.state, f)
+        if unheld and f in unheld:
+            mask = unheld[f]
+            per_lane = mask.reshape(len(mask), -1).sum(1)
+            extra.setdefault("unheld", {})[f] = {
+                "entries_a_lane": int(per_lane.max()),
+                "lanes": int((per_lane > 0).sum()),
+                "max_abs_err": max_abs(a[mask], b[mask])}
+            a = torch.where(mask, b, a)
         errs[f] = max_abs(a, b)
         agree[f] = float(lanes_close(a, b, rtol, atol).double().mean())
         need[f] = lanes
@@ -633,10 +704,10 @@ def compare(name, cfg, ocp, state, bufs=None, plain=None):
     require(n_noisy <= MAX_ROUNDING_SHARE * len(ker.status),
             f"{name}: {n_noisy} lanes where float32 rounding alone leaves "
             "the bands")
-    require(not ladder or extra["max_rung_regret"] <= TIE_RTOL,
+    require(rungs is None or extra["max_rung_regret"] <= TIE_RTOL,
             f"{name}: the kernel committed a rung worse than the best by "
             f"{extra.get('max_rung_regret')} of its merit")
-    return ker, errs
+    return errs
 
 
 def as_float64(ocp, state):
@@ -648,16 +719,18 @@ def as_float64(ocp, state):
                          weights=ocp.weights.map(f64)), state.map(f64))
 
 
-def rounding_lanes(eng, cfg, ocp, state, pln, inband, follow):
+def rounding_lanes(eng, cfg, ocp, state, pln, inband, follow, p64=None):
     """Per band field, the lanes whose band lies below float32 rounding:
-    the plain version in float64 (committing the same rungs) parts from
-    the float32 one by more than the band.  They depend on the inputs and
-    the plain version alone, never on the kernel, and are computed only
-    when some lane of the kernel is outside a band."""
+    the plain version in float64 (committing the same rungs; ``p64`` when
+    given) parts from the float32 one by more than the band.  They depend
+    on the inputs and the plain version alone, never on the kernel, and
+    are computed only when some lane of the kernel is outside a band."""
     if all(bool(v.all()) for v in inband.values()):
         return {f: torch.zeros_like(v) for f, v in inband.items()}
-    ocp64, st64 = as_float64(ocp, state)
-    p64 = eng.solution(cfg, eng.plain(cfg, ocp64, st64, follow=follow), st64)
+    if p64 is None:
+        ocp64, st64 = as_float64(ocp, state)
+        p64 = eng.solution(cfg, eng.plain(cfg, ocp64, st64, follow=follow),
+                           st64)
     return {f: ~lanes_close(getattr(pln, f).double(), getattr(p64, f), *band)
             for f, band in eng.bands.items()}
 
@@ -778,6 +851,16 @@ def loop_inputs(dev, lcfg, lp, steps):
     return out
 
 
+def kernel_solve(cfg, ocp, state):
+    """One launch of ``cfg``'s kernel: (its Solution, the rungs it
+    committed (iterations, B) with the ladder on, else None)."""
+    eng = engine(cfg)
+    bufs = eng.pack(cfg, ocp, state, trace_rungs=eng.ladder(cfg))
+    eng.launch(cfg, bufs)
+    return (eng.solution(cfg, eng.unpack(bufs), state),
+            bufs["rung"] if eng.ladder(cfg) else None)
+
+
 def gate_calibration(name, cfg, ocp, state, kernel=False, groups=1):
     """The plain version's own float32 and float64 solves at one input:
     the share of lanes on which they agree in status and within each band
@@ -786,19 +869,20 @@ def gate_calibration(name, cfg, ocp, state, kernel=False, groups=1):
     the share of lanes on which the kernel agrees with the float32 one,
     the state bands (the duals) included.  With ``groups`` > 1 each share
     is a list, a group of lanes (lane % ``groups``: a config of a tiled
-    fleet) each."""
+    fleet) each.  Returns the solutions: ``ker`` (None without
+    ``kernel``), ``p32`` and ``p64``, and the kernel's ``rungs`` with the
+    float32 solve's merits replaying them (``trace``), or None."""
     eng = engine(cfg)
 
     def share(ok):
         out = [float(ok[g::groups].double().mean()) for g in range(groups)]
         return out if groups > 1 else out[0]
-    follow, line = None, {}
+    follow, trace, ker, line = None, None, None, {}
     if kernel:
-        bufs = eng.pack(cfg, ocp, state, trace_rungs=eng.ladder(cfg))
-        eng.launch(cfg, bufs)
-        ker = eng.solution(cfg, eng.unpack(bufs), state)
-        follow = bufs["rung"] if eng.ladder(cfg) else None
-    p32 = eng.solution(cfg, eng.plain(cfg, ocp, state, follow=follow), state)
+        ker, follow = kernel_solve(cfg, ocp, state)
+        trace = None if follow is None else []
+    p32 = eng.solution(cfg, eng.plain(cfg, ocp, state, trace, follow=follow),
+                       state)
     ocp64, st64 = as_float64(ocp, state)
     p64 = eng.solution(cfg, eng.plain(cfg, ocp64, st64, follow=follow), st64)
     torch.cuda.synchronize()
@@ -824,6 +908,58 @@ def gate_calibration(name, cfg, ocp, state, kernel=False, groups=1):
           "plain_float32_vs_float64_lane_agreement": agree, **line,
           "active_boundary_rows": active_boundary_rows(
               cfg, p32.X, ocp.boundaries, ocp.boundary_signs)})
+    return {"ker": ker, "p32": p32, "p64": p64, "rungs": follow,
+            "trace": trace}
+
+
+def hold_by_config(name, cfg, ocp, state, groups, unheld=None):
+    """A tiled fleet's solve (lane i a copy of config i % ``groups``) held
+    to the plain version config by config: one launch and the plain
+    float32 and float64 solves replaying its rungs
+    (:func:`gate_calibration`'s, whose line it emits), then :func:`hold`'s
+    gates on the copies of every config on which the plain version agrees
+    with itself: its float32 and float64 solves part, in status or a band,
+    on at most MAX_ROUNDING_SHARE of the config's copies.  The check line
+    names the configs held and, for each left out, that share.
+    ``unheld`` {config: (dual, stage, row)}: an entry no solve can hold
+    (a dual that is not unique there), left out of that config's band.
+    Returns (max abs errors, the configs held)."""
+    from mpc_tpu_torch.ops import sqp as S
+    eng = engine(cfg)
+    cal = gate_calibration(f"{name}_by_config", cfg, ocp, state,
+                           kernel=True, groups=groups)
+    p32, p64 = cal["p32"], cal["p64"]
+    parted = p32.status != p64.status
+    for f, band in eng.bands.items():
+        parted |= ~lanes_close(getattr(p32, f).double(), getattr(p64, f),
+                               *band)
+    share = [float(parted[g::groups].double().mean()) for g in range(groups)]
+    held = [g for g in range(groups) if share[g] <= MAX_ROUNDING_SHARE]
+    require(held, f"{name}: the plain version parts from itself on every "
+                  f"config: {share}")
+    config = torch.arange(len(parted), device=parted.device) % groups
+    idx = torch.isin(config, torch.tensor(held, device=config.device))
+    idx = idx.nonzero()[:, 0]
+
+    def take(tree):
+        return S.map_tensors(tree, lambda t: t[idx] if t.dim() else t)
+    masks = {}
+    for g, (f, k, r) in (unheld or {}).items():
+        m = masks.setdefault(f, torch.zeros_like(getattr(p32.state, f),
+                                                 dtype=torch.bool))
+        m[config == g, k, r] = True
+    rungs, trace = cal["rungs"], cal["trace"]
+    if rungs is not None:
+        rungs = rungs[:, idx]
+        trace = [(r[idx], m[:, idx]) for r, m in trace]
+    extra = {"configs_held": held,
+             "configs_left_out": {str(g): {
+                 "plain_float32_vs_float64_lanes_parted": share[g]}
+                 for g in range(groups) if g not in held}}
+    errs = hold(name, cfg, take(ocp), take(state), take(cal["ker"]),
+                take(p32), rungs, trace, extra, p64=take(p64),
+                unheld={f: m[idx] for f, m in masks.items()})
+    return errs, held
 
 
 def phase_check_corridor(dev, row, kw, half_width):
@@ -1158,25 +1294,46 @@ def phase_check_sqp_vec(dev, **model):
     return results
 
 
-def phase_loop_vs_plain(dev, row, **budget):
-    """The first steps of a bench loop on the card vs the plain loop on the
-    CPU (bands of tests/test_torch_closed_loop.py)."""
-    B, T = 64, 10
-    lcfg, lp = bench_loop(n_lanes=B, device="cpu", **budget)
-    loop_vs_plain(dev, row, dataclasses.replace(lcfg, n_steps=T), lp,
-                  budget)
+def lvp_loop(row):
+    """(lcfg, lanes on the CPU) of ``row``'s loop_vs_plain: LVP_LANES lanes
+    of its bench loop, LVP_STEPS steps."""
+    lcfg, lp = bench_loop(n_lanes=LVP_LANES, device="cpu",
+                          **LOOP_VS_PLAIN_ROWS[row])
+    return dataclasses.replace(lcfg, n_steps=LVP_STEPS), lp
 
 
-def loop_vs_plain(dev, row, lcfg, lp, config):
+def plain_loop_ref(row, f64=False):
+    """``row``'s loop_vs_plain loop on the CPU (the plain version), in
+    float64 with ``f64``."""
+    from mpc_tpu_torch.planner import closed_loop as cl
+    lcfg, lp = lvp_loop(row)
+    if f64:
+        lp = lp.map(lambda t: t.double() if t.is_floating_point() else t)
+    return cl.closed_loop_batch_vec(lcfg, lp, device="cpu")
+
+
+def phase_loop_vs_plain(dev, row, refs=None):
+    """The first steps of ``row``'s bench loop on the card vs the plain
+    loop on the CPU (bands of tests/test_torch_closed_loop.py); ``refs()``
+    gives the plain loops (:func:`plain_loop_ref`, float32 and float64)
+    where they ran elsewhere."""
+    lcfg, lp = lvp_loop(row)
+    loop_vs_plain(dev, row, lcfg, lp, LOOP_VS_PLAIN_ROWS[row], refs)
+
+
+def loop_vs_plain(dev, row, lcfg, lp, config, refs=None):
     """The loop ``lcfg`` of the lanes ``lp`` (on the CPU) on the card and on
     the CPU (plain version), held to the bands of
     tests/test_torch_closed_loop.py: X 5e-2, U 5e-3, the same feasibility.
     With boundary rows U is held to 5e-3 or to the plain loop's own spread,
     whichever is larger: how far the same plain loop moves in float64,
     since the corridor rows' ladders and degenerate duals make their loops
-    part by rounding alone (tests/test_torch_boundary_rows.py)."""
+    part by rounding alone (tests/test_torch_boundary_rows.py).
+    ``refs()``: (the plain loop, its float64 run or None) computed
+    elsewhere on the same lanes."""
     from mpc_tpu_torch.planner import closed_loop as cl
-    ref = cl.closed_loop_batch_vec(lcfg, lp, device="cpu")
+    ref, f64 = refs() if refs else (
+        cl.closed_loop_batch_vec(lcfg, lp, device="cpu"), None)
     got = cl.closed_loop_batch_vec(lcfg, lp, device=dev)
     err_x = max_abs(got.X.cpu(), ref.X)
     err_u = max_abs(got.U.cpu(), ref.U)
@@ -1191,8 +1348,10 @@ def loop_vs_plain(dev, row, lcfg, lp, config):
     if lcfg.solver.boundary_rows:
         line["active_boundary_lane_steps"] = active_boundary_rows(
             lcfg.solver, got.X.cpu(), lp.boundaries, lp.boundary_signs)
-        lp64 = lp.map(lambda t: t.double() if t.is_floating_point() else t)
-        f64 = cl.closed_loop_batch_vec(lcfg, lp64, device="cpu")
+        if f64 is None:
+            lp64 = lp.map(lambda t: t.double() if t.is_floating_point()
+                          else t)
+            f64 = cl.closed_loop_batch_vec(lcfg, lp64, device="cpu")
         line["plain_spread_U"] = max_abs(f64.U, ref.U)
         band_u = max(band_u, line["plain_spread_U"])
     emit(line)
@@ -1826,7 +1985,25 @@ def planner_cli(dev, started):
     return summary
 
 
-def planner_c2_solve(dev, horizon, lanes):
+def c2_solve_inputs(horizon, lanes):
+    """C2's solve on the CPU in float64: (cfg, ocp, state)."""
+    from mpc_tpu_torch.ops import sqp as S
+    lcfg, lp = bench_loop(horizon=horizon, n_lanes=lanes, device="cpu",
+                          method="ip", ip_sqp_iters=2, ip_iters=6,
+                          ip_warm_duals=True)
+    cfg = lcfg.solver
+    return (cfg, *as_float64(ocp_at(lcfg, lp),
+                             S.init_state(cfg, batch=lanes)))
+
+
+def c2_solve_ref(horizon, lanes):
+    """C2's solve on the CPU (:func:`planner_c2_solve`'s reference)."""
+    from mpc_tpu_torch.ops import fused_ip as FI
+    return FI.solve_batch_fused_ip(*c2_solve_inputs(horizon, lanes),
+                                   device="cpu")
+
+
+def planner_c2_solve(dev, horizon, lanes, ref=None):
     """C2, first half: ``solve_batch_fused_ip`` outside the IP kernel's
     envelope (H = ``horizon`` > 63) on the overtake problem at the
     deployment budget (ip 2x6 warm duals, the default ladder) takes the
@@ -1835,14 +2012,11 @@ def planner_c2_solve(dev, horizon, lanes):
     the same status, on every lane.  Both run in float64: at this horizon
     the CPU's own float32 and float64 solves part on 6 to 16 of 64 lanes
     (U by up to 0.57, warm or cold), so float32 alone does not determine
-    the digits the bands read."""
+    the digits the bands read.  ``ref()``: the CPU's solve
+    (:func:`c2_solve_ref`) where it ran elsewhere."""
     from mpc_tpu_torch.ops import fused_ip as FI
     from mpc_tpu_torch.ops import sqp as S
-    lcfg, lp = bench_loop(horizon=horizon, n_lanes=lanes, device="cpu",
-                          method="ip", ip_sqp_iters=2, ip_iters=6,
-                          ip_warm_duals=True)
-    cfg = lcfg.solver
-    ocp, st = as_float64(ocp_at(lcfg, lp), S.init_state(cfg, batch=lanes))
+    cfg, ocp, st = c2_solve_inputs(horizon, lanes)
     reason = FI.ineligible_reason_ip(cfg, ocp)
     require(reason is not None, f"H={horizon} is inside the IP envelope")
     ocp_d = S.map_tensors(ocp, lambda t: t.to(dev))
@@ -1851,7 +2025,8 @@ def planner_c2_solve(dev, horizon, lanes):
     ms, got = cuda_ms(lambda: FI.solve_batch_fused_ip(cfg, ocp_d, st_d,
                                                       device=dev))
     launches = {k: n for k, n in launch_counts().items() if n}
-    ref = FI.solve_batch_fused_ip(cfg, ocp, st, device="cpu")
+    ref = ref() if ref else FI.solve_batch_fused_ip(cfg, ocp, st,
+                                                    device="cpu")
     inband = {f: lanes_close(getattr(got, f).cpu(), getattr(ref, f), *band)
               for f, band in IP_BANDS.items()}
     inband["status"] = got.status.cpu() == ref.status
@@ -1872,18 +2047,32 @@ def planner_c2_solve(dev, horizon, lanes):
     return line
 
 
-def planner_c2_loop(dev, card, lanes, steps):
+def c2_loop_inputs(lanes, steps):
+    """C2's xla IP loop on the CPU: (lcfg, lanes)."""
+    lcfg, lp = bench_loop(n_lanes=lanes, device="cpu", engine="xla",
+                          **IP_WARM)
+    return dataclasses.replace(lcfg, n_steps=steps), lp
+
+
+def c2_loop_ref(lanes, steps):
+    """C2's xla IP loop on the CPU (:func:`planner_c2_loop`'s
+    reference)."""
+    from mpc_tpu_torch.planner import closed_loop as cl
+    return cl.closed_loop_batch_vec(*c2_loop_inputs(lanes, steps),
+                                    device="cpu")
+
+
+def planner_c2_loop(dev, card, lanes, steps, ref=None):
     """C2, second half: ``closed_loop_batch_vec`` with engine='xla',
     method='ip' (ip 1x4 warm, unguarded) runs ``closed_loop_batch`` on the
     per-lane solve: no kernel launches, X and U within the closed-loop
     bands of the CPU run and the same feasible lane-steps, a lane outside
     them excused only by rounding (the CPU's float32 and float64 loops part
     there), at most MAX_ROUNDING_SHARE of the lanes; solves/s as a
-    record."""
+    record.  ``ref()``: the CPU's loop (:func:`c2_loop_ref`) where it ran
+    elsewhere."""
     from mpc_tpu_torch.planner import closed_loop as cl
-    lcfg, lp = bench_loop(n_lanes=lanes, device="cpu", engine="xla",
-                          **IP_WARM)
-    lcfg = dataclasses.replace(lcfg, n_steps=steps)
+    lcfg, lp = c2_loop_inputs(lanes, steps)
     lp_d = lp.map(lambda t: t.to(dev))
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -1892,7 +2081,7 @@ def planner_c2_loop(dev, card, lanes, steps):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: n for k, n in launch_counts().items() if n}
-    ref = cl.closed_loop_batch_vec(lcfg, lp, device="cpu")
+    ref = ref() if ref else cl.closed_loop_batch_vec(lcfg, lp, device="cpu")
 
     def inband_of(a, b, bands):
         out = {f: ((getattr(a, f).cpu().double()
@@ -1982,25 +2171,172 @@ def planner_profile(dev, steps=PROFILE_STEPS):
     return line
 
 
-def phase_planner(dev, card):
-    """The scenario-to-trajectory path on the card: the two goldens, the
-    deployment through the CLI and with --rti1 (side by side), C2's two
-    routes, and the deployment loop's profile."""
-    goldens = [planner_golden(dev, c, t) for c, t in PLANNER_GOLDENS]
-    # the two CLI runs side by side, each in a process of its own
-    started = [planner_cli_start(dev, rti1) for rti1 in (False, True)]
+# The untimed section: the work no timed phase reads, run before them in
+# worker processes beside the build and beside each other, so that the
+# timed phases after it have the card and the host to themselves.
+WORKERS = 3   # processes beside this one; a task on the CPU takes 1 thread
+# the kernels' checks: (phase_seconds key, the libraries each launches,
+# the phase, its arguments after the device), the longest first
+CHECKS = (
+    ("check_fused_gn_st", ("fused_gn_st",), "phase_check", (), ST),
+    ("check_soft_corridor", ("fused_gn",), "phase_check_corridor",
+     ("soft-corridor", SOFT_CORRIDOR, 1.7), {}),
+    ("check_fused_ip_st", ("fused_ip_st",), "phase_check_ip", (), ST),
+    ("check_hard_corridor", ("fused_ip_ks_ring",), "phase_check_corridor",
+     ("hard-corridor", HARD_CORRIDOR, 1.9), {}),
+    ("check_xla_st", ("riccati",), "phase_check_sqp_vec", (), ST),
+    ("check_fused_gn", ("fused_gn",), "phase_check", (), {}),
+    ("check_riccati", ("riccati",), "phase_check_riccati", (), {}),
+    ("check_linearize", (), "phase_check_linearize", (), {}),
+    ("check_fused_ip", ("fused_ip",), "phase_check_ip", (), {}),
+    ("check_st_roads", ("fused_gn_st", "fused_ip_st"),
+     "phase_check_st_roads", (), {}),
+    ("check_xla", ("riccati",), "phase_check_sqp_vec", (), {}),
+    ("check_riccati_st", ("riccati",), "phase_check_riccati", (), ST))
+# loop_vs_plain's plain loops on the CPU, (row, float64), the longest first
+PLAIN_LOOPS = (("soft-corridor", False), ("soft-corridor", True),
+               ("hard-st", False), ("hard-corridor", False),
+               ("hard-corridor", True), ("soft-st", False),
+               ("hard-gate1", False), ("soft-xla", False),
+               ("soft-xla-backoff", False), ("hard", False),
+               ("soft", False))
+
+
+def _worker_init():
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _task(fn, args, kw):
+    """A worker's task: this module's ``fn`` on (args, kw); returns (its
+    result as ``torch.save`` writes it, the lines it emitted, its
+    seconds).  A task that raises prints its lines first."""
+    global _captured
+    _captured, t0 = [], time.perf_counter()
     try:
-        cli = [planner_cli(dev, run) for run in started]
+        out = globals()[fn](*args, **kw)
+    except BaseException:
+        lines, _captured = _captured, None
+        for line in lines:
+            emit(line)
+        raise
+    lines, _captured = _captured, None
+    buf = io.BytesIO()
+    torch.save(out, buf)
+    return buf.getvalue(), lines, time.perf_counter() - t0
+
+
+class Workers:
+    """WORKERS spawned processes running :func:`_task`; each task's result
+    comes back through the getter :meth:`submit` returns, which emits its
+    lines here and keeps its seconds in ``seconds[key]``."""
+
+    def __init__(self, seconds, n=WORKERS):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        self.pool = ProcessPoolExecutor(
+            n, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_worker_init)
+        self.seconds = seconds
+
+    def submit(self, key, fn, *args, **kw):
+        future, box = self.pool.submit(_task, fn, args, kw), []
+
+        def get():
+            if not box:
+                data, lines, self.seconds[key] = future.result()
+                for line in lines:
+                    emit(line)
+                box.append(torch.load(io.BytesIO(data), map_location="cpu",
+                                      weights_only=False))
+            return box[0]
+        return get
+
+    def close(self, kill=False):
+        """End the workers: after their tasks, or at once with ``kill``."""
+        procs = list((self.pool._processes or {}).values())
+        if kill:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        for proc in procs:
+            proc.join(10)
+
+
+def phase_untimed(dev, card, seconds, workers=WORKERS):
+    """Every piece no timed phase reads, first: the nvcc processes started
+    (``_build.start_all``) and, in ``workers`` processes beside them, C2's
+    and loop_vs_plain's plain loops on the CPU; here the planner's goldens
+    and C2 on the card (:func:`planner_golden`, :func:`planner_c2_solve`,
+    :func:`planner_c2_loop`), then each check of CHECKS whose libraries are
+    built, until all are (:func:`phase_build`); then the deployment through
+    the CLI twice (:func:`planner_cli_start`), the other checks, the
+    fleet's (:func:`fleet_forcespro_checks`) and the entry point's NCCL
+    rank (:func:`sharded_entry`) in the workers, and here loop_vs_plain's
+    rows on the card.  Each piece's seconds go into ``seconds``; every
+    worker and CLI process has ended on return.  Returns (the build line's
+    kernels, {check key: its result}, the fleet's checks, the NCCL
+    rank's)."""
+    from mpc_tpu_torch.ops import _build
+    pool = Workers(seconds, workers)
+    started = []
+    try:
+        ref = {"c2_solve": pool.submit("c2_solve_ref", "c2_solve_ref",
+                                       **C2_SOLVE),
+               "c2_loop": pool.submit("c2_loop_ref", "c2_loop_ref",
+                                      **C2_LOOP)}
+        for row, f64 in PLAIN_LOOPS:
+            ref[row, f64] = pool.submit(
+                f"plain_loop_{row}{'_f64' if f64 else ''}", "plain_loop_ref",
+                row, f64)
+        _build.start_all()
+        t0 = time.perf_counter()
+        for config, tag in PLANNER_GOLDENS:
+            planner_golden(dev, config, tag)
+        planner_c2_solve(dev, **C2_SOLVE, ref=ref["c2_solve"])
+        planner_c2_loop(dev, card, **C2_LOOP, ref=ref["c2_loop"])
+        seconds["planner_goldens_c2"] = time.perf_counter() - t0
+        checks, todo = {}, list(CHECKS)
+        while todo and not all(map(_build.done, _build.SIGNATURES)):
+            ready = [c for c in todo if all(map(_build.done, c[1]))]
+            if not ready:
+                time.sleep(0.5)
+                continue
+            todo.remove(ready[0])
+            key, _, fn, args, kw = ready[0]
+            t0 = time.perf_counter()
+            checks[key] = globals()[fn](dev, *args, **kw)
+            seconds[key] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        build = phase_build()
+        seconds["build_wait"] = time.perf_counter() - t0
+        started = [planner_cli_start(dev, rti1) for rti1 in (False, True)]
+        later = {key: pool.submit(key, fn, dev, *args, **kw)
+                 for key, _, fn, args, kw in todo}
+        fleet = pool.submit("fleet_checks", "fleet_forcespro_checks", dev)
+        entry = pool.submit("entry_one_rank", "sharded_entry", dev)
+        for row in LOOP_VS_PLAIN_ROWS:
+            t0 = time.perf_counter()
+            phase_loop_vs_plain(dev, row, lambda r=row: (
+                ref[r, False](), ref[r, True]() if (r, True) in ref
+                else None))
+            seconds[f"loop_vs_plain_{row}"] = time.perf_counter() - t0
+        checks.update({key: get() for key, get in later.items()})
+        fleet, entry = fleet(), entry()
+        for run in started:
+            planner_cli(dev, run)
+    except BaseException:
+        pool.close(kill=True)
+        raise
     finally:
         for popen, _, _ in started:
             if popen.poll() is None:
                 popen.kill()
                 popen.wait()
-    out = {"goldens": goldens, "cli": cli[0], "cli_rti1": cli[1],
-           "c2_solve": planner_c2_solve(dev, **C2_SOLVE),
-           "c2_loop": planner_c2_loop(dev, card, **C2_LOOP),
-           "profile": planner_profile(dev)}
-    return out
+    pool.close()
+    return build, checks, fleet, entry
 
 
 # The fleet phase: scenario fleets (parallel.multi) through the fused
@@ -2021,6 +2357,13 @@ LATENCY_STEPS = 5
 GOLDEN_BAND = 0.05        # a batched lane against its single run,
                           # tests/test_multi_scenario.py:36
 TRACK_BAND = 1.0          # tests/test_online.py:95-157
+# The one entry no float32 solve holds (tests/test_torch_fleet_cold_start.py):
+# at the first cold start, config 3's friction row, its lower side (h_f >= 0,
+# h_f a sum of squares), at the terminal stage, where the car drives straight
+# with a = 0, so h_f and its gradient vanish and the dual does not enter
+# stationarity: not unique (a move of 1e-6 in the inputs moves it by 1e6 in
+# the JAX package's own float64 solve).  {cold start: {config: entry}}
+FLEET_UNHELD = {0: {3: ("lam_lo", -1, 0)}}
 
 
 def fleet_configs(names):
@@ -2077,36 +2420,47 @@ def cold_start_inputs(lcfg, lp):
 def fleet_checks(dev, lcfg, lp, check_lanes, check_step):
     """The fleet's solves against their plain version, on its first
     ``check_lanes`` lanes (copies of the four configs, lane i of config
-    i % 4) unless said.  The loop's step-0 solve by :func:`compare` on
-    ``check_lanes`` copies of the three configs other than the deployment
-    (lane i % 4 != 0); its solve at ``check_step`` by :func:`compare` (at
-    step 50 the deployment's boundary rows bind).  Where the plain
-    version's own float32 and float64 solves part on whole configs' copies,
-    more than the rounding share allows, :func:`gate_calibration`
-    measures, a config each: each cold-start solve (the warm-up budget)
-    with the kernel's agreement, and step 0 (the deployment's
-    stationarity).  Returns the max abs errors of the compared solves."""
+    i % 4) unless said.  Each cold-start solve (the warm-up budget) by
+    :func:`hold_by_config`: every config on which the plain version agrees
+    with itself held, FLEET_UNHELD's entry left out; the loop's step-0
+    solve by :func:`compare` on ``check_lanes`` copies of the three
+    configs other than the deployment (lane i % 4 != 0); its solve at
+    ``check_step`` by :func:`compare` (at step 50 the deployment's
+    boundary rows bind).  Step 0, where the plain version's own float32
+    and float64 solves part on the deployment's copies (its stationarity),
+    is measured a config each by :func:`gate_calibration`.  Returns the
+    max abs errors of the held solves and the configs each cold start
+    held."""
     n = len(FLEET)
     lane = torch.arange(lp.x_init.shape[0], device=dev)
     held = lp.map(lambda t: t[lane[lane % n != 0][:check_lanes]])
     sub = lp.map(lambda t: t[:check_lanes])
+    errs, cold_held = {}, {}
     for i, (cfg, ocp, state) in enumerate(cold_start_inputs(lcfg, sub)):
-        gate_calibration(f"fleet_cold{i}_by_config", cfg, ocp, state,
-                         kernel=True, groups=n)
+        errs[f"cold{i}"], cold_held[f"cold{i}"] = hold_by_config(
+            f"fleet_cold{i}", cfg, ocp, state, n, FLEET_UNHELD.get(i))
     ins = loop_inputs(dev, lcfg, sub, (0, check_step))
     gate_calibration("fleet_step0_by_config", lcfg.solver, *ins[0],
                      kernel=True, groups=n)
-    errs = {}
     _, errs["step0"] = compare("fleet_step0", lcfg.solver,
                                *loop_inputs(dev, lcfg, held, (0,))[0])
     _, errs[f"step{check_step}"] = compare(f"fleet_step{check_step}",
                                            lcfg.solver, *ins[check_step])
-    return errs
+    return errs, cold_held
+
+
+def fleet_forcespro_checks(dev, lanes=B_FLEET,
+                           check_lanes=FLEET_CHECK_LANES,
+                           check_step=LOOP_CHECK_STEP):
+    """:func:`fleet_checks` of :func:`fleet_forcespro`'s batch, on its
+    own."""
+    lcfg, lp, _, _ = fleet_batch(dev, FLEET, lanes)
+    return fleet_checks(dev, lcfg, lp, check_lanes, check_step)
 
 
 def fleet_forcespro(dev, lanes=B_FLEET, check_lanes=FLEET_CHECK_LANES,
                     profile=FLEET_PROFILE, steps=None,
-                    check_step=LOOP_CHECK_STEP):
+                    check_step=LOOP_CHECK_STEP, checks=None):
     """(a) and (b): the four forcespro configs tiled to ``lanes`` lanes (ip
     2x6 warm duals, the 5-rung ladder, boundary rows with the dummy
     polylines 1e6 m out on three configs, moving obstacles, H=12, T=100,
@@ -2118,11 +2472,13 @@ def fleet_forcespro(dev, lanes=B_FLEET, check_lanes=FLEET_CHECK_LANES,
     bands of each other; the loop once more timed with CUDA events; a
     profiled window of steps; then ``init_batch_carry`` and T calls of
     ``closed_loop_batch_step`` fed no measurement, equal to the loop at
-    atol 0.  ``steps`` cuts T (a rehearsal)."""
+    atol 0.  ``steps`` cuts T (a rehearsal); ``checks()``: the checks'
+    result (:func:`fleet_forcespro_checks`) where they ran elsewhere."""
     from mpc_tpu_torch.planner import closed_loop as cl
     lcfg, lp, lens, cfgs = fleet_batch(dev, FLEET, lanes, steps)
     n, T = len(cfgs), lcfg.n_steps
-    check_err = fleet_checks(dev, lcfg, lp, check_lanes, check_step)
+    check_err, cold_held = (checks() if checks else fleet_checks(
+        dev, lcfg, lp, check_lanes, check_step))
 
     def loop():
         return cl.closed_loop_batch_vec(lcfg, lp, device=dev)
@@ -2173,7 +2529,7 @@ def fleet_forcespro(dev, lanes=B_FLEET, check_lanes=FLEET_CHECK_LANES,
         "ip_alphas": list(lcfg.solver.ip_alphas),
         "kernel": kernel, "launches_by_kernel": launches,
         "check_step": check_step, "check_lanes": check_lanes,
-        "check_max_abs_err": check_err,
+        "check_max_abs_err": check_err, "cold_start_configs_held": cold_held,
         "infeasible_lane_steps": int(infeasible.sum()),
         "infeasible_lanes_by_config": [
             int(infeasible[s::n].any(1).sum()) for s in range(n)],
@@ -2330,13 +2686,15 @@ def fleet_latency(dev, steps=LATENCY_STEPS):
             "status": [st for _, st in out], "launches_by_kernel": launches}
 
 
-def phase_fleet(dev, card):
+def phase_fleet(dev, card, checks=None):
     """Scenario fleets through the fused kernels and the serving API: (a)
-    and (b) :func:`fleet_forcespro`, (c) :func:`fleet_online`, (d)
+    and (b) :func:`fleet_forcespro` (``checks``: its checks' result where
+    they ran elsewhere), (c) :func:`fleet_online`, (d)
     :func:`fleet_lf_pair`, (e) :func:`fleet_latency`; one line."""
     name, limit = [s.strip() for s in card.split(",", 1)]
     line, seconds = {"phase": "fleet"}, {}
-    for piece, fn in (("forcespro", fleet_forcespro),
+    for piece, fn in (("forcespro", lambda d: fleet_forcespro(
+                          d, checks=checks)),
                       ("online", fleet_online), ("lf_pair", fleet_lf_pair),
                       ("online_latency", fleet_latency)):
         t0 = time.perf_counter()
@@ -2602,6 +2960,114 @@ def sharded_two_ranks(dev, lcfg, loop, hard, hard_ref, rank_device=None,
                         for k, v in same.items()}}
 
 
+# The one failure of the entry point's dry run at world size 1 that (e)
+# accepts, to the letter: its open-loop IP step (no stage axis) runs on the
+# fused IP kernel, which leaves lane 0 at its steering-rate bound with its
+# stationarity above the status's threshold in float32, as the JAX
+# package's Pallas kernel does on the same step (ROADMAP queue C, C4;
+# tests/test_torch_entry_world_one.py).
+ENTRY_C4 = "1/2 converged open-loop solves; status by lane [0, 1]"
+
+
+def entry_path(device=None):
+    """``entry.main``'s path (``entry.run``: the default backend and
+    device, ``entry()``, the dry run over the world).  Returns (entry's
+    (U, status) on the host, the dry run's line, or ENTRY_C4's failure as
+    text); any other failure of the dry run raises."""
+    from mpc_tpu_torch import entry
+    (U, status), dry = entry.run(device=device)
+    if isinstance(dry, AssertionError):
+        if str(dry) != ENTRY_C4:
+            raise dry
+        dry = f"AssertionError: {dry}"
+    return (U.cpu(), status.cpu()), dry
+
+
+def _entry_rank(rank, port, out_dir):
+    """(e): the entry point's default path in a rank a launcher started
+    alone (``WORLD_SIZE=1``, ``MASTER_PORT`` set, so ``init_distributed``
+    joins a group of one): ``out_dir/ref.pt``'s hook run first (its return
+    value saved), then :func:`entry_path` on its defaults under
+    ``collective_census``, the launches counted; the results go to
+    ``rank_0.pt``."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      WORLD_SIZE="1", RANK=str(rank), LOCAL_RANK=str(rank))
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mpc_tpu_torch.parallel import batch as pb
+    from mpc_tpu_torch.parallel import mesh as pm
+    out = {"rank": rank}
+    try:
+        ref = torch.load(os.path.join(out_dir, "ref.pt"), weights_only=False)
+        out["hook"] = ref["hook"](rank) if ref["hook"] is not None else None
+        (((U, status), outcome), census), launches, wall, _ = counted(
+            lambda: pb.collective_census(entry_path))
+        out.update(backend=torch.distributed.get_backend(),
+                   group_size=torch.distributed.get_world_size(),
+                   mesh_device_type=pm.make_mesh().device_mesh.device_type,
+                   U=U, status=status, dryrun=outcome, collectives=census,
+                   launches=launches, wall_s=wall)
+    except BaseException:
+        import traceback
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        torch.save(out, os.path.join(out_dir, f"rank_{rank}.pt"))
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def sharded_entry(dev, rank_device=None, hook=None):
+    """(e) ``mpc_tpu_torch.entry``'s path on its defaults
+    (:func:`entry_path`): in this process on ``dev`` (no process group:
+    the one-process run), then in one rank spawned as a launcher starts
+    one, which joins a group of one with the default backend (NCCL) on its
+    default device (``cuda:0``; ``rank_device`` where the hook moves it,
+    and then the backend it serves NCCL with, gloo on the CPU).
+    entry()'s U and status equal the one-process run's at atol 0, and so
+    does the dry run's outcome; its collectives all ran through
+    ``backend`` on that device; the mesh it makes is on the backend's
+    device type."""
+    import tempfile
+    ((ref_U, ref_status), ref_outcome), launches, wall, _ = counted(
+        lambda: entry_path(rank_device or dev))
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    torch.save({"hook": hook}, f"{out_dir}/ref.pt")
+    t0 = time.perf_counter()
+    r, = spawn_ranks(_entry_rank, out_dir, nprocs=1)
+    spawn_s = time.perf_counter() - t0
+    want = str(torch.device(rank_device or "cuda:0"))
+    backend = "nccl" if torch.device(want).type == "cuda" else "gloo"
+    census = r["collectives"]
+    where = {(c["backend"], c["device"]) for c in census}
+    require(r["backend"] == backend and r["group_size"] == 1,
+            f"entry rank: {r['backend']} group of {r['group_size']}")
+    require(r["mesh_device_type"] == torch.device(want).type,
+            f"entry rank: a mesh on {r['mesh_device_type']}")
+    require(census and where == {(backend, want)},
+            f"entry rank: collectives on {where}, want {(backend, want)}")
+    equal = {"U": bool(torch.equal(r["U"], ref_U)),
+             "status": bool(torch.equal(r["status"], ref_status)),
+             "dryrun_outcome": r["dryrun"] == ref_outcome}
+    require(all(equal.values()),
+            f"entry rank: not equal to the one-process run: {equal}")
+    require(launches["fused_gn"] > 0 and r["launches"]["fused_gn"] > 0,
+            f"entry: fused_gn launches {launches}, {r['launches']}")
+    ops = {}
+    for c in census:
+        op = ops.setdefault(c["op"], {"calls": 0, "bytes": 0})
+        op["calls"] += 1
+        op["bytes"] += c["bytes"]
+    return {"backend": r["backend"], "device": want, "group_size": 1,
+            "mesh_device_type": r["mesh_device_type"],
+            "collectives_by_op": ops, "collectives": len(census),
+            "equal_atol0": equal, "dryrun_outcome": r["dryrun"],
+            "launches": r["launches"], "one_process_launches": launches,
+            "rank_wall_s": r["wall_s"], "one_process_wall_s": wall,
+            "spawn_s": spawn_s, "hook": r["hook"]}
+
+
 def pscan_timing(dev, card, lanes=B_BENCH, horizons=PSCAN_HORIZONS):
     """(d): ms per solve of the per-lane AL path ``sqp.solve_batch`` at the
     bench point (al 1x1, alphas=()), B=16384, lqr_backend 'scan' against
@@ -2650,11 +3116,15 @@ def pscan_timing(dev, card, lanes=B_BENCH, horizons=PSCAN_HORIZONS):
 
 
 def phase_sharded(dev, card, lanes=B_BENCH, steps=SHARDED_STEPS,
-                  horizons=PSCAN_HORIZONS, rank_device=None, hook=None):
+                  horizons=PSCAN_HORIZONS, rank_device=None, hook=None,
+                  entry=None):
     """Lanes over ranks on the one card: (a) one rank (:func:`sharded_one_
     rank`), (b) and (c) two gloo ranks (:func:`sharded_two_ranks`: the soft
-    loop, the hard solve, the dry run), (d) :func:`pscan_timing`; one
-    line."""
+    loop, the hard solve, the dry run), (e) the entry point's default path
+    in one NCCL rank (:func:`sharded_entry`), (d)
+    :func:`pscan_timing`; one line.  ``hook(rank)`` runs first in every
+    rank the phase spawns; ``rank_device`` is their device; ``entry()``:
+    (e)'s result where it ran elsewhere."""
     from mpc_tpu_torch.ops import fused_ip as FI
     name, limit = [s.strip() for s in card.split(",", 1)]
     seconds = {}
@@ -2672,11 +3142,18 @@ def phase_sharded(dev, card, lanes=B_BENCH, steps=SHARDED_STEPS,
     del loop, lp, hard, hard_ref
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+    if entry:
+        entry_rank = entry()
+    else:
+        t0 = time.perf_counter()
+        entry_rank = sharded_entry(dev, rank_device, hook)
+        seconds["entry_one_rank"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     timing = pscan_timing(dev, card, lanes, horizons)
     seconds["pscan_timing"] = time.perf_counter() - t0
     line = {"phase": "sharded", "one_rank": one, "two_ranks": two,
             "dryrun_line": two["ranks"][0]["dryrun"]["line"],
+            "entry_one_rank": entry_rank,
             "pscan_timing": timing, "seconds": seconds, "gpu": name,
             "power_limit": limit}
     emit(line)
@@ -2685,12 +3162,13 @@ def phase_sharded(dev, card, lanes=B_BENCH, steps=SHARDED_STEPS,
 
 def sharded_launches(sharded, kernel):
     """A kernel's launches in each counted run of the sharded phase: (a),
-    and per rank the soft loop, the hard solve and the dry run of (b) and
-    (c)."""
+    per rank the soft loop, the hard solve and the dry run of (b) and (c),
+    and the NCCL rank's entry path (e)."""
     ranks = sharded["two_ranks"]["ranks"]
     return {"one_rank": sharded["one_rank"]["launches"][kernel],
             **{piece: [r[piece]["launches"][kernel] for r in ranks]
-               for piece in ("soft", "hard", "dryrun")}}
+               for piece in ("soft", "hard", "dryrun")},
+            "entry": sharded["entry_one_rank"]["launches"][kernel]}
 
 
 def boundary_instance_line(eng, loop, timing, warm, cold, checks, build,
@@ -2833,32 +3311,17 @@ def main() -> int:
         return out
 
     card = timed("device", phase_device)
-    build = timed("build", phase_build)
-    checks = timed("check_fused_gn", phase_check, dev)
-    checks_ip = timed("check_fused_ip", phase_check_ip, dev)
-    checks_ric = timed("check_riccati", phase_check_riccati, dev)
-    checks_vec = timed("check_xla", phase_check_sqp_vec, dev)
-    checks_st = timed("check_fused_gn_st", phase_check, dev, **ST)
-    checks_ip_st = timed("check_fused_ip_st", phase_check_ip, dev, **ST)
-    checks_roads_st, launches_roads_st = timed(
-        "check_st_roads", phase_check_st_roads, dev)
-    checks_ric_st = timed("check_riccati_st", phase_check_riccati, dev, **ST)
-    checks_vec_st = timed("check_xla_st", phase_check_sqp_vec, dev, **ST)
-    checks_sc = timed("check_soft_corridor", phase_check_corridor, dev,
-                      "soft-corridor", SOFT_CORRIDOR, 1.7)
-    checks_hc = timed("check_hard_corridor", phase_check_corridor, dev,
-                      "hard-corridor", HARD_CORRIDOR, 1.9)
-    timed("check_linearize", phase_check_linearize, dev)
-    for row, kw in (("soft", WARM), ("hard", IP_WARM),
-                    ("soft-xla", XLA_WARM),
-                    ("soft-xla-backoff", dict(rti_margin=0.1,
-                                              rti_amax_scale=0.9,
-                                              **XLA_WARM)),
-                    ("hard-gate1", dict(gate_stages=1, **IP_WARM)),
-                    ("hard-corridor", HARD_CORRIDOR),
-                    ("soft-corridor", SOFT_CORRIDOR),
-                    ("soft-st", SOFT_ST), ("hard-st", HARD_ST)):
-        timed(f"loop_vs_plain_{row}", phase_loop_vs_plain, dev, row, **kw)
+    build, chk, fleet_checks, entry = timed("untimed", phase_untimed, dev,
+                                            card, seconds)
+    checks, checks_ip = chk["check_fused_gn"], chk["check_fused_ip"]
+    checks_ric, checks_vec = chk["check_riccati"], chk["check_xla"]
+    checks_st, checks_ip_st = chk["check_fused_gn_st"], \
+        chk["check_fused_ip_st"]
+    checks_roads_st, launches_roads_st = chk["check_st_roads"]
+    checks_ric_st, checks_vec_st = chk["check_riccati_st"], \
+        chk["check_xla_st"]
+    checks_sc, checks_hc = chk["check_soft_corridor"], \
+        chk["check_hard_corridor"]
     timing = timed("timing_fused_gn", phase_timing, dev,
                    **TIMING_ROWS["soft"])
     timing_ip = timed("timing_fused_ip", phase_timing, dev,
@@ -2945,27 +3408,46 @@ def main() -> int:
                     "cold_5x10", checks_ip_st, build, st_boundary_line(
                         hard_st, *roads_st("_ip_"), build),
                     timing_ip_st["split"])]
-    timed("planner", phase_planner, dev, card)
-    fleet = timed("fleet", phase_fleet, dev, card)
-    sharded = timed("sharded", phase_sharded, dev, card)
+    timed("planner_profile", planner_profile, dev)
+    fleet = timed("fleet", phase_fleet, dev, card, lambda: fleet_checks)
+    sharded = timed("sharded", phase_sharded, dev, card,
+                    entry=lambda: entry)
     for line in kernels:
         line["fleet_launches"] = fleet_launches(fleet, line["name"])
         line["sharded_launches"] = sharded_launches(sharded, line["name"])
     print(card, flush=True)
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    teardown()
+    emit({"ok": True, "device": device})
     return 0
 
 
+def teardown():
+    """Release what the run made before the interpreter's own exit: the
+    device's queued work, any process group of this process (the ranks
+    destroy theirs, and ``spawn_ranks`` joins them), the profilers' and
+    the phases' last references, the cached device memory."""
+    torch.cuda.synchronize()
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
+    faulthandler.enable()   # a fatal signal prints its stack
     code = main()
-    # Every phase is done, every rank joined and the last line printed:
-    # leave without the interpreter's teardown, in which a library's
-    # static destructor once aborted the process after a passing run
-    # ("terminate called without an active exception", exit 134).
+    # main has torn down what it made and printed its last line.  The
+    # interpreter's own exit would now run the static destructors of the
+    # process's C++ libraries (PyTorch's and CUDA's; this repository's C++
+    # starts no thread), one of which aborts now and then with "terminate
+    # called without an active exception" after the last line (PERF.md
+    # section 7): leave without them.
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(code)

@@ -7,6 +7,8 @@ flagship configuration and a dry run of the multi-rank path.
 ``dryrun_multichip(n)`` the production multi-rank path on an n-rank
                         ('dp', 'sp') mesh, one step each on small shapes,
                         run by the n ranks that the caller started.
+``run()``               what ``main`` runs: join the ranks, ``entry()`` on
+                        rank 0, the dry run over the world.
 
     torchrun --nproc-per-node N -m mpc_tpu_torch.entry [--backend gloo]
     python -m mpc_tpu_torch.entry --device cpu     # one process, the CPU
@@ -146,8 +148,10 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     sol = pb.solve_batch_sharded(scfg8, ocp, states, mesh, device=dev)
     ssum = pb.summarize(sol, mesh)
     assert int(ssum.n_infeasible) == 0
-    assert int(ssum.n_converged) == n_lanes, (
-        f"{int(ssum.n_converged)}/{n_lanes} converged open-loop solves")
+    if int(ssum.n_converged) != n_lanes:
+        status = torch.cat(pm.all_gather(sol.status, mesh, "dp")).tolist()
+        raise AssertionError(f"{int(ssum.n_converged)}/{n_lanes} converged "
+                             f"open-loop solves; status by lane {status}")
 
     line = (f"dryrun_multichip({n_devices}): ok — closed loop "
             f"{n_lanes} lanes x {lcfg.n_steps} steps on mesh "
@@ -161,9 +165,40 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     return line
 
 
-def main(argv=None) -> int:
+def join(backend=None, device=None) -> torch.device:
+    """Join the program's ranks (``backend`` defaults to nccl, or gloo with
+    ``device='cpu'``; at world size 1 a group of one only under a
+    launcher) and take this rank's device; returns it."""
     from mpc_tpu_torch.parallel import mesh as pm
 
+    cpu = device is not None and torch.device(device).type == "cpu"
+    pm.init_distributed(backend or ("gloo" if cpu else "nccl"))
+    dev = pm.local_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def run(backend=None, device=None):
+    """``main``'s path: :func:`join`, :func:`entry` on rank 0, then
+    :func:`dryrun_multichip` over the world.  Returns (entry's (U, status)
+    on rank 0, else None; the dry run's line, or the AssertionError it
+    raised); the process group stays joined."""
+    dev = join(backend, device)
+    grouped = torch.distributed.is_initialized()
+    out = None
+    if not grouped or torch.distributed.get_rank() == 0:
+        fn, fargs = entry(device=dev)
+        out = fn(*fargs)
+    world = torch.distributed.get_world_size() if grouped else 1
+    try:
+        dry = dryrun_multichip(world, device=dev)
+    except AssertionError as e:
+        dry = e
+    return out, dry
+
+
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
                     help="process group backend (default: nccl on GPUs, "
@@ -171,21 +206,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="'cpu', or a CUDA device (default: the rank's)")
     args = ap.parse_args(argv)
-    backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
-    pm.init_distributed(backend)
-    dev = pm.local_device(args.device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    world = (torch.distributed.get_world_size()
-             if torch.distributed.is_initialized() else 1)
-    if not torch.distributed.is_initialized() or \
-            torch.distributed.get_rank() == 0:
-        fn, fargs = entry(device=dev)
-        U, _ = fn(*fargs)
-        print("entry: ran, U shape", tuple(U.shape), flush=True)
-    dryrun_multichip(world, device=dev)
+    out, dry = run(args.backend, args.device)
+    if out is not None:
+        print("entry: ran, U shape", tuple(out[0].shape), flush=True)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
+    if isinstance(dry, AssertionError):
+        raise dry
     return 0
 
 

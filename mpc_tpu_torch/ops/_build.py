@@ -9,7 +9,9 @@ with the ST model and with the KS model's boundary rows), every shared
 header ``csrc/*.cuh`` and the flags, so an edited source or header builds
 anew and an unchanged one is loaded as it is.  The fused libraries export
 the same C names; each is loaded on its own handle.
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+:func:`build_all` starts one ``nvcc`` per source, all at once;
+:func:`start_all` starts them and returns, and :func:`load` of a library
+then waits for its own ``nvcc`` alone.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import os
 import re
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -41,6 +45,10 @@ SIGNATURES = {
 _INCLUDED_SOURCE = re.compile(r'#include "(\w+\.cu)"')
 
 _loaded: dict = {}
+# name -> (library, nvcc job or None): started by start_all, not waited for
+_pending: dict = {}
+# name -> (compiler output, seconds from its start to its library in place)
+_built: dict = {}
 
 
 def nvcc() -> str:
@@ -66,47 +74,90 @@ def lib_path(name: str, csrc: Path = CSRC) -> Path:
 
 
 def _start(name: str):
-    """Start nvcc for one source unless its library exists; (path, proc)."""
+    """Start nvcc for one source unless its library exists; (path, job):
+    job None, or (process, temporary output, a thread reading its output
+    into a dict with the seconds from its start to its end)."""
     out = lib_path(name)
     if out.exists():
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return out, (proc, tmp)
+    box = {}
+
+    def read():   # drained at once, so a long log never stalls nvcc
+        box["text"] = proc.communicate()[0]
+        box["seconds"] = time.perf_counter() - t0
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return out, (proc, tmp, reader, box)
 
 
-def _finish(name: str, out: Path, job) -> str:
+def _finish(name: str, out: Path, job) -> tuple:
     """Wait for nvcc, move the library into place; returns its output
-    (``-Xptxas -v``: registers, spills, shared memory)."""
+    (``-Xptxas -v``: registers, spills, shared memory) and its seconds
+    (0.0 where the library was there before)."""
     if job is None:
         log = out.with_suffix(".log")
-        return log.read_text() if log.exists() else ""
-    proc, tmp = job
-    text, _ = proc.communicate()
+        return (log.read_text() if log.exists() else ""), 0.0
+    proc, tmp, reader, box = job
+    reader.join()
+    text = box["text"]
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{text}")
     out.with_suffix(".log").write_text(text)
     os.replace(tmp, out)
-    return text
+    return text, box["seconds"]
+
+
+def start_all(names=None) -> None:
+    """Start one nvcc per source (each not built, started or loaded yet),
+    all at once, and return; :func:`load` of a library waits for its own,
+    :func:`build_all` for all of them."""
+    for n in (list(SIGNATURES) if names is None else names):
+        if n not in _pending and n not in _built:
+            _pending[n] = _start(n)
+
+
+def done(name: str) -> bool:
+    """Whether the library of ``name`` is in place or its nvcc has ended."""
+    if name in _pending:
+        job = _pending[name][1]
+        return job is None or job[0].poll() is not None
+    return name in _built or lib_path(name).exists()
+
+
+def _wait(name: str) -> str:
+    """The compiler output of ``name``, its library in place (waiting for
+    the nvcc that :func:`start_all` started, or building it here)."""
+    if name not in _built:
+        out, job = _pending.pop(name, None) or _start(name)
+        _built[name] = _finish(name, out, job)
+    return _built[name][0]
+
+
+def seconds() -> dict:
+    """Per library built here, the seconds its nvcc ran (0.0 where the
+    library was there before)."""
+    return {n: s for n, (_, s) in _built.items()}
 
 
 def build_all(names=None) -> dict:
     """Build every kernel (one nvcc per source, in parallel); returns the
     compiler output of each."""
     names = list(SIGNATURES) if names is None else list(names)
-    jobs = {n: _start(n) for n in names}
-    return {n: _finish(n, *jobs[n]) for n in names}
+    start_all(names)
+    return {n: _wait(n) for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The bound library of ``csrc/<name>.cu``, built at first use."""
     if name not in _loaded:
-        out, job = _start(name)
-        _finish(name, out, job)
-        lib = ctypes.CDLL(str(out))
+        _wait(name)
+        lib = ctypes.CDLL(str(lib_path(name)))
         fn_name, argtypes = SIGNATURES[name]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes

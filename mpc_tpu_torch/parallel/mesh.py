@@ -51,8 +51,11 @@ census: contextvars.ContextVar = contextvars.ContextVar("census",
 def init_distributed(backend: Optional[str] = None,
                      world_size: Optional[int] = None,
                      rank: Optional[int] = None) -> None:
-    """Join this process to the program's process group (a no-op at world
-    size 1 or when it has joined already).
+    """Join this process to the program's process group (a no-op when it
+    has joined already, and at world size 1 unless a launcher started the
+    process: ``torchrun --nproc-per-node 1`` sets ``MASTER_PORT``, and
+    then the one rank joins a group of one, whose collectives run through
+    ``backend``).
 
     ``world_size`` and ``rank`` default to ``WORLD_SIZE`` and ``RANK``; the
     rendezvous is ``tcp://MASTER_ADDR:MASTER_PORT``.  ``backend`` is the
@@ -62,7 +65,8 @@ def init_distributed(backend: Optional[str] = None,
     """
     if world_size is None:
         world_size = int(os.environ.get("WORLD_SIZE", "1"))
-    if world_size <= 1 or dist.is_initialized():
+    if dist.is_initialized() or (world_size <= 1
+                                 and "MASTER_PORT" not in os.environ):
         return
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
@@ -159,11 +163,21 @@ def _record(op, mesh: Mesh, axis: str, t: torch.Tensor):
                         "backend": dist.get_backend(mesh.group(axis))})
 
 
+def _alone(mesh: Mesh, axis: str) -> bool:
+    """Whether a collective along ``axis`` is the identity: the axis holds
+    this rank alone, and the program is more than one rank or has no
+    process group (a launcher's world of one rank runs its collectives
+    through its backend)."""
+    return mesh.size(axis) == 1 and (
+        mesh.group(axis) is None or mesh.size("dp") * mesh.size("sp") > 1)
+
+
 def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str, op: str = "sum"
                ) -> torch.Tensor:
     """``t`` reduced ('sum' or 'max') over the ranks along ``axis``, the
-    ``psum``/``pmax`` of the JAX package; ``t`` itself on one rank."""
-    if mesh.size(axis) == 1:
+    ``psum``/``pmax`` of the JAX package; ``t`` itself on one rank
+    (:func:`_alone`)."""
+    if _alone(mesh, axis):
         return t
     out = t.clone()
     _record(f"all_reduce_{op}", mesh, axis, out)
@@ -173,8 +187,8 @@ def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str, op: str = "sum"
 
 def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> list:
     """Every rank's ``t`` along ``axis``, in axis order (the tensors must
-    have one shape); ``[t]`` on one rank."""
-    if mesh.size(axis) == 1:
+    have one shape); ``[t]`` on one rank (:func:`_alone`)."""
+    if _alone(mesh, axis):
         return [t]
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.size(axis))]

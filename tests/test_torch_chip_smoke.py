@@ -605,13 +605,27 @@ def test_planner_c2_rehearsal(planner_rehearsal, monkeypatch):
         cs.planner_c2_solve(dev, horizon=64, lanes=2)
 
 
+def plain_as_kernel(cfg, ocp, state):
+    """``chip_smoke.kernel_solve`` on the CPU: the plain version stands in
+    for the kernel, committing the rungs of its own float64 solve."""
+    eng = cs.engine(cfg)
+    if not eng.ladder(cfg):
+        return eng.solution(cfg, eng.plain(cfg, ocp, state), state), None
+    trace = []
+    eng.plain(cfg, *cs.as_float64(ocp, state), trace)
+    rungs = torch.stack([r for r, _ in trace])
+    return (eng.solution(cfg, eng.plain(cfg, ocp, state, follow=rungs),
+                         state), rungs)
+
+
 @pytest.fixture
 def fleet_rehearsal(planner_rehearsal, monkeypatch):
     """The fleet phase's pieces on the CPU: each fused wrapper's call
     counted as a launch of the kernel ``chip_smoke.engine`` names (on the
     CPU the wrappers run the plain version, which launches nothing), the
-    kernel checks, the float64 calibrations, the profile and the kernel's
-    geometry recorded instead of run."""
+    kernel of the cold starts' gates the plain version
+    (:func:`plain_as_kernel`), the loop's kernel checks, the profile and
+    the kernel's geometry recorded instead of run."""
     for mod, fn in ((TFI, "solve_batch_fused_ip"),
                     (TF, "solve_batch_fused")):
         def counting(cfg, params, state, device=None,
@@ -628,9 +642,11 @@ def fleet_rehearsal(planner_rehearsal, monkeypatch):
         seen["compare"].append((name, cfg, ocp))
         return None, {"X": 0.0, "U": 0.0}
 
-    def calibration(name, cfg, ocp, state, kernel=False, groups=1):
+    def calibration(name, cfg, ocp, state, kernel=False, groups=1,
+                    _real=cs.gate_calibration):
         assert kernel and groups == len(cs.FLEET)
         seen["calibration"].append((name, cfg, ocp))
+        return _real(name, cfg, ocp, state, kernel, groups)
 
     def profile(dev, row, lcfg, lp, start, window):
         seen["profile"] = (row, start, window)
@@ -640,6 +656,7 @@ def fleet_rehearsal(planner_rehearsal, monkeypatch):
                 "device_launches": 1}
     monkeypatch.setattr(cs, "compare", compare)
     monkeypatch.setattr(cs, "gate_calibration", calibration)
+    monkeypatch.setattr(cs, "kernel_solve", plain_as_kernel)
     monkeypatch.setattr(cs, "phase_profile", profile)
     return seen
 
@@ -659,7 +676,7 @@ def test_fleet_phase_names_its_kernels():
     assert lens.tolist() == [30, 70] * 4
 
 
-def test_fleet_forcespro_rehearsal(fleet_rehearsal):
+def test_fleet_forcespro_rehearsal(fleet_rehearsal, planner_rehearsal):
     """(a) and (b) at B=8, T=2: the step-0 solve of the three configs other
     than the deployment and the loop's solve at step 1 on all four held to
     the plain version, the cold starts and step 0 calibrated a config
@@ -674,7 +691,8 @@ def test_fleet_forcespro_rehearsal(fleet_rehearsal):
     assert line["infeasible_lanes_by_config"] == [2, 0, 0, 0]
     held = fleet_rehearsal["compare"]
     assert [name for name, _, _ in held] == ["fleet_step0", "fleet_step1"]
-    assert sorted(line["check_max_abs_err"]) == ["step0", "step1"]
+    assert sorted(line["check_max_abs_err"]) == ["cold0", "cold1", "step0",
+                                                 "step1"]
     name, cfg, ocp = held[0]   # lanes 1, 2, 3, 5: dummy rows only
     assert ocp.x0.shape[0] == 4 and cfg.ip_sqp_iters == 2
     assert float(ocp.boundaries[..., 1].abs().min()) > 1e5
@@ -693,6 +711,71 @@ def test_fleet_forcespro_rehearsal(fleet_rehearsal):
     assert [(c.ip_sqp_iters, c.ip_iters) for _, c, _ in calibrated] == [
         (5, 10), (5, 10), (2, 6)]
     assert fleet_rehearsal["profile"] == ("fleet", cs.GATE_STEP, 10)
+    # each cold start held config by config: the configs on which the
+    # plain version agrees with itself, the others named with their share
+    lines = {l["case"]: l for l in planner_rehearsal if "case" in l}
+    for i in (0, 1):
+        cal = lines[f"fleet_cold{i}_by_config"][
+            "plain_float32_vs_float64_lane_agreement"]
+        check = lines[f"fleet_cold{i}"]
+        held = check["configs_held"]
+        assert held and line["cold_start_configs_held"][f"cold{i}"] == held
+        out = check["configs_left_out"]
+        assert sorted(held + [int(g) for g in out]) == [0, 1, 2, 3]
+        for g in range(4):
+            shares = [v[g] for v in cal.values()]
+            assert (min(shares) >= 1 - cs.MAX_ROUNDING_SHARE) == (g in held)
+        for g, why in out.items():
+            assert why["plain_float32_vs_float64_lanes_parted"] > \
+                cs.MAX_ROUNDING_SHARE
+        assert check["lanes"] == len(held)
+        assert set(check["lane_agreement"]) >= {"lam_lo", "lam_hi", "U"}
+
+
+def _departing_kernel(config, entry, by=1.0):
+    """:func:`plain_as_kernel` with lam_lo doubled and moved by ``by`` on
+    the copies of ``config`` (lane % 4) at ``entry`` (stage, row), or
+    everywhere."""
+    def solve(cfg, ocp, state):
+        ker, rungs = plain_as_kernel(cfg, ocp, state)
+        lam = ker.state.lam_lo.clone()
+        lanes = torch.arange(len(lam)) % len(cs.FLEET) == config
+        if entry is None:
+            lam[lanes] = 2 * lam[lanes] + by
+        else:
+            lam[lanes, entry[0], entry[1]] = \
+                2 * lam[lanes, entry[0], entry[1]] + by
+        return ker._replace(state=ker.state._replace(lam_lo=lam)), rungs
+    return solve
+
+
+@pytest.fixture
+def fleet_cold0(fleet_rehearsal):
+    """The fleet's first cold-start inputs on one copy of each config."""
+    lcfg, lp, _, _ = cs.fleet_batch(torch.device("cpu"), cs.FLEET, 4, 2)
+    return cs.cold_start_inputs(lcfg, lp)[0]
+
+
+def test_fleet_cold_start_departure_fails_the_phase(fleet_cold0,
+                                                    monkeypatch,
+                                                    planner_rehearsal):
+    """A kernel whose lam_lo departs on a held config's copies fails the
+    cold start's gate; at FLEET_UNHELD's entry alone it passes, that
+    entry's departure reported."""
+    cfg, ocp, state = fleet_cold0
+    monkeypatch.setattr(cs, "kernel_solve", _departing_kernel(1, None))
+    with pytest.raises(cs.CheckFailed, match="lam_lo"):
+        cs.hold_by_config("fleet_cold0", cfg, ocp, state, 4)
+    (g, (dual, *entry)), = cs.FLEET_UNHELD[0].items()
+    monkeypatch.setattr(cs, "kernel_solve", _departing_kernel(g, entry))
+    errs, held = cs.hold_by_config("fleet_cold0", cfg, ocp, state, 4,
+                                   cs.FLEET_UNHELD[0])
+    assert g in held and errs[dual] < cs.IP_STATE_BANDS[dual][1]
+    unheld = planner_rehearsal[-1]["unheld"][dual]
+    assert (unheld["entries_a_lane"], unheld["lanes"]) == (1, 1)
+    assert unheld["max_abs_err"] > cs.IP_STATE_BANDS[dual][1]
+    with pytest.raises(cs.CheckFailed, match=dual):
+        cs.hold_by_config("fleet_cold0", cfg, ocp, state, 4)
 
 
 def test_fleet_online_and_lf_rehearsal(fleet_rehearsal):
@@ -733,10 +816,23 @@ def test_sharded_phase_rehearsal(sharded_rehearsal, planner_rehearsal):
     card = "NVIDIA H100 80GB HBM3, 700.00 W"
     line = cs.phase_sharded(torch.device("cpu"), card, lanes=4, steps=2,
                             horizons=(6,), rank_device="cpu",
-                            hook=torch_ranks.count_fused_calls)
+                            hook=torch_ranks.ranks_on_cpu)
     assert planner_rehearsal[-1] is line and line["phase"] == "sharded"
-    assert sorted(line["seconds"]) == ["one_rank", "pscan_timing",
-                                       "two_ranks"]
+    assert sorted(line["seconds"]) == ["entry_one_rank", "one_rank",
+                                       "pscan_timing", "two_ranks"]
+    # (e): one rank spawned as a launcher starts it, entry's default path
+    # asking for NCCL (served by gloo here), equal to the one-process run:
+    # entry's results, and the dry run's outcome, here its open-loop IP
+    # step's failed every-lane assertion (tests/test_torch_entry_world_one)
+    entry = line["entry_one_rank"]
+    assert entry["hook"]["requested_backends"] == ["nccl"]
+    assert (entry["backend"], entry["group_size"], entry["device"],
+            entry["mesh_device_type"]) == ("gloo", 1, "cpu", "cpu")
+    assert all(entry["equal_atol0"].values())
+    assert entry["dryrun_outcome"] == f"AssertionError: {cs.ENTRY_C4}"
+    ops = entry["collectives_by_op"]
+    assert set(ops) == {"all_reduce_sum", "all_reduce_max", "all_gather"}
+    assert min(op["bytes"] for op in ops.values()) > 0
     one = line["one_rank"]
     assert one["mesh"] == {"dp": 1, "sp": 1} and one["collectives"] == []
     # four cold starts and two steps, a launch each
@@ -765,8 +861,10 @@ def test_sharded_phase_rehearsal(sharded_rehearsal, planner_rehearsal):
     gn = cs.sharded_launches(line, "fused_gn")
     assert gn["one_rank"] == 6 and gn["soft"] == [6, 6]
     assert gn["hard"] == [0, 0] and min(gn["dryrun"]) > 0
+    assert gn["entry"] > 0
     ip = cs.sharded_launches(line, "fused_ip")
     assert ip["hard"] == [1, 1] and ip["dryrun"] == [0, 0]
+    assert ip["entry"] == 1   # the dry run's open-loop IP step, no sp axis
     assert cs.sharded_launches(line, "riccati")["soft"] == [0, 0]
 
 

@@ -256,3 +256,23 @@ def fail_on_rank_one(rank):
     """A rank that fails before it joins the process group."""
     if rank == 1:
         raise RuntimeError("rank 1 fails on purpose")
+
+
+def ranks_on_cpu(rank):
+    """In every rank of ``chip_smoke.phase_sharded`` on the CPU: each
+    fused wrapper's call counted as a launch (:func:`count_fused_calls`);
+    a request for NCCL, which the entry point's default path makes on its
+    rank's GPU, recorded and served by gloo, and the rank's default device
+    the CPU.  Returns the record (the entry piece's rank saves it)."""
+    import torch.distributed as dist
+    from mpc_tpu_torch.parallel import mesh as pm
+    count_fused_calls(rank)
+    seen = {"requested_backends": []}
+    real_init, real_device = dist.init_process_group, pm.local_device
+
+    def init(backend=None, **kw):
+        seen["requested_backends"].append(backend)
+        return real_init("gloo" if backend == "nccl" else backend, **kw)
+    dist.init_process_group = init
+    pm.local_device = lambda device=None: real_device(device or "cpu")
+    return seen
