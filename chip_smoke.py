@@ -3447,7 +3447,11 @@ if __name__ == "__main__":
     # process's C++ libraries (PyTorch's and CUDA's; this repository's C++
     # starts no thread), one of which aborts now and then with "terminate
     # called without an active exception" after the last line (PERF.md
-    # section 7): leave without them.
+    # section 7): leave without them.  Its library is unnamed: fifteen runs
+    # to the normal exit on an H100 under a handler that prints the native
+    # stack at std::terminate and SIGABRT (twelve of this process's profile
+    # phase on the hard-corridor window, three of the whole script) did
+    # not abort.
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(code)

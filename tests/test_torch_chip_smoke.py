@@ -1,7 +1,9 @@
-"""The choices ``chip_smoke.py`` makes on the card, checked on the CPU: the
-tolerance of its ladder-rung gate, and the track its loop phases run on."""
+"""The choices ``chip_smoke.py`` makes on the card, checked on the CPU.
+The tolerance of its ladder-rung gate and the track its loop phases run
+on are ``tests/test_torch_chip_smoke_gates.py``; the rehearsals of its
+planner, fleet and sharded phases
+``tests/test_torch_chip_smoke_phases.py``."""
 import dataclasses
-import types
 
 import numpy as np
 import pytest
@@ -18,10 +20,6 @@ from mpc_tpu_torch.utils import synthetic as tsyn
 H = 30
 
 
-def _f64(t):
-    return t.double() if t.is_floating_point() else t
-
-
 def test_rung_regret_follows_the_ladder_rule():
     """Regret against the first rung of least merit; a NaN trial never
     wins, and a NaN merit at alpha = 0 keeps the iterate."""
@@ -31,77 +29,6 @@ def test_rung_regret_follows_the_ladder_rule():
     reg = cs.rung_regret(torch.tensor([0, 1, 2]), m)
     assert reg[0] == pytest.approx(0.5) and reg[1] == float("inf")
     assert reg[2] == pytest.approx(3.0)
-
-
-@pytest.mark.parametrize("mode,al_iters,sqp_iters,step", [
-    ("forcespro", 3, 4, 0), ("casadi", 2, 2, 1)])
-def test_rung_gate_passes_rounding_and_catches_a_stuck_ladder(
-        mode, al_iters, sqp_iters, step):
-    """The plain version's float32 rung choices, replayed in float64 at the
-    bench shape, lose at most TIE_RTOL of the best merit, and the two solves
-    then agree within the check's bands on every lane.  A ladder stuck at
-    alpha = 0 loses far more."""
-    B = 16
-    lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, H, B, mode=mode,
-                                    device="cpu", al_iters=al_iters,
-                                    sqp_iters=sqp_iters)
-    cfg = lcfg.solver
-    ocp = cs.ocp_at(lcfg, lp, step)
-    st = TS.init_state(cfg, batch=B)
-    r32, r64 = [], []
-    o32 = TF.to_solution(cfg, TF.solve_batch_fused_plain(cfg, ocp, st, r32))
-    follow = torch.stack([r for r, _ in r32])
-    ocp64 = ocp._replace(x0=_f64(ocp.x0), x_ref=_f64(ocp.x_ref),
-                         obs_centers=_f64(ocp.obs_centers),
-                         min_dist=_f64(ocp.min_dist),
-                         weights=ocp.weights.map(_f64))
-    o64 = TF.to_solution(cfg, TF.solve_batch_fused_plain(
-        cfg, ocp64, st.map(_f64), r64, follow=follow))
-    regret = max(float(cs.rung_regret(c, m).max())
-                 for c, (_, m) in zip(follow, r64))
-    print(f"{mode}: float32 rungs under float64 merits, regret {regret:.3g}")
-    assert regret <= cs.TIE_RTOL
-    for f, (rtol, atol) in cs.BANDS.items():
-        assert bool(cs.lanes_close(getattr(o32, f), getattr(o64, f).float(),
-                                   rtol, atol).all()), f
-    assert torch.equal(o32.status, o64.status)
-    stuck = []
-    TF.solve_batch_fused_plain(cfg, ocp, st, stuck,
-                               follow=torch.zeros_like(follow))
-    stuck_regret = max(float(cs.rung_regret(torch.zeros_like(c), m).max())
-                       for c, (_, m) in zip(follow, stuck))
-    assert stuck_regret > 100 * cs.TIE_RTOL
-
-
-def test_loop_phases_use_a_track_where_rounding_does_not_part_lanes():
-    """On the 10-step bench track the obstacle lies within a horizon of the
-    start: the plain loop has infeasible steps there, and in float32 and in
-    float64 it parts by far more than the loop check's bands.  On the
-    bench's 100-step track, which chip_smoke.py uses, every step is
-    feasible and float32 and float64 agree within those bands for the first
-    10 steps."""
-    B, T = 16, 10
-    errs = {}
-    for track_steps in (10, cs.T_BENCH):
-        lcfg, lp = tsyn.make_bench_loop(track_steps, H, B, device="cpu",
-                                        **cs.WARM)
-        lcfg = dataclasses.replace(lcfg, n_steps=T)
-        r32 = tcl.closed_loop_batch_vec(lcfg, lp, device="cpu")
-        r64 = tcl.closed_loop_batch_vec(lcfg, lp.map(_f64), device="cpu")
-        errs[track_steps] = (
-            float((r32.X.double() - r64.X).abs().max()),
-            float((r32.U.double() - r64.U).abs().max()),
-            bool(torch.equal(r32.status >= 0, r64.status >= 0)),
-            int((r32.status < 0).sum()))
-        print(f"track of {track_steps} steps: float32 vs float64 X "
-              f"{errs[track_steps][0]:.3g} U {errs[track_steps][1]:.3g} "
-              f"equal feasibility {errs[track_steps][2]}, "
-              f"{errs[track_steps][3]} of {B * T} float32 steps infeasible")
-    short, bench = errs[10], errs[cs.T_BENCH]
-    assert short[3] > 0
-    assert short[0] > 5e-2 or short[1] > 5e-3 or not short[2]
-    assert bench == (pytest.approx(0.0, abs=5e-2),
-                     pytest.approx(0.0, abs=5e-3), True, 0)
 
 
 def _ocp64(ocp, st):
@@ -568,99 +495,6 @@ def test_corridor_loop_line_counts_active_rows(monkeypatch):
     assert line["max_lateral_y"] == pytest.approx(2.8)
 
 
-@pytest.fixture
-def planner_rehearsal(monkeypatch):
-    """The planner phase's pieces on the CPU: the device clocks stubbed,
-    the lines collected."""
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    monkeypatch.setattr(cs, "cuda_ms", lambda fn: (1.0, fn()))
-    lines = []
-    monkeypatch.setattr(cs, "emit", lines.append)
-    return lines
-
-
-def test_planner_golden_rehearsal(planner_rehearsal):
-    """The golden piece: the IP golden's float64 loop on the device asked
-    for, within its atol, with no kernel launched."""
-    config, tag = cs.PLANNER_GOLDENS[1]
-    line = cs.planner_golden(torch.device("cpu"), config, tag)
-    assert line["max_abs_dX"] < cs.GOLDEN_ATOL and not line["kernel_launches"]
-    assert planner_rehearsal == [line]
-
-
-def test_planner_c2_rehearsal(planner_rehearsal, monkeypatch):
-    """C2's pieces at small shapes: the IP wrapper past its envelope and
-    the xla IP loop take the per-lane path, launch nothing and agree with
-    the CPU (here, themselves); a route that launched a kernel fails."""
-    dev = torch.device("cpu")
-    line = cs.planner_c2_solve(dev, horizon=64, lanes=2)
-    assert line["lanes_outside_bands"] == 0 and line["dtype"] == "float64"
-    assert "H <= 63" in line["reason"]
-    loop = cs.planner_c2_loop(dev, "NVIDIA H100 80GB HBM3, 700.00 W",
-                              lanes=2, steps=2)
-    assert loop["feasible_steps"] == loop["feasible_steps_cpu"] == 4
-    assert loop["rounding_lanes"] == 0 and not loop["kernel_launches"]
-    monkeypatch.setattr(cs, "launch_counts", lambda: {"fused_ip": 1})
-    with pytest.raises(cs.CheckFailed, match="launched kernels"):
-        cs.planner_c2_solve(dev, horizon=64, lanes=2)
-
-
-def plain_as_kernel(cfg, ocp, state):
-    """``chip_smoke.kernel_solve`` on the CPU: the plain version stands in
-    for the kernel, committing the rungs of its own float64 solve."""
-    eng = cs.engine(cfg)
-    if not eng.ladder(cfg):
-        return eng.solution(cfg, eng.plain(cfg, ocp, state), state), None
-    trace = []
-    eng.plain(cfg, *cs.as_float64(ocp, state), trace)
-    rungs = torch.stack([r for r, _ in trace])
-    return (eng.solution(cfg, eng.plain(cfg, ocp, state, follow=rungs),
-                         state), rungs)
-
-
-@pytest.fixture
-def fleet_rehearsal(planner_rehearsal, monkeypatch):
-    """The fleet phase's pieces on the CPU: each fused wrapper's call
-    counted as a launch of the kernel ``chip_smoke.engine`` names (on the
-    CPU the wrappers run the plain version, which launches nothing), the
-    kernel of the cold starts' gates the plain version
-    (:func:`plain_as_kernel`), the loop's kernel checks, the profile and
-    the kernel's geometry recorded instead of run."""
-    for mod, fn in ((TFI, "solve_batch_fused_ip"),
-                    (TF, "solve_batch_fused")):
-        def counting(cfg, params, state, device=None,
-                     _real=getattr(mod, fn)):
-            cs._launchers()[cs.engine(cfg).name].launches += 1
-            return _real(cfg, params, state, device=device)
-        monkeypatch.setattr(mod, fn, counting)
-    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
-    monkeypatch.setattr(TF, "geometry", lambda cfg, B: {"lanes": B})
-    seen = {"compare": [], "calibration": []}
-
-    def compare(name, cfg, ocp, state):
-        seen["compare"].append((name, cfg, ocp))
-        return None, {"X": 0.0, "U": 0.0}
-
-    def calibration(name, cfg, ocp, state, kernel=False, groups=1,
-                    _real=cs.gate_calibration):
-        assert kernel and groups == len(cs.FLEET)
-        seen["calibration"].append((name, cfg, ocp))
-        return _real(name, cfg, ocp, state, kernel, groups)
-
-    def profile(dev, row, lcfg, lp, start, window):
-        seen["profile"] = (row, start, window)
-        return {"window_steps": "", "device_busy_ms": 1.0, "kernel_ms": 0.5,
-                "kernel_launches_seen": window, "copy_kernels_ms": 0.0,
-                "linearize_boundaries_kernels_ms": 0.2,
-                "device_launches": 1}
-    monkeypatch.setattr(cs, "compare", compare)
-    monkeypatch.setattr(cs, "gate_calibration", calibration)
-    monkeypatch.setattr(cs, "kernel_solve", plain_as_kernel)
-    monkeypatch.setattr(cs, "phase_profile", profile)
-    return seen
-
-
 def test_fleet_phase_names_its_kernels():
     """The forcespro fleet runs the KS ring library with the boundary rows
     (fused_ip_ks_ring) and the casadi pair fused_gn's ladder instance."""
@@ -676,198 +510,6 @@ def test_fleet_phase_names_its_kernels():
     assert lens.tolist() == [30, 70] * 4
 
 
-def test_fleet_forcespro_rehearsal(fleet_rehearsal, planner_rehearsal):
-    """(a) and (b) at B=8, T=2: the step-0 solve of the three configs other
-    than the deployment and the loop's solve at step 1 on all four held to
-    the plain version, the cold starts and step 0 calibrated a config
-    each; a launch a solve, the infeasible step of the deployment config's
-    copies held to the plain loop, the copies in agreement and the serving
-    chain equal to the loop."""
-    line = cs.fleet_forcespro(torch.device("cpu"), lanes=8, check_lanes=4,
-                              steps=2, check_step=1)
-    assert line["launches_by_kernel"]["fused_ip_ks_ring"] == 4
-    assert line["serving"]["launches_by_kernel"]["fused_ip_ks_ring"] == 4
-    assert line["copies_agreement"] == [1.0] * 4
-    assert line["infeasible_lanes_by_config"] == [2, 0, 0, 0]
-    held = fleet_rehearsal["compare"]
-    assert [name for name, _, _ in held] == ["fleet_step0", "fleet_step1"]
-    assert sorted(line["check_max_abs_err"]) == ["cold0", "cold1", "step0",
-                                                 "step1"]
-    name, cfg, ocp = held[0]   # lanes 1, 2, 3, 5: dummy rows only
-    assert ocp.x0.shape[0] == 4 and cfg.ip_sqp_iters == 2
-    assert float(ocp.boundaries[..., 1].abs().min()) > 1e5
-    name, cfg, ocp = held[1]
-    assert line["check_step"] == 1 and cfg.ip_sqp_iters == 2
-    assert ocp.x0.shape[0] == 4 and ocp.obs_centers.dim() == 4
-    assert float(ocp.boundaries[1:, ..., 1].abs().min()) > 1e5
-    assert float(ocp.boundaries[0, ..., 1].abs().max()) < 1e3
-    calibrated = fleet_rehearsal["calibration"]
-    assert [name for name, _, _ in calibrated] == [
-        "fleet_cold0_by_config", "fleet_cold1_by_config",
-        "fleet_step0_by_config"]
-    for name, cfg, ocp in calibrated:   # lanes 0-3: a copy of each config
-        assert ocp.x0.shape[0] == 4, name
-        assert float(ocp.boundaries[0, ..., 1].abs().max()) < 1e3, name
-    assert [(c.ip_sqp_iters, c.ip_iters) for _, c, _ in calibrated] == [
-        (5, 10), (5, 10), (2, 6)]
-    assert fleet_rehearsal["profile"] == ("fleet", cs.GATE_STEP, 10)
-    # each cold start held config by config: the configs on which the
-    # plain version agrees with itself, the others named with their share
-    lines = {l["case"]: l for l in planner_rehearsal if "case" in l}
-    for i in (0, 1):
-        cal = lines[f"fleet_cold{i}_by_config"][
-            "plain_float32_vs_float64_lane_agreement"]
-        check = lines[f"fleet_cold{i}"]
-        held = check["configs_held"]
-        assert held and line["cold_start_configs_held"][f"cold{i}"] == held
-        out = check["configs_left_out"]
-        assert sorted(held + [int(g) for g in out]) == [0, 1, 2, 3]
-        for g in range(4):
-            shares = [v[g] for v in cal.values()]
-            assert (min(shares) >= 1 - cs.MAX_ROUNDING_SHARE) == (g in held)
-        for g, why in out.items():
-            assert why["plain_float32_vs_float64_lanes_parted"] > \
-                cs.MAX_ROUNDING_SHARE
-        assert check["lanes"] == len(held)
-        assert set(check["lane_agreement"]) >= {"lam_lo", "lam_hi", "U"}
-
-
-def _departing_kernel(config, entry, by=1.0):
-    """:func:`plain_as_kernel` with lam_lo doubled and moved by ``by`` on
-    the copies of ``config`` (lane % 4) at ``entry`` (stage, row), or
-    everywhere."""
-    def solve(cfg, ocp, state):
-        ker, rungs = plain_as_kernel(cfg, ocp, state)
-        lam = ker.state.lam_lo.clone()
-        lanes = torch.arange(len(lam)) % len(cs.FLEET) == config
-        if entry is None:
-            lam[lanes] = 2 * lam[lanes] + by
-        else:
-            lam[lanes, entry[0], entry[1]] = \
-                2 * lam[lanes, entry[0], entry[1]] + by
-        return ker._replace(state=ker.state._replace(lam_lo=lam)), rungs
-    return solve
-
-
-@pytest.fixture
-def fleet_cold0(fleet_rehearsal):
-    """The fleet's first cold-start inputs on one copy of each config."""
-    lcfg, lp, _, _ = cs.fleet_batch(torch.device("cpu"), cs.FLEET, 4, 2)
-    return cs.cold_start_inputs(lcfg, lp)[0]
-
-
-def test_fleet_cold_start_departure_fails_the_phase(fleet_cold0,
-                                                    monkeypatch,
-                                                    planner_rehearsal):
-    """A kernel whose lam_lo departs on a held config's copies fails the
-    cold start's gate; at FLEET_UNHELD's entry alone it passes, that
-    entry's departure reported."""
-    cfg, ocp, state = fleet_cold0
-    monkeypatch.setattr(cs, "kernel_solve", _departing_kernel(1, None))
-    with pytest.raises(cs.CheckFailed, match="lam_lo"):
-        cs.hold_by_config("fleet_cold0", cfg, ocp, state, 4)
-    (g, (dual, *entry)), = cs.FLEET_UNHELD[0].items()
-    monkeypatch.setattr(cs, "kernel_solve", _departing_kernel(g, entry))
-    errs, held = cs.hold_by_config("fleet_cold0", cfg, ocp, state, 4,
-                                   cs.FLEET_UNHELD[0])
-    assert g in held and errs[dual] < cs.IP_STATE_BANDS[dual][1]
-    unheld = planner_rehearsal[-1]["unheld"][dual]
-    assert (unheld["entries_a_lane"], unheld["lanes"]) == (1, 1)
-    assert unheld["max_abs_err"] > cs.IP_STATE_BANDS[dual][1]
-    with pytest.raises(cs.CheckFailed, match=dual):
-        cs.hold_by_config("fleet_cold0", cfg, ocp, state, 4)
-
-
-def test_fleet_online_and_lf_rehearsal(fleet_rehearsal):
-    """(c), (d) and (e) cut short: the disturbed fleet against itself on
-    the CPU, the casadi pair within its goldens, the online planner with
-    no launch."""
-    dev = torch.device("cpu")
-    online = cs.fleet_online(dev, steps=2)
-    assert online["launches_by_kernel"]["fused_ip_ks_ring"] == 4
-    assert online["max_abs_err_X_vs_plain"] == 0.0
-    lf = cs.fleet_lf_pair(dev, lanes=4, steps=3)
-    assert lf["launches_by_kernel"]["fused_gn"] == 3
-    assert lf["step_ms"] == pytest.approx(1.0 / 3)   # the stubbed clock
-    assert lf["geometry"] == {"lanes": 4}
-    assert max(lf["max_abs_err_xy_vs_golden"].values()) < cs.GOLDEN_BAND
-    latency = cs.fleet_latency(dev, steps=1)
-    assert not any(latency["launches_by_kernel"].values())
-
-
-@pytest.fixture
-def sharded_rehearsal(fleet_rehearsal, monkeypatch):
-    """The sharded phase's pieces on the CPU: the fleet rehearsal's stubs,
-    one geometry for every batch (the fused kernels' instance then does
-    not depend on B, so the ranks are held at atol 0)."""
-    one = {"threads_per_lane": 4, "lanes_per_block": 12}
-    monkeypatch.setattr(TF, "geometry", lambda cfg, B: one)
-    monkeypatch.setattr(TFI, "geometry", lambda cfg, B: one)
-
-
-def test_sharded_phase_rehearsal(sharded_rehearsal, planner_rehearsal):
-    """(a) to (d) at B=4, T=2 and H=6: the one-rank loop equal to
-    ``closed_loop_batch_vec``, two gloo ranks spawned (the CPU standing in
-    for their ``cuda:0``) launching fused_gn and fused_ip and equal at
-    atol 0, the dry run's line (its engine-sharded loop on fused_gn, its
-    IP solve on the per-lane path), scan against pscan; its line's names
-    and budgets, and the kernels line's ``sharded_launches``."""
-    from tests import torch_ranks
-    card = "NVIDIA H100 80GB HBM3, 700.00 W"
-    line = cs.phase_sharded(torch.device("cpu"), card, lanes=4, steps=2,
-                            horizons=(6,), rank_device="cpu",
-                            hook=torch_ranks.ranks_on_cpu)
-    assert planner_rehearsal[-1] is line and line["phase"] == "sharded"
-    assert sorted(line["seconds"]) == ["entry_one_rank", "one_rank",
-                                       "pscan_timing", "two_ranks"]
-    # (e): one rank spawned as a launcher starts it, entry's default path
-    # asking for NCCL (served by gloo here), equal to the one-process run:
-    # entry's results, and the dry run's outcome, here its open-loop IP
-    # step's failed every-lane assertion (tests/test_torch_entry_world_one)
-    entry = line["entry_one_rank"]
-    assert entry["hook"]["requested_backends"] == ["nccl"]
-    assert (entry["backend"], entry["group_size"], entry["device"],
-            entry["mesh_device_type"]) == ("gloo", 1, "cpu", "cpu")
-    assert all(entry["equal_atol0"].values())
-    assert entry["dryrun_outcome"] == f"AssertionError: {cs.ENTRY_C4}"
-    ops = entry["collectives_by_op"]
-    assert set(ops) == {"all_reduce_sum", "all_reduce_max", "all_gather"}
-    assert min(op["bytes"] for op in ops.values()) > 0
-    one = line["one_rank"]
-    assert one["mesh"] == {"dp": 1, "sp": 1} and one["collectives"] == []
-    # four cold starts and two steps, a launch each
-    assert one["kernel"] == "fused_gn" and one["launches"]["fused_gn"] == 6
-    assert one["equal_atol0"] == ["X", "U", "status"]
-    two = line["two_ranks"]
-    assert two["applied"] == {"fused_gn": "atol 0", "fused_ip": "atol 0"}
-    for r, rank in enumerate(two["ranks"]):
-        assert (rank["rank"], rank["backend"], rank["device"]) == (
-            r, "gloo", "cpu")
-        assert rank["mesh"] == {"dp": 2, "sp": 1}
-        assert rank["soft"]["lanes_per_rank"] == 2
-        assert all(rank["soft"]["equal"].values())
-        assert all(rank["hard"]["equal"].values())
-        assert {c["op"] for c in rank["soft"]["collectives"]} == {
-            "all_gather"}
-        assert rank["dryrun"]["collective_backends"] == ["gloo"]
-        assert "all_gather" in rank["dryrun"]["collective_ops"]
-    assert line["dryrun_line"].startswith("dryrun_multichip(2): ok")
-    assert "sp (pscan sharded)" in line["dryrun_line"]
-    row, = line["pscan_timing"]["rows"]
-    assert (row["horizon"], row["batch"], row["budget"]) == (6, 4, "al 1x1")
-    assert row["scan"]["ms"] == row["pscan"]["ms"] == 1.0  # stubbed clock
-    assert row["lanes_within_band"] == 1.0
-    assert line["power_limit"] == "700.00 W"
-    gn = cs.sharded_launches(line, "fused_gn")
-    assert gn["one_rank"] == 6 and gn["soft"] == [6, 6]
-    assert gn["hard"] == [0, 0] and min(gn["dryrun"]) > 0
-    assert gn["entry"] > 0
-    ip = cs.sharded_launches(line, "fused_ip")
-    assert ip["hard"] == [1, 1] and ip["dryrun"] == [0, 0]
-    assert ip["entry"] == 1   # the dry run's open-loop IP step, no sp axis
-    assert cs.sharded_launches(line, "riccati")["soft"] == [0, 0]
-
-
 def test_ranks_share_the_one_card(monkeypatch):
     """Two ranks on a machine with one card both take ``cuda:0``."""
     from mpc_tpu_torch.parallel import mesh as pm
@@ -875,16 +517,3 @@ def test_ranks_share_the_one_card(monkeypatch):
     for rank in ("0", "1"):
         monkeypatch.setenv("LOCAL_RANK", rank)
         assert pm.local_device() == torch.device("cuda", 0)
-
-
-def test_a_failing_rank_fails_the_sharded_phase(sharded_rehearsal):
-    """A rank that raises stops the others and fails the phase."""
-    from tests import torch_ranks
-    lcfg, _, hard = cs.sharded_rows(torch.device("cpu"), 2, 1)
-    done = types.SimpleNamespace(X=torch.zeros(2, 1, 5),
-                                 U=torch.zeros(2, 1, 2),
-                                 status=torch.zeros(2, 1))
-    with pytest.raises(cs.CheckFailed, match="a sharded rank failed"):
-        cs.sharded_two_ranks(torch.device("cpu"), lcfg, done, hard, done,
-                             rank_device="cpu",
-                             hook=torch_ranks.fail_on_rank_one)

@@ -1,5 +1,8 @@
-"""The port's batched closed loop (CPU) against the JAX package's, plus the
-reference windows, the benchmark workload and the envelope guards."""
+"""The port's batched closed loop (CPU) against the JAX package's: the
+reference windows, the benchmark workload and the engines it selects.
+The loops themselves against JAX's are
+``tests/test_torch_closed_loop_jax.py``; the envelope guards and the
+status gate ``tests/test_torch_closed_loop_envelope.py``."""
 import dataclasses
 
 import jax
@@ -8,7 +11,6 @@ import numpy as np
 import pytest
 import torch
 
-from mpc_tpu.planner import closed_loop as jcl
 from mpc_tpu.planner import reference as jref
 from mpc_tpu.utils import synthetic as jsyn
 from mpc_tpu_torch import convert
@@ -16,101 +18,6 @@ from mpc_tpu_torch.ops import sqp as TS
 from mpc_tpu_torch.planner import closed_loop as tcl
 from mpc_tpu_torch.planner import reference as tref
 from mpc_tpu_torch.utils import synthetic as tsyn
-
-
-H_LOOP, B_LOOP, T_LOOP = 10, 4, 20
-
-
-def jax_loop(**kw):
-    """JAX's make_bench_loop at the bench budget (al 1x1, the unguarded
-    step) on the non-chaotic overtake workload, and its closed loop (on the
-    CPU its lanes-trailing XLA engine, sqp_vec)."""
-    lcfg, lp = jsyn.make_bench_loop(n_steps=T_LOOP, horizon=H_LOOP,
-                                    n_lanes=B_LOOP, method="al", al_iters=1,
-                                    sqp_iters=1, alphas=(), **kw)
-    return lcfg, lp, jcl.closed_loop_batch_vec(lcfg, lp)
-
-
-@pytest.fixture(scope="module")
-def jax_soft_loop():
-    return jax_loop()
-
-
-def assert_loop_close(got, ref, status="feasibility"):
-    """The closed-loop bands: X 5e-2, U 5e-3, and equal feasibility (or
-    equal status codes)."""
-    err_x = np.abs(np.asarray(ref.X) - got.X.numpy()).max()
-    err_u = np.abs(np.asarray(ref.U) - got.U.numpy()).max()
-    print(f"closed loop max abs err: X {err_x:.3g}  U {err_u:.3g}")
-    assert got.X.shape == (B_LOOP, T_LOOP, 5)
-    assert got.status.shape == (B_LOOP, T_LOOP)
-    assert err_x < 5e-2 and err_u < 5e-3
-    if status == "codes":
-        np.testing.assert_array_equal(got.status.numpy(),
-                                      np.asarray(ref.status))
-    else:
-        np.testing.assert_array_equal(got.status.numpy() >= 0,
-                                      np.asarray(ref.status) >= 0)
-
-
-def port_loop(lcfg, lp, **solver_kw):
-    tl = convert.loop_config(lcfg)
-    tl = dataclasses.replace(tl, solver=dataclasses.replace(tl.solver,
-                                                            **solver_kw))
-    return tcl.closed_loop_batch_vec(tl, convert.loop_params(lp),
-                                     device="cpu")
-
-
-def test_closed_loop_matches_jax_on_the_bench_workload(jax_soft_loop):
-    """Non-chaotic overtake workload at the bench budget (al 1x1, the
-    unguarded step), params carried over from JAX's make_bench_loop; the
-    port's fused engine (its plain version on the CPU)."""
-    lcfg, lp, ref = jax_soft_loop
-    assert_loop_close(port_loop(lcfg, lp), ref)
-
-
-def test_xla_closed_loop_matches_jax_on_the_bench_workload(jax_soft_loop):
-    """The same loop on the port's ``engine='xla'`` (sqp_vec, the plain
-    sweep on the CPU), against the JAX loop, which runs its own sqp_vec on
-    the CPU: the same algorithm, so the status codes agree too."""
-    lcfg, lp, ref = jax_soft_loop
-    assert_loop_close(port_loop(lcfg, lp, engine="xla"), ref, "codes")
-
-
-@pytest.mark.parametrize("kw", [dict(gate_stages=1),
-                                dict(rti_margin=0.3, rti_amax_scale=0.9)],
-                         ids=["gate_stages", "backoff"])
-def test_gated_and_backoff_loops_match_jax(kw):
-    """The status gate on stages 0..1, and the RTI backoffs (the solver
-    sees min_dist + 0.3 and 0.9 a_max; the status is re-gated over the
-    full plan against the true problem), on the xla engine against JAX's
-    loops with the same knobs."""
-    # one cold start: JAX traces every cold-start solve into the loop's
-    # program, and compiling four of them is most of this test's time
-    lcfg, lp, ref = jax_loop(cold_start_solves=1, **kw)
-    got = port_loop(lcfg, lp, engine="xla")
-    assert_loop_close(got, ref, "codes")
-
-
-def test_hard_closed_loop_matches_jax_on_the_bench_workload():
-    """The hard row of the bench (ip 1x4, warm duals, the unguarded step;
-    5x10 warm-ups) on the non-chaotic overtake workload, against the JAX
-    loop (on the CPU its vmapped ``sqp._solve_ip``), with the soft case's
-    bands."""
-    H, B, T = 10, 4, 20
-    lcfg, lp = jsyn.make_bench_loop(n_steps=T, horizon=H, n_lanes=B,
-                                    method="ip", ip_sqp_iters=1, ip_iters=4,
-                                    ip_warm_duals=True, ip_alphas=())
-    ref = jcl.closed_loop_batch_vec(lcfg, lp)
-    got = tcl.closed_loop_batch_vec(convert.loop_config(lcfg),
-                                    convert.loop_params(lp), device="cpu")
-    err_x = np.abs(np.asarray(ref.X) - got.X.numpy()).max()
-    err_u = np.abs(np.asarray(ref.U) - got.U.numpy()).max()
-    print(f"hard closed loop max abs err: X {err_x:.3g}  U {err_u:.3g}")
-    assert got.X.shape == (B, T, 5) and got.status.shape == (B, T)
-    assert err_x < 5e-2 and err_u < 5e-3
-    np.testing.assert_array_equal(got.status.numpy() >= 0,
-                                  np.asarray(ref.status) >= 0)
 
 
 @pytest.mark.parametrize("mode", ["forcespro", "casadi"])
@@ -238,53 +145,6 @@ def test_ip_warmup_budget_is_5x10_and_selects_the_ip_kernel():
     assert tcl._warmup_cfg(lcfg2).ip_iters == 4
 
 
-# boundary rows without boundary data raise the JAX package's ValueError
-NO_DATA = (ValueError, "boundaries")
-# engine='xla' reads no lqr_backend (mpc_tpu/ops/sqp_vec.py): 'pscan' is
-# the 'scan' loop at atol 0
-SCAN = "same loop as lqr_backend='scan'"
-
-
-@pytest.mark.parametrize("solver_kw,loop_kw,raises", [
-    (dict(method="ip", boundary_rows=True), {}, NO_DATA),
-    (dict(boundary_rows=True), {}, NO_DATA),
-    (dict(engine="xla", lqr_backend="pscan"), {}, SCAN),
-    (dict(engine="xla", method="ip", ip_sqp_iters=1, ip_iters=2), {}, None),
-    (dict(engine="fused", boundary_rows=True), {}, NO_DATA),
-], ids=["ip", "boundary_rows", "xla-pscan", "xla-ip", "fused-boundary_rows"])
-def test_out_of_envelope_raises(solver_kw, loop_kw, raises):
-    """The envelope's edges: ``engine='xla'`` with ``method='ip'`` runs the
-    loop on the per-lane solve (``closed_loop_batch``, as the JAX package
-    falls back there); ``lqr_backend='pscan'`` on ``engine='xla'`` is the
-    'scan' loop at atol 0, since that engine reads no ``lqr_backend`` (as
-    in the JAX package); boundary rows without boundary data (the bench
-    loop has none) raise the ``ValueError`` that the JAX package raises
-    there."""
-    lcfg, p = tsyn.make_bench_loop(3, 4, 2, device="cpu")
-    lcfg = dataclasses.replace(
-        lcfg, solver=dataclasses.replace(lcfg.solver, **solver_kw),
-        **loop_kw)
-    if raises == SCAN:
-        scan = dataclasses.replace(lcfg, solver=dataclasses.replace(
-            lcfg.solver, lqr_backend="scan"))
-        got = tcl.closed_loop_batch_vec(lcfg, p, device="cpu")
-        ref = tcl.closed_loop_batch_vec(scan, p, device="cpu")
-        for f in tcl.LoopResult._fields:
-            assert torch.equal(getattr(got, f), getattr(ref, f)), f
-        return
-    if raises is None:
-        assert tcl.select_engine(lcfg.solver) is TS.solve_batch
-        got = tcl.closed_loop_batch_vec(lcfg, p, device="cpu")
-        ref = tcl.closed_loop_batch(lcfg, p, device="cpu")
-        assert got.X.shape == (2, 3, 5)
-        for f in tcl.LoopResult._fields:
-            assert torch.equal(getattr(got, f), getattr(ref, f)), f
-        return
-    error, match = raises
-    with pytest.raises(error, match=match):
-        tcl.closed_loop_batch_vec(lcfg, p, device="cpu")
-
-
 @pytest.mark.parametrize("solver_kw,engine", [
     (dict(engine="xla"), "solve_batch_vec"),
     ({}, "solve_batch_fused"),
@@ -313,50 +173,3 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for():
     lcfg, p = tsyn.make_bench_loop(3, 4, 2, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         tcl.closed_loop_batch_vec(lcfg, p)
-
-
-def _gate_fixture():
-    """A bench OCP at H=6 over 4 lanes with the obstacle off the path, a
-    feasible plan rolled out from U = 0, and the same plan with the ego put
-    on the obstacle at stage 1 (lanes 1, 3) or at stage 4 (lane 2):
-    (jcfg, numpy OCP, X, U)."""
-    from tests.test_torch_fused_gn import ocp_numpy
-    from mpc_tpu.ops import sqp as JS
-    H, B = 6, 4
-    jcfg = JS.SolverConfig(horizon=H)
-    d = ocp_numpy(H, B, seed=0)
-    d["obs_centers"] = d["obs_centers"] + np.float32(60.0)  # off the path
-    U = np.zeros((B, H, 2), np.float32)
-    X = np.asarray(jax.vmap(lambda x0, u: JS._rollout(jcfg, x0, u))(
-        jnp.asarray(d["x0"]), jnp.asarray(U))).copy()
-    X[[1, 3], 1, :2] = d["obs_centers"][[1, 3], 0]
-    X[2, 4, :2] = d["obs_centers"][2, 0]
-    return jcfg, d, X, U
-
-
-@pytest.mark.parametrize("g", [1, 6], ids=["stages-0-1", "full-plan"])
-def test_gated_status_matches_jax(g):
-    """Hand-built plans: -7 becomes 0 where the gated stages are feasible
-    (lane 0; lane 2 only under the stage-1 gate, its violation sits at
-    stage 4), and 0 or 1 become -7 where they violate (lanes 1, 3), against
-    JAX's per-lane ``_gated_status`` under vmap."""
-    from mpc_tpu.ops import sqp as JS
-    from tests.test_torch_fused_gn import jax_ocp
-    jcfg, d, X, U = _gate_fixture()
-    status = np.array([-7, 0, -7, 1], np.int32)
-    B = len(status)
-    z = np.zeros((B,), np.float32)
-    jsol = JS.Solution(X=jnp.asarray(X), U=jnp.asarray(U), state=None,
-                       status=jnp.asarray(status), kkt_stat=z, viol=z,
-                       cost=z, merit=z)
-    ref = jax.vmap(lambda o, s: jcl._gated_status(jcfg, o, s, g),
-                   in_axes=(0, JS.Solution(0, 0, None, 0, 0, 0, 0, 0)))(
-        jax_ocp(d), jsol)
-    tsol = TS.Solution(X=torch.from_numpy(X), U=torch.from_numpy(U),
-                       state=None, status=torch.from_numpy(status),
-                       kkt_stat=None, viol=None, cost=None, merit=None)
-    got = tcl._gated_status(convert.solver_config(jcfg),
-                            convert.ocp_params(d), tsol, g)
-    assert got.tolist() == np.asarray(ref).tolist()
-    want = [0, -7, 0, -7] if g == 1 else [0, -7, -7, -7]
-    assert got.tolist() == want

@@ -2,33 +2,20 @@
 localhost (``tests/torch_ranks.py``), against the same work in one process
 and against the JAX package.
 
-Two spawns: two ranks run every two-rank check at once (the mesh and its
-errors, the lane split, the sharded solve, the noised sharded loop, the
-per-rank checkpoint, the collective census, the stage-sharded sweep on a
-(1, 2) mesh and ``dryrun_multichip(2)``); four ranks the mesh shapes of
-four, an uneven stage split over sp=4 and ``dryrun_multichip(4)``.
+Two spawns (``tests/torch_rank_fixtures.py``): two ranks run every
+two-rank check at once (the mesh and its errors, the lane split, the
+sharded solve, the noised sharded loop, the per-rank checkpoint, the
+collective census, the stage-sharded sweep on a (1, 2) mesh and
+``dryrun_multichip(2)``); four ranks the mesh shapes of four, an uneven
+stage split over sp=4 and ``dryrun_multichip(4)``, held in
+``tests/test_torch_distributed_four.py``.
 """
 import numpy as np
 import pytest
 import torch
 
-from tests import torch_ranks
 from tests.test_torch_fused_gn import jax_ocp, jax_state, ocp_numpy
-
-H, B = 8, 8
-
-
-@pytest.fixture(scope="module")
-def two(tmp_path_factory):
-    out = tmp_path_factory.mktemp("two_ranks")
-    torch.save(ocp_numpy(H, B, seed=7), out / "inputs.pt")
-    return torch_ranks.spawn(torch_ranks.two_rank_checks, 2, out)
-
-
-@pytest.fixture(scope="module")
-def four(tmp_path_factory):
-    return torch_ranks.spawn(torch_ranks.four_rank_checks, 4,
-                             tmp_path_factory.mktemp("four_ranks"))
+from torch_rank_fixtures import B, H, two  # noqa: F401 (a fixture)
 
 
 def test_mesh_of_two_ranks(two):
@@ -39,21 +26,6 @@ def test_mesh_of_two_ranks(two):
         assert (dp, sp) == ((0, 1), (r,))
         assert len(res["mesh_errors"]) == 3
         assert all("!= world size 2" in e for e in res["mesh_errors"])
-
-
-def test_mesh_of_four_ranks(four):
-    for r, res in enumerate(four):
-        shape, coords, dp, sp = res["shapes"]["(2, 2)"]
-        assert shape == {"dp": 2, "sp": 2}
-        assert coords == {"dp": r // 2, "sp": r % 2}
-        assert dp == (r % 2, 2 + r % 2) and sp == (r - r % 2, r - r % 2 + 1)
-        assert res["shapes"]["None"][0] == {"dp": 4, "sp": 1}
-        assert res["shapes"]["(1, 4)"][1] == {"dp": 0, "sp": r}
-        assert len(res["errors"]) == 3
-        # all_reduce over dp sums ranks r % 2 and 2 + r % 2; all_gather
-        # over sp returns the sp group's ranks in order
-        assert res["dp_sum"] == 2 * (r % 2) + 2
-        assert res["sp_gather"] == [r - r % 2, r - r % 2 + 1]
 
 
 def test_lanes_split_and_gather(two):
@@ -141,21 +113,3 @@ def test_stage_sharded_sweep_matches_sequential(two, key, tol):
         errs = res[key]
         assert max(errs[:2]) < tol, errs
         assert max(errs[2:]) < (tol if tol < 1e-3 else 5e-2), errs
-
-
-def test_stage_split_over_four_ranks(four):
-    """13 elements over sp=4 (4 + 3 + 3 + 3) at float64."""
-    for res in four:
-        assert max(res["sweep12_sp4"]) < 1e-9, res["sweep12_sp4"]
-
-
-def test_dryrun_multichip_two_and_four(two, four):
-    assert two[0]["dryrun"].startswith(
-        "dryrun_multichip(2): ok — closed loop 2 lanes x 6 steps on mesh "
-        "{'dp': 1, 'sp': 2}, stage axis sp (pscan sharded)")
-    assert two[0]["dryrun"].endswith("open-loop batch 2/2 converged")
-    assert four[0]["dryrun"].startswith(
-        "dryrun_multichip(4): ok — closed loop 4 lanes x 6 steps on mesh "
-        "{'dp': 2, 'sp': 2}")
-    assert four[0]["dryrun"].endswith("open-loop batch 4/4 converged")
-    assert {r["dryrun"] for r in two} == {two[0]["dryrun"]}

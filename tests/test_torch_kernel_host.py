@@ -11,13 +11,12 @@ waits, and each block has its own buffer for ``extern __shared__``.  Its C
 entry point is called through ctypes on the packed CPU buffers.  The card's build (``nvcc``) and timing
 are ``chip_smoke.py``'s; this holds the source's arithmetic, the buffer
 layout and the ctypes binding to the plain version wherever a host
-compiler is present.
+compiler is present.  The stand-in, the build and the calls are
+``tests/torch_host_kernels.py``; the fused sources' solves at their
+budgets are ``tests/test_torch_kernel_host_{gn,ip,st,rings}.py``.
 """
 import ctypes
 import dataclasses
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -32,271 +31,12 @@ from mpc_tpu_torch.ops import riccati_kernel as TRK
 from mpc_tpu_torch.ops import riccati_vec as TRV
 from mpc_tpu_torch.ops import sqp as TS
 from mpc_tpu_torch.ops import sqp_vec as TSV
-from mpc_tpu_torch.utils import synthetic as tsyn
-
-SHIM = """#pragma once
-#define HOST_KERNEL_SHIM
-#include <barrier>
-#include <cmath>
-#include <condition_variable>
-#include <mutex>
-#include <cstddef>
-#include <cstdint>
-#include <cstring>
-#include <math.h>
-#include <memory>
-#include <thread>
-#include <vector>
-#define __device__
-#define __host__
-#define __global__
-#define __forceinline__ inline
-#define __noinline__
-#define __grid_constant__
-#define __launch_bounds__(...)
-typedef void* cudaStream_t;
-struct HostDim { unsigned x; };
-// A block's threads run as std::threads; a warp's threads meet at a
-// std::barrier, which also carries __shfl_*_sync's exchange.
-struct HostWarp {
-  explicit HostWarp(int n) : bar(n) {}
-  std::barrier<> bar;
-  uint32_t x[32];
-};
-// bar.arrive / bar.sync with an id and a thread count: a generation
-// counter per id and block.
-struct HostNamed {
-  std::mutex m;
-  std::condition_variable cv;
-  int count = 0;
-  unsigned gen = 0;
-};
-static thread_local HostDim blockIdx, threadIdx, blockDim;
-static thread_local HostNamed* host_named;
-inline void host_named_barrier(int id, int n, bool wait) {
-  HostNamed& b = host_named[id];
-  std::unique_lock<std::mutex> lk(b.m);
-  const unsigned g = b.gen;
-  if (++b.count == n) {
-    b.count = 0;
-    ++b.gen;
-    b.cv.notify_all();
-  } else if (wait) {
-    b.cv.wait(lk, [&] { return b.gen != g; });
-  }
-}
-static thread_local HostWarp* host_warp;
-static thread_local std::barrier<>* host_block;
-static thread_local void* host_smem;
-inline void __syncwarp(unsigned = 0xffffffffu) { host_warp->bar.arrive_and_wait(); }
-inline void __syncthreads() { host_block->arrive_and_wait(); }
-inline void __threadfence_block() {}
-template <class T> T host_shfl(T v, int src) {
-  static_assert(sizeof(T) == 4, "32-bit shuffles only");
-  std::memcpy(&host_warp->x[threadIdx.x % 32], &v, 4);
-  host_warp->bar.arrive_and_wait();
-  T r;
-  std::memcpy(&r, &host_warp->x[src], 4);
-  host_warp->bar.arrive_and_wait();
-  return r;
-}
-template <class T> T __shfl_sync(unsigned, T v, int src) { return host_shfl(v, src); }
-template <class T> T __shfl_xor_sync(unsigned, T v, int m) {
-  return host_shfl(v, (int)(threadIdx.x % 32) ^ m);
-}
-template <class F>
-void host_launch(unsigned blocks, unsigned threads, size_t smem, F body) {
-  for (unsigned bi = 0; bi < blocks; ++bi) {
-    std::vector<double> buf(smem / sizeof(double) + 1);
-    std::vector<std::unique_ptr<HostWarp>> warps;
-    for (unsigned w = 0; w * 32 < threads; ++w)
-      warps.emplace_back(new HostWarp(threads - w * 32 < 32 ? threads - w * 32 : 32));
-    std::barrier<> block((std::ptrdiff_t)threads);
-    std::unique_ptr<HostNamed[]> named(new HostNamed[16]);
-    std::vector<std::thread> ts;
-    for (unsigned ti = 0; ti < threads; ++ti)
-      ts.emplace_back([&, ti] {
-        blockIdx.x = bi; threadIdx.x = ti; blockDim.x = threads;
-        host_warp = warps[ti / 32].get(); host_block = &block;
-        host_smem = buf.data(); host_named = named.get();
-        body();
-        host_warp->bar.arrive_and_drop();
-        block.arrive_and_drop();
-      });
-    for (auto& t : ts) t.join();
-  }
-}
-enum { cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-       cudaFuncAttributePreferredSharedMemoryCarveout,
-       cudaDevAttrMaxSharedMemoryPerBlockOptin,
-       cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-       cudaDevAttrMultiProcessorCount };
-struct cudaFuncAttributes { int numRegs; };
-inline int cudaGetLastError() { return 0; }
-inline int cudaGetDevice(int* d) { *d = 0; return 0; }
-inline int cudaDeviceGetAttribute(int* v, int attr, int) {
-  *v = attr == cudaDevAttrMultiProcessorCount ? 132 : 232448;
-  return 0;
-}
-template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
-template <class K> int cudaFuncGetAttributes(cudaFuncAttributes* f, K) {
-  f->numRegs = 0; return 0;
-}
-template <class K>
-int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
-  *n = 1; return 0;
-}
-"""
-# every kernel launch line, run on the host by host_launch
-LAUNCH = re.compile(r"([\w<>]+)<<<(\w+), (\w+), (\w+), \(cudaStream_t\)stream"
-                    r">>>\(([^;]*)\);")
-LOOP = r"host_launch(\2, \3, \4, [&] { \1(\5); });"
-# dynamic shared memory: the block's host buffer
-SMEM = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
-SMEM_HOST = r"\1* \2 = (\1*)host_smem;"
-H, B = 8, 5
-
+from torch_host_kernels import (B, H, ST, assert_close, bench_ocp,
+                                build_host_libs, host_gn, host_ip, run_host)
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler (g++) to build the kernels with")
-    out = tmp_path_factory.mktemp("host_kernels")
-    (out / "cuda_runtime.h").write_text(SHIM)
-    for header in _build.CSRC.glob("*.cuh"):
-        shutil.copy(header, out / header.name)
-    # every source with its launch line run by host_launch, so that a
-    # source that includes another (fused_gn_st.cu) includes the host copy
-    launches = {}
-    for src in _build.CSRC.glob("*.cu"):
-        text, launches[src.name] = LAUNCH.subn(LOOP, src.read_text())
-        (out / src.name).write_text(SMEM.sub(SMEM_HOST, text))
-    jobs = {}
-    for name in _build.SIGNATURES:
-        text = (_build.CSRC / f"{name}.cu").read_text()
-        n = launches[f"{name}.cu"] + sum(
-            launches[i] for i in _build._INCLUDED_SOURCE.findall(text))
-        assert n == 1, f"{name}.cu: expected one kernel launch line"
-        lib = out / f"lib{name}.so"
-        jobs[name] = (lib, subprocess.Popen(
-            [cxx, "-O1", "-std=c++20", "-shared", "-fPIC", "-pthread",
-             "-ffp-contract=off", "-I", str(out), "-x", "c++", "-o",
-             str(lib), str(out / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    libs = {}
-    for name, (lib, proc) in jobs.items():
-        log, _ = proc.communicate(timeout=600)
-        assert proc.returncode == 0, log.decode()[-4000:]
-        libs[name] = ctypes.CDLL(str(lib))
-    return libs
-
-
-def run_host(libs, name, args, bufs, order):
-    fn = getattr(libs[name], _build.SIGNATURES[name][0])
-    fn.restype = ctypes.c_int
-    ptrs = [ctypes.c_void_p(bufs[n].data_ptr() if n in bufs else 0)
-            for n in order]
-    assert fn(ctypes.byref(args), *ptrs, ctypes.c_void_p(0)) == 0
-
-
-def host_gn(libs, cfg, ocp, st, threads_per_lane=2):
-    """The AL source of ``cfg``'s model on the host: 32 lanes and
-    ``threads_per_lane`` warps a block (B=5 lanes leave the block
-    ragged)."""
-    bufs = TF.pack(cfg, ocp, st, trace_rungs=True)
-    run_host(libs, TF.kernel_name(cfg), TF.kernel_args(
-        cfg, ocp.x0.shape[0], ocp.obs_centers.dim() == 4, threads_per_lane),
-        bufs, TF.KERNEL_ORDER)
-    sol = TF.to_solution(cfg, TF.unpack(bufs))
-    # the status the kernel writes is to_solution's, from its diagnostics
-    assert torch.equal(bufs["status"], sol.status)
-    return bufs, sol
-
-
-def host_ip(libs, cfg, ocp, st, lanes_per_block=2):
-    """The IP library of ``cfg`` on the host (``ip_library``): fused_ip.cu
-    a block of ``lanes_per_block`` warps (B=5 lanes leave the last block
-    ragged), the ring source (ST; KS with the boundary rows) a block of 32
-    lanes and 4 warps (B=5 lanes of 32)."""
-    bufs = TFI.pack_ip(cfg, ocp, st, trace_rungs=True)
-    ring = TFI.ring_kernel(cfg)
-    run_host(libs, TFI.ip_library(cfg), TFI.kernel_args_ip(
-        cfg, ocp.x0.shape[0], ocp.obs_centers.dim() == 4,
-        0 if ring else lanes_per_block), bufs,
-        TFI.KERNEL_ORDER_RING if ring else TFI.KERNEL_ORDER)
-    return bufs, TFI.to_solution_ip(cfg, TFI.unpack_ip(bufs), st.mu)
-
-
-def bench_ocp(mode="forcespro", moving=False, horizon=H, **kw):
-    lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, horizon, B, mode=mode,
-                                    device="cpu", **kw)
-    ocp = cs.ocp_at(lcfg, lp, step=1 if mode == "casadi" else 0)
-    if moving:
-        drift = torch.arange(horizon + 1.0)[:, None, None] * torch.tensor(
-            [0.3, 0.05])
-        ocp = ocp._replace(obs_centers=ocp.obs_centers[:, None] + drift)
-    return lcfg.solver, ocp
-
-
-def assert_close(ker, pln, bands, state_bands):
-    for f, band in bands.items():
-        assert bool(cs.lanes_close(getattr(ker, f), getattr(pln, f),
-                                   *band).all()), f
-    for f, band in state_bands.items():
-        assert bool(cs.lanes_close(getattr(ker.state, f),
-                                   getattr(pln.state, f), *band).all()), f
-    assert torch.equal(ker.status, pln.status)
-
-
-AL_CASES = {
-    "cold-3x4": dict(al_iters=3, sqp_iters=4, alphas=()),
-    "ladder-2x2": dict(al_iters=2, sqp_iters=2),
-    "casadi-euler-ladder": dict(mode="casadi", al_iters=2, sqp_iters=2),
-    "moving-2x2": dict(moving=True, al_iters=2, sqp_iters=2, alphas=()),
-}
-
-
-@pytest.mark.parametrize("case", list(AL_CASES))
-def test_fused_gn_source_matches_the_plain_version(host_libs, case):
-    cfg, ocp = bench_ocp(**AL_CASES[case])
-    st = TS.init_state(cfg, batch=B)
-    bufs, ker = host_gn(host_libs, cfg, ocp, st)
-    pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
-        cfg, ocp, st, follow=bufs.get("rung")))
-    assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
-
-
-def test_fused_gn_source_with_binding_rows(host_libs):
-    """The obstacle 2.5 m beside the reference's last stage: its circle
-    rows bind, so the multipliers, the penalties' growth on stalled rows
-    and the violations that the updates between AL iterations compute
-    shape the solve."""
-    cfg, ocp = bench_ocp(al_iters=3, sqp_iters=2, alphas=())
-    ahead = ocp.x_ref[:, H, None, :2] + torch.tensor(
-        [[0.0, 2.5], [1.5, 2.5], [-1.5, 2.5]])
-    ocp = ocp._replace(obs_centers=ahead.contiguous())
-    st = TS.init_state(cfg, batch=B)
-    _, ker = host_gn(host_libs, cfg, ocp, st, 4)
-    pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(cfg, ocp, st))
-    assert bool((pln.state.mu > cfg.mu0).any())      # a penalty grew
-    assert bool((pln.state.lam_lo > 0).any())        # a multiplier is on
-    assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
-    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
-                               rtol=0.0, atol=1e-3)
-
-
-def test_fused_gn_source_ragged_lanes_and_strided_stages(host_libs):
-    """B=5 lanes in a block of 32 (the other 27 threads of every warp past
-    the last lane) at 4 and 8 threads a lane, H=40: 41 stages, so each
-    thread owns 5 to 11 of them, with moving obstacles and the ladder on."""
-    cfg, ocp = bench_ocp(horizon=40, moving=True, al_iters=2, sqp_iters=2)
-    st = TS.init_state(cfg, batch=B)
-    for threads_per_lane in (4, 8):
-        bufs, ker = host_gn(host_libs, cfg, ocp, st, threads_per_lane)
-        pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
-            cfg, ocp, st, follow=bufs.get("rung")))
-        assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
+    return build_host_libs(tmp_path_factory)
 
 
 @pytest.mark.parametrize("horizon,threads_per_lane,boundary",
@@ -322,66 +62,6 @@ def test_fused_gn_shared_memory_footprint_matches_the_source(
     assert geo(ctypes.byref(TF.kernel_args(cfg, 64, False,
                                            threads_per_lane)), out) == 0
     assert (out[0], out[2], out[3]) == (threads_per_lane, want, 32 * want)
-
-
-IP_CASES = {
-    "cold-5x10": dict(method="ip", ip_sqp_iters=5, ip_iters=10,
-                      ip_alphas=()),
-    "ladder-2x6-warm-duals": dict(method="ip", ip_sqp_iters=2, ip_iters=6,
-                                  ip_warm_duals=True),
-    "casadi-euler-ladder": dict(mode="casadi", method="ip", ip_sqp_iters=2,
-                                ip_iters=4),
-    "moving-2x6": dict(moving=True, method="ip", ip_sqp_iters=2, ip_iters=6,
-                       ip_alphas=()),
-}
-
-
-@pytest.mark.parametrize("case", list(IP_CASES))
-def test_fused_ip_source_matches_the_plain_version(host_libs, case):
-    cfg, ocp = bench_ocp(**IP_CASES[case])
-    st = TS.init_state(cfg, batch=B)
-    bufs, ker = host_ip(host_libs, cfg, ocp, st)
-    pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
-        cfg, ocp, st, follow=bufs.get("rung")), st.mu)
-    assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
-    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
-                               rtol=0.0, atol=1e-3)
-
-
-def test_fused_ip_source_warm_start_and_in_place_state(host_libs):
-    """The bench point: warm ip 1x4 from the cold-start state; the kernel
-    writes U and the duals in place and leaves the caller's state alone."""
-    cfg, ocp = bench_ocp(method="ip", ip_sqp_iters=5, ip_iters=10,
-                         ip_alphas=())
-    _, cold = host_ip(host_libs, cfg, ocp, TS.init_state(cfg, batch=B))
-    warm_cfg = dataclasses.replace(cfg, ip_sqp_iters=1, ip_iters=4,
-                                   ip_warm_duals=True)
-    before = cold.state.map(torch.clone)
-    bufs, ker = host_ip(host_libs, warm_cfg, ocp, cold.state)
-    for a, b in zip(cold.state, before):
-        assert torch.equal(a, b)
-    assert ker.U.data_ptr() == bufs["U"].data_ptr()
-    pln = TFI.to_solution_ip(warm_cfg, TFI.solve_batch_fused_ip_plain(
-        warm_cfg, ocp, cold.state), cold.state.mu)
-    assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
-    assert bool((ker.status >= 0).all())
-
-
-def test_fused_ip_source_ragged_lanes_and_strided_stages(host_libs):
-    """B=5 lanes at 2 and 4 lanes a block (the last block ragged), H=40:
-    41 stages over the warp's 32 threads, so threads 0..8 own two stages
-    each (the strided path of the kernel), with moving obstacles and the
-    ladder on."""
-    cfg, ocp = bench_ocp(horizon=40, moving=True, method="ip",
-                         ip_sqp_iters=2, ip_iters=3, ip_warm_duals=True)
-    st = TS.init_state(cfg, batch=B)
-    for lanes_per_block in (2, 4):
-        bufs, ker = host_ip(host_libs, cfg, ocp, st, lanes_per_block)
-        pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
-            cfg, ocp, st, follow=bufs.get("rung")), st.mu)
-        assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
-        torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
-                                   rtol=0.0, atol=1e-3)
 
 
 @pytest.mark.parametrize("horizon,boundary", [
@@ -414,70 +94,6 @@ def test_fused_ip_shared_memory_footprint_matches_the_source(host_libs,
         assert TFI.ring_part_floats(True) == 4 * 4 * 20 > 6 * 43
     else:
         assert out[5] == min(12, TFI.SMEM_PER_BLOCK // want)
-
-
-def corridor_ocp(**kw):
-    """B=5 lanes at H=12 on the bending road of ``chip_smoke`` (the bench
-    loop's step 32, in the swerve), 1.3 m either side of the reference, so
-    that the boundary rows bind."""
-    lcfg, lp = tsyn.make_bench_loop(cs.T_BENCH, 12, B, device="cpu",
-                                    boundary_rows=True, **kw)
-    return lcfg.solver, cs.on_curved_road(lcfg, lp, 1.3)
-
-
-def test_fused_gn_source_with_boundary_rows(host_libs):
-    """The AL source's boundary instance (3x2 with the ladder, B=5 ragged,
-    4 threads a lane) on a bending road whose rows bind: their multipliers
-    and penalties move."""
-    cfg, ocp = corridor_ocp(al_iters=3, sqp_iters=2)
-    st = TS.init_state(cfg, batch=B)
-    bufs, ker = host_gn(host_libs, cfg, ocp, st, 4)
-    pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
-        cfg, ocp, st, follow=bufs.get("rung")))
-    assert cs.active_boundary_rows(cfg, pln.X, ocp.boundaries,
-                                   ocp.boundary_signs) > 0
-    assert bool((pln.state.lam_lo[..., TF.NR:] > 0).any())
-    assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
-    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
-                               rtol=0.0, atol=1e-3)
-
-
-def test_fused_ip_source_with_boundary_rows(host_libs):
-    """The KS IP library with the boundary rows, the ring source's instance
-    (2x6, warm duals, the ladder, B=5 lanes of a block of 32), on a bending
-    road whose rows bind."""
-    cfg, ocp = corridor_ocp(method="ip", ip_sqp_iters=2, ip_iters=6,
-                            ip_warm_duals=True)
-    st = TS.init_state(cfg, batch=B)
-    bufs, ker = host_ip(host_libs, cfg, ocp, st)
-    pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
-        cfg, ocp, st, follow=bufs.get("rung")), st.mu)
-    assert cs.active_boundary_rows(cfg, pln.X, ocp.boundaries,
-                                   ocp.boundary_signs) > 0
-    assert bool((pln.state.lam_lo[..., TF.NR:] > 1.0).any())
-    assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
-    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
-                               rtol=0.0, atol=1e-3)
-
-
-def test_fused_ip_ks_ring_ragged_lanes_at_the_corridor_horizon(host_libs):
-    """The KS ring library at the hard-corridor row's horizon (H=14: 15
-    stages over a block's 4 warps) and its warm-up budget (5x10, warm
-    duals, the default ladder), B=5 lanes of a block of 32, moving
-    obstacles, inside a road 4 m either side of the reference."""
-    cfg, ocp = bench_ocp(horizon=14, moving=True, method="ip",
-                         ip_sqp_iters=5, ip_iters=10, ip_warm_duals=True,
-                         boundary_rows=True)
-    ocp = cs.with_road_boundaries(ocp)
-    assert TFI.ip_library(cfg) == "fused_ip_ks_ring" and cfg.ip_alphas
-    st = TS.init_state(cfg, batch=B)
-    bufs, ker = host_ip(host_libs, cfg, ocp, st)
-    pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
-        cfg, ocp, st, follow=bufs.get("rung")), st.mu)
-    assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
-    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
-                               rtol=0.0, atol=1e-3)
-    assert ker.X.shape == (B, 15, 5) and ker.state.lam_lo.shape[-1] == 20
 
 
 @pytest.mark.parametrize("case", ["ring-bound", "fused_ip-refuses-rows"])
@@ -598,84 +214,6 @@ def test_xla_engine_with_the_riccati_source_matches_the_plain_sweep(
 # nx=7 instance
 # --------------------------------------------------------------------------
 
-ST = dict(model="st", vehicle=VEHICLE_2)
-ST_CASES = {f"al-{k}": v for k, v in AL_CASES.items()}
-ST_CASES.update({f"ip-{k}": v for k, v in IP_CASES.items()})
-
-
-@pytest.mark.parametrize("case", list(ST_CASES))
-def test_st_sources_match_the_plain_version(host_libs, case):
-    """Both fused sources' ST instances (4 threads a lane; 2 lanes a
-    block) against the plain versions, at the KS cases' budgets, all 7
-    states in the X band."""
-    cfg, ocp = bench_ocp(**ST_CASES[case], **ST)
-    st = TS.init_state(cfg, batch=B)
-    if cfg.method == "ip":
-        bufs, ker = host_ip(host_libs, cfg, ocp, st)
-        pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
-            cfg, ocp, st, follow=bufs.get("rung")), st.mu)
-        assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
-    else:
-        bufs, ker = host_gn(host_libs, cfg, ocp, st, 4)
-        pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
-            cfg, ocp, st, follow=bufs.get("rung")))
-        assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
-    assert ker.X.shape == (B, H + 1, 7)
-
-
-@pytest.mark.parametrize("method", ["al", "ip"])
-def test_st_sources_with_boundary_rows(host_libs, method):
-    """The ST libraries' boundary instances on the bending road whose rows
-    bind (the KS cases' budgets: al 3x2 with the ladder, ip 2x6 with warm
-    duals and the ladder)."""
-    kw = (dict(al_iters=3, sqp_iters=2) if method == "al" else
-          dict(method="ip", ip_sqp_iters=2, ip_iters=6, ip_warm_duals=True))
-    cfg, ocp = corridor_ocp(**kw, **ST)
-    st = TS.init_state(cfg, batch=B)
-    if method == "ip":
-        bufs, ker = host_ip(host_libs, cfg, ocp, st)
-        pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
-            cfg, ocp, st, follow=bufs.get("rung")), st.mu)
-        assert_close(ker, pln, cs.IP_BANDS,
-                     {"lam_hi": cs.IP_STATE_BANDS["lam_hi"]})
-        # the boundary rows' duals of a lane running along the edge are
-        # degenerate (ROADMAP, known behaviours): lam_lo is held on the
-        # lanes where the plain version's own float32 and float64 solves
-        # agree, as chip_smoke's rounding_lanes excuses the others, here
-        # one lane of five
-        o64, s64 = cs.as_float64(ocp._replace(
-            boundaries=ocp.boundaries.double(),
-            boundary_signs=ocp.boundary_signs.double()), st)
-        p64 = TFI.solve_batch_fused_ip_plain(cfg, o64, s64,
-                                             follow=bufs.get("rung"))
-        band = cs.IP_STATE_BANDS["lam_lo"]
-        noisy = ~cs.lanes_close(pln.state.lam_lo.double(), p64[2], *band)
-        assert int(noisy.sum()) <= 1
-        assert bool((cs.lanes_close(ker.state.lam_lo, pln.state.lam_lo,
-                                    *band) | noisy).all())
-    else:
-        bufs, ker = host_gn(host_libs, cfg, ocp, st, 4)
-        pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
-            cfg, ocp, st, follow=bufs.get("rung")))
-        assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
-    assert cs.active_boundary_rows(cfg, pln.X, ocp.boundaries,
-                                   ocp.boundary_signs) > 0
-    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
-                               rtol=0.0, atol=1e-3)
-
-
-def test_st_al_source_at_eight_threads_a_lane_and_h40(host_libs):
-    """B=5 ragged lanes at 8 threads a lane, H=40, moving obstacles, the
-    ladder on: the ST ring's operand (71 floats) through several slots a
-    producer."""
-    cfg, ocp = bench_ocp(horizon=40, moving=True, al_iters=2, sqp_iters=2,
-                         **ST)
-    st = TS.init_state(cfg, batch=B)
-    bufs, ker = host_gn(host_libs, cfg, ocp, st, 8)
-    pln = TF.to_solution(cfg, TF.solve_batch_fused_plain(
-        cfg, ocp, st, follow=bufs.get("rung")))
-    assert_close(ker, pln, cs.BANDS, cs.STATE_BANDS)
-
 
 @pytest.mark.parametrize("kernel,horizon,knob,boundary", [
     ("fused_gn", 1, 4, False), ("fused_gn", 30, 4, False),
@@ -790,23 +328,6 @@ def test_parallel_ladder_keeps_the_sequential_rule(host_libs, case):
     regret = torch.stack([cs.rung_regret(c, m)
                           for c, m in zip(chosen, merits)])
     assert float(regret.max()) <= cs.TIE_RTOL
-
-
-def test_st_ip_ring_source_ragged_lanes_and_strided_stages(host_libs):
-    """The ST ring source at H=40 (41 stages over a block's 4 warps, a
-    thread looping over 10 or 11 of them in every separable phase and a
-    producer over 13 or 14 in every ring), B=5 lanes of a block of 32,
-    moving obstacles, warm duals and the ladder on."""
-    cfg, ocp = bench_ocp(horizon=40, moving=True, method="ip",
-                         ip_sqp_iters=2, ip_iters=3, ip_warm_duals=True, **ST)
-    st = TS.init_state(cfg, batch=B)
-    bufs, ker = host_ip(host_libs, cfg, ocp, st)
-    pln = TFI.to_solution_ip(cfg, TFI.solve_batch_fused_ip_plain(
-        cfg, ocp, st, follow=bufs.get("rung")), st.mu)
-    assert_close(ker, pln, cs.IP_BANDS, cs.IP_STATE_BANDS)
-    torch.testing.assert_close(ker.state.prev_viol, pln.state.prev_viol,
-                               rtol=0.0, atol=1e-3)
-    assert ker.X.shape == (B, 41, 7)
 
 
 @pytest.mark.parametrize("case", ["random", "st-bench-step0"])

@@ -1,21 +1,18 @@
-"""The port's scenario-to-trajectory path on the CPU: the float64 loop
-against the committed regression goldens, the ``MPCPlanner`` facade and
-its artifacts, the CLI, and the metrics, collision checks and native
-library against the JAX package's."""
+"""The port's scenario-to-trajectory path on the CPU: the ``MPCPlanner``
+facade and its artifacts, the CLI, and the metrics, collision checks and
+native library against the JAX package's.  The float64 loop against the
+committed regression goldens is ``tests/test_torch_planner_goldens.py``."""
 import json
 import os
 import subprocess
 import sys
 
 import numpy as np
-import pytest
-import torch
 
 from mpc_tpu.utils import collision as jcol
 from mpc_tpu.utils import metrics as jmet
 from mpc_tpu.utils import native as jnative
 from mpc_tpu_torch.io.config import load_config
-from mpc_tpu_torch.planner import closed_loop as cl
 from mpc_tpu_torch.planner.planner import MPCPlanner
 from mpc_tpu_torch.utils import collision as tcol
 from mpc_tpu_torch.utils import metrics as tmet
@@ -24,28 +21,6 @@ from mpc_tpu_torch.utils import native as tnative
 from asset_paths import CFG, SCN
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.mark.parametrize("config_name,tag,framework", [
-    ("config_LF_ZAM_Over-1_1.yaml", "zam_lf_casadi", None),
-    ("config_CA_ZAM_Over-1_1.yaml", "zam_ca_casadi", None),
-    ("config_LF_USA_Lanker-2_18_T-1.yaml", "usa_lf_casadi", None),
-    ("config_LF_ZAM_Over-1_1.yaml", "zam_lf_forcespro", "forcespro"),
-    ("config_CA_ZAM_Over-1_1_forcespro_ref.yaml", "zam_ca_forcespro", None),
-    ("config_LF_USA_Lanker-2_18_T-1.yaml", "usa_lf_forcespro", "forcespro"),
-])
-def test_deterministic_regression_goldens(config_name, tag, framework):
-    """The port's float64 per-lane loop reproduces the JAX package's
-    committed goldens (tests/test_closed_loop.py:179-208) at atol 1e-4."""
-    golden = np.loadtxt(os.path.join(ROOT, "tests", "goldens",
-                                     f"{tag}_states.txt"))
-    c = load_config(os.path.join(CFG, config_name), SCN)
-    if framework is not None:
-        c = type(c)(**{**c.__dict__, "framework": framework})
-    lcfg = cl.make_loop_config(c, noised=False)
-    params = cl.make_loop_params(c, lcfg, dtype=torch.float64, device="cpu")
-    res = cl.run_closed_loop(lcfg, params, device="cpu")
-    np.testing.assert_allclose(res.X.numpy(), golden, atol=1e-4)
 
 
 def test_planner_facade_and_artifacts(tmp_path):
@@ -71,10 +46,14 @@ def test_planner_facade_and_artifacts(tmp_path):
 
 
 def _cli(*args, timeout=600):
+    """The CLI in a subprocess, on one torch thread: the suite's workers
+    share the host's cores, and a plan on the CPU gains nothing from
+    torch's default of a thread a core."""
     return subprocess.run(
         [sys.executable, "-m", "mpc_tpu_torch.planner.cli", "--device",
          "cpu", "--scenario-dir", SCN, *args],
-        capture_output=True, text=True, timeout=timeout, cwd=ROOT)
+        capture_output=True, text=True, timeout=timeout, cwd=ROOT,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
 
 
 def test_cli_smoke(tmp_path):

@@ -263,9 +263,11 @@ def ranks_on_cpu(rank):
     fused wrapper's call counted as a launch (:func:`count_fused_calls`);
     a request for NCCL, which the entry point's default path makes on its
     rank's GPU, recorded and served by gloo, and the rank's default device
-    the CPU.  Returns the record (the entry piece's rank saves it)."""
+    the CPU; one torch thread, as in :func:`_rank`.  Returns the record
+    (the entry piece's rank saves it)."""
     import torch.distributed as dist
     from mpc_tpu_torch.parallel import mesh as pm
+    torch.set_num_threads(1)
     count_fused_calls(rank)
     seen = {"requested_backends": []}
     real_init, real_device = dist.init_process_group, pm.local_device
